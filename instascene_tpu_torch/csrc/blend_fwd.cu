@@ -1,14 +1,17 @@
 // Forward alpha-compositing blend of 2DGS surfels, one 16x16 tile per block.
 //
 // Replaces the TPU kernel instascene_tpu/ops/blend_visits.py::_fwd_kernel_visits
-// (K1) in its `full` and `viewer` modes. Same function, same public layout:
+// (K1) in its `full`, `viewer` and `no_dist` modes. Same function, same
+// public layout:
 //   out  [num_tiles, 12+E, 256] f32: 0:3 color (no background), 3 expected
 //        depth sum, 4:7 view normal, 7 median depth, 8 distortion, 9 final T,
 //        10:10+E features, 10+E / 11+E the m1 / m2 totals
 //   iout [num_tiles, 2, 256] i32: n_contrib (1-based within-tile slot of the
 //        last contributor; every binned slot counts) and the median's slot.
 // `viewer` writes color, final T, features and n_contrib; its other rows are
-// exact zeros.
+// exact zeros. `no_dist` skips the depth sum, the distortion and the m1/m2
+// sums (rows 3, 8, 10+E, 11+E are exact zeros); every other row and iout are
+// as `full` computes them.
 //
 // Design. The TPU kernel walks a sequential grid of (chunk, tile) visits,
 // carries T/m1/m2/done in VMEM scratch and turns the per-slot recurrence
@@ -25,41 +28,31 @@
 //
 // What bounds it on the H100: FP32 arithmetic. Each (pair, pixel) evaluation
 // is 41 FP32 operations with one expf (the splat and its mask), each
-// contribution 10 + 2E more (+25 in `full`). At 1080p on the 300k-gaussian
-// benchmark scene a frame needs ~0.2 G evaluations and ~0.05 G
-// contributions, ~10 GFLOP, against ~0.3 GB that must cross HBM (the packed
-// table, pair list and outputs): ~0.15 ms of FP32 issue against ~0.09 ms of
-// memory (chip_smoke.py counts both per run). The design keeps the
-// evaluation in registers, the rows in shared memory (broadcast reads: every
-// thread of the block reads the same row), and stops each pixel at its done
-// latch and each block when all its pixels are done.
+// contribution 10 + 2E more (+25 in `full`, +10 in `no_dist`). At 1080p on
+// the 300k-gaussian benchmark scene a frame needs ~0.2 G evaluations and
+// ~0.05 G contributions, ~10 GFLOP, against ~0.3 GB that must cross HBM (the
+// packed table, pair list and outputs): ~0.15 ms of FP32 issue against
+// ~0.09 ms of memory (chip_smoke.py counts both per run). The design keeps
+// the evaluation in registers, the rows in shared memory (broadcast reads:
+// every thread of the block reads the same row), and stops each pixel at its
+// done latch and each block when all its pixels are done.
 //
-// Rounding: built with --fmad=false and without fast math, every multiply,
-// add, division and expf is rounded alone, and the one explicit __fmaf_rn
-// is fused, as in the plain PyTorch version
-// (ops/blend_visits.py::blend_fwd_reference), which sums in the same order.
+// Rounding: see splat.cuh. The plain PyTorch version
+// (ops/blend_visits.py::blend_fwd_reference) sums in the same order.
 
 #include <cuda_runtime.h>
 
+#include "splat.cuh"
+
 namespace {
 
-constexpr int TILE = 16;
-constexpr int P2 = TILE * TILE;
+using namespace splat;
+
 constexpr int BATCH = 256;  // pair rows staged in shared memory per pass
-constexpr float NEAR_N = 0.2f;
-constexpr float MD_SCALE = (float)(100.0 / (100.0 - 0.2));  // FAR/(FAR-NEAR)
-constexpr float ALPHA_MIN = (float)(1.0 / 255.0);
-constexpr float T_DONE = 1e-4f;
 
-// packed column offsets (instascene_tpu/ops/blend_pallas.py:42-47)
-constexpr int TW = 9, XY = 12, NRM = 14, OPA = 17, COL = 18, EXT = 21;
+enum Mode { FULL = 0, VIEWER = 1, NO_DIST = 2 };  // ops/blend_visits.MODES
 
-__device__ __forceinline__ float clampf(float x, float lo, float hi) {
-  // NaN passes through, as torch.clamp / jnp.clip do
-  return x < lo ? lo : (x > hi ? hi : x);
-}
-
-template <int E, bool VIEWER>
+template <int E, int MODE>
 __global__ void __launch_bounds__(P2)
 blend_fwd_kernel(const float* __restrict__ flat,
                  const int* __restrict__ sorted_gid,
@@ -69,6 +62,8 @@ blend_fwd_kernel(const float* __restrict__ flat,
   constexpr int D = 21 + E;
   constexpr int OC = 12 + E;
   constexpr int NF = E > 0 ? E : 1;
+  constexpr bool AUX = MODE != VIEWER;   // normal and median
+  constexpr bool DIST = MODE == FULL;    // depth sum, distortion, m1/m2
   __shared__ float rows[BATCH * D];
 
   const int t = blockIdx.x;
@@ -103,56 +98,35 @@ blend_fwd_kernel(const float* __restrict__ flat,
     if (done) continue;
     for (int j = 0; j < nb; ++j) {
       const float* g = rows + j * D;
-      // ray-splat intersection p = x*A + y*B + C (blend_pallas._splat_terms),
-      // x*A fused with y*B as XLA rounds it: the form cancels heavily, and
-      // alpha sits next to the 1/255 mask often enough that the last bit
-      // of p decides contributions
-      const float px_ = __fmaf_rn(pxf, g[0], pyf * g[3]) + g[6];
-      const float py_ = __fmaf_rn(pxf, g[1], pyf * g[4]) + g[7];
-      const float pz_ = __fmaf_rn(pxf, g[2], pyf * g[5]) + g[8];
-      const bool pz_ok = pz_ != 0.0f;
-      const float inv_pz = 1.0f / (pz_ok ? pz_ : 1.0f);
-      const float sx = clampf(px_ * inv_pz, -3e4f, 3e4f);
-      const float sy = clampf(py_ * inv_pz, -3e4f, 3e4f);
-      const float rho3d = sx * sx + sy * sy;
-      const float dx = g[XY] - pxf;
-      const float dy = g[XY + 1] - pyf;
-      const float rho2d = 2.0f * (dx * dx + dy * dy);
-      const bool use3d = rho3d <= rho2d;
-      const float rho = use3d ? rho3d : rho2d;
-      const float depth_ray =
-          use3d ? sx * g[TW] + sy * g[TW + 1] + g[TW + 2] : g[TW + 2];
-      const float power = -0.5f * rho;
-      const float G = expf(power);
-      const float alpha = fminf(g[OPA] * G, 0.99f);
-      if (!(pz_ok && depth_ray >= NEAR_N && power <= 0.0f &&
-            alpha >= ALPHA_MIN))
-        continue;
-      const float test_T = T * (1.0f - alpha);
+      const Terms q = eval(g, pxf, pyf);
+      if (!q.m) continue;
+      const float test_T = T * (1.0f - q.alpha);
       if (test_T < T_DONE) {
         done = true;
         break;
       }
-      const float w = alpha * T;
+      const float w = q.alpha * T;
       const int slot = base - s + j + 1;
       col0 = col0 + w * g[COL];
       col1 = col1 + w * g[COL + 1];
       col2 = col2 + w * g[COL + 2];
 #pragma unroll
       for (int k = 0; k < E; ++k) feat[k] = feat[k] + w * g[EXT + k];
-      if (!VIEWER) {
-        dep = dep + w * depth_ray;
+      if (AUX) {
         nx = nx + w * g[NRM];
         ny = ny + w * g[NRM + 1];
         nz = nz + w * g[NRM + 2];
-        // 2DGS distortion, per-contribution form (forward.cu:396-410)
-        const float md = MD_SCALE * (1.0f - NEAR_N / depth_ray);
-        const float A = 1.0f - T;
-        dist = dist + w * (md * md * A + M2 - 2.0f * md * M1);
-        M1 = M1 + md * w;
-        M2 = M2 + md * md * w;
+        if (DIST) {
+          dep = dep + w * q.depth_ray;
+          // 2DGS distortion, per-contribution form (forward.cu:396-410)
+          const float md = MD_SCALE * (1.0f - NEAR_N / q.depth_ray);
+          const float A = 1.0f - T;
+          dist = dist + w * (md * md * A + M2 - 2.0f * md * M1);
+          M1 = M1 + md * w;
+          M2 = M2 + md * md * w;
+        }
         if (T > 0.5f) {  // median: last contributor entered with T > 0.5
-          med = depth_ray;
+          med = q.depth_ray;
           med_slot = slot;
         }
       }
@@ -181,12 +155,21 @@ blend_fwd_kernel(const float* __restrict__ flat,
   io[P2] = med_slot;
 }
 
-template <int E, bool VIEWER>
-cudaError_t launch(const float* flat, const int* sorted_gid,
+template <int E>
+cudaError_t launch(int mode, const float* flat, const int* sorted_gid,
                    const int* tile_start, const int* tile_end, int num_tiles,
                    int grid_x, float* out, int* iout, cudaStream_t stream) {
-  blend_fwd_kernel<E, VIEWER><<<num_tiles, P2, 0, stream>>>(
-      flat, sorted_gid, tile_start, tile_end, grid_x, out, iout);
+  if (mode == FULL)
+    blend_fwd_kernel<E, FULL><<<num_tiles, P2, 0, stream>>>(
+        flat, sorted_gid, tile_start, tile_end, grid_x, out, iout);
+  else if (mode == VIEWER)
+    blend_fwd_kernel<E, VIEWER><<<num_tiles, P2, 0, stream>>>(
+        flat, sorted_gid, tile_start, tile_end, grid_x, out, iout);
+  else if (mode == NO_DIST)
+    blend_fwd_kernel<E, NO_DIST><<<num_tiles, P2, 0, stream>>>(
+        flat, sorted_gid, tile_start, tile_end, grid_x, out, iout);
+  else
+    return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
 
@@ -196,23 +179,15 @@ cudaError_t launch(const float* flat, const int* sorted_gid,
 extern "C" int blend_fwd_launch(const float* flat, const int* sorted_gid,
                                 const int* tile_start, const int* tile_end,
                                 int num_tiles, int grid_x, int n_extra,
-                                int viewer, float* out, int* iout,
+                                int mode, float* out, int* iout,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (num_tiles <= 0) return (int)cudaSuccess;
   if (n_extra == 16)
-    return (int)(viewer ? launch<16, true>(flat, sorted_gid, tile_start,
-                                            tile_end, num_tiles, grid_x, out,
-                                            iout, st)
-                        : launch<16, false>(flat, sorted_gid, tile_start,
-                                            tile_end, num_tiles, grid_x, out,
-                                            iout, st));
+    return (int)launch<16>(mode, flat, sorted_gid, tile_start, tile_end,
+                           num_tiles, grid_x, out, iout, st);
   if (n_extra == 0)
-    return (int)(viewer ? launch<0, true>(flat, sorted_gid, tile_start,
-                                           tile_end, num_tiles, grid_x, out,
-                                           iout, st)
-                        : launch<0, false>(flat, sorted_gid, tile_start,
-                                           tile_end, num_tiles, grid_x, out,
-                                           iout, st));
+    return (int)launch<0>(mode, flat, sorted_gid, tile_start, tile_end,
+                          num_tiles, grid_x, out, iout, st);
   return (int)cudaErrorInvalidValue;
 }

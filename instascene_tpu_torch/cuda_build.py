@@ -45,8 +45,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
+    """The library path of csrc/<name>, keyed by its source, the shared
+    headers (csrc/*.cuh) and the flags."""
     src = CSRC / name
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 

@@ -1,6 +1,7 @@
 """Minimal PLY reader/writer (binary_little_endian + ascii), no external deps.
 
-Port of instascene_tpu/data/ply.py:32-116 (read_ply, write_ply). Produces
+Port of instascene_tpu/data/ply.py:32-158 (read_ply, write_ply,
+read_point_cloud, write_point_cloud). Produces
 files byte-compatible with the reference's plyfile output
 (scene/gaussian_model.py:285-313 writes a single 'vertex' element of f4 fields;
 scene/dataset_readers.py:124-139 writes xyz/normal f4 + rgb u1). The Gaussian
@@ -103,3 +104,46 @@ def write_ply(path: str, vertex: np.ndarray,
         le = np.dtype([(n, vertex.dtype[n].str.replace(">", "<")
                         .replace("=", "<")) for n in vertex.dtype.names])
         f.write(vertex.astype(le, copy=False).tobytes())
+
+
+def read_point_cloud(path: str):
+    """A point cloud PLY → (points [N,3] f64, colors [N,3] f64 in [0,1],
+    normals [N,3]); missing colors or normals are zeros."""
+    data = read_ply(path)["vertex"]
+    pts = np.stack([data["x"], data["y"], data["z"]],
+                   axis=-1).astype(np.float64)
+    names = data.dtype.names
+    if "red" in names:
+        colors = np.stack([data["red"], data["green"], data["blue"]],
+                          axis=-1).astype(np.float64) / 255.0
+    else:
+        colors = np.zeros_like(pts)
+    if "nx" in names:
+        normals = np.stack([data["nx"], data["ny"], data["nz"]], axis=-1)
+    else:
+        normals = np.zeros_like(pts)
+    return pts, colors, normals
+
+
+def write_point_cloud(path: str, xyz: np.ndarray, rgb: np.ndarray = None,
+                      normals: np.ndarray = None) -> None:
+    """Write xyz, normals (zeros if none) and, given rgb, uint8 colors:
+    x,y,z,nx,ny,nz f4 + red,green,blue u1 (the reference's storePly
+    layout). Float rgb in [0, 1] is scaled to 0-255."""
+    n = len(xyz)
+    fields = [("x", "f4"), ("y", "f4"), ("z", "f4"), ("nx", "f4"),
+              ("ny", "f4"), ("nz", "f4")]
+    if normals is None:
+        normals = np.zeros_like(xyz)
+    if rgb is not None:
+        fields += [("red", "u1"), ("green", "u1"), ("blue", "u1")]
+    arr = np.empty(n, dtype=fields)
+    arr["x"], arr["y"], arr["z"] = xyz[:, 0], xyz[:, 1], xyz[:, 2]
+    arr["nx"], arr["ny"], arr["nz"] = (normals[:, 0], normals[:, 1],
+                                       normals[:, 2])
+    if rgb is not None:
+        if rgb.dtype != np.uint8:
+            rgb = np.clip(rgb * 255.0 if rgb.max() <= 1.0 + 1e-6 else rgb,
+                          0, 255).astype(np.uint8)
+        arr["red"], arr["green"], arr["blue"] = rgb[:, 0], rgb[:, 1], rgb[:, 2]
+    write_ply(path, arr)

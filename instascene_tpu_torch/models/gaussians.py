@@ -1,10 +1,12 @@
 """Gaussian-surfel parameter state as a dataclass of tensors.
 
-Port of instascene_tpu/models/gaussians.py:32-81 (`GaussianParams` and its
-activations) and :124-233 (`compact`, `save_ply`, `load_ply`), plus
+Port of instascene_tpu/models/gaussians.py:32-121 (`GaussianParams` with
+its activations, `capacity`, `n_alive`, `one_up_sh_degree`, and
+`create_from_pcd`) and :124-233 (`compact`, `save_ply`, `load_ply`), plus
 `from_numpy`, which takes the JAX field names as numpy arrays so both
 packages can be fed one state. Fixed capacity with an `alive` mask, as in
-the JAX package.
+the JAX package: densification writes new gaussians into dead slots
+(models/densify.py).
 
 Parameterization: scaling stored as log (exp activation, two surfel axes),
 opacity as logit (sigmoid), rotation as an unnormalized (w,x,y,z)
@@ -69,6 +71,18 @@ class GaussianModel:
     def device(self) -> torch.device:
         return self.xyz.device
 
+    @property
+    def capacity(self) -> int:
+        return self.xyz.shape[0]
+
+    def n_alive(self) -> int:
+        return int(self.alive.sum())
+
+    def one_up_sh_degree(self) -> "GaussianModel":
+        if self.active_sh_degree < self.max_sh_degree:
+            return self.replace(active_sh_degree=self.active_sh_degree + 1)
+        return self
+
     def replace(self, **kw) -> "GaussianModel":
         return dataclasses.replace(self, **kw)
 
@@ -100,6 +114,47 @@ def from_numpy(d: dict, device=None) -> GaussianModel:
         alive=t("alive", torch.bool), seg_feature=t("seg_feature"),
         active_sh_degree=int(d.get("active_sh_degree", 0)),
         max_sh_degree=int(d.get("max_sh_degree", 3)))
+
+
+def create_from_pcd(points: np.ndarray, colors: np.ndarray, dist2: np.ndarray,
+                    capacity: Optional[int] = None, max_sh_degree: int = 3,
+                    seg_feat_dim: int = 0, seed: int = 0,
+                    device=None) -> GaussianModel:
+    """Initialize from an SfM point cloud (reference
+    gaussian_model.py:181-204): colors → SH dc, both scales
+    log(sqrt(mean 3-NN dist²)), random quaternions from numpy's
+    default_rng(seed) (so the state equals the JAX package's for a seed),
+    opacity logit(0.1), dead slots up to `capacity`."""
+    from ..ops.sh import RGB2SH, num_sh_coeffs
+    from ..utils.general import inverse_sigmoid
+    n = points.shape[0]
+    cap = capacity or n
+    if cap < n:
+        raise ValueError(f"capacity {cap} < {n} points")
+    rng = np.random.default_rng(seed)
+    R = num_sh_coeffs(max_sh_degree) - 1
+
+    def pad(a):
+        return np.concatenate(
+            [a, np.zeros((cap - n,) + a.shape[1:], a.dtype)], axis=0)
+
+    f_dc = RGB2SH(colors.astype(np.float32))[:, None, :]
+    scales = np.log(np.sqrt(np.maximum(dist2, 1e-7)))[:, None].repeat(2, 1)
+    rots = rng.random((n, 4)).astype(np.float32)
+    opac = inverse_sigmoid(0.1 * np.ones((n, 1), np.float32))
+    alive = np.zeros(cap, bool)
+    alive[:n] = True
+    seg = None
+    if seg_feat_dim:
+        seg = rng.random((n, seg_feat_dim)).astype(np.float32)
+        seg = pad(seg / np.linalg.norm(seg, axis=1, keepdims=True))
+    return from_numpy(dict(
+        xyz=pad(points.astype(np.float32)),
+        features_dc=pad(f_dc.astype(np.float32)),
+        features_rest=np.zeros((cap, R, 3), np.float32),
+        scaling=pad(scales.astype(np.float32)), rotation=pad(rots),
+        opacity=pad(opac.astype(np.float32)), alive=alive, seg_feature=seg,
+        active_sh_degree=0, max_sh_degree=max_sh_degree), device)
 
 
 def compact(p: GaussianModel) -> GaussianModel:

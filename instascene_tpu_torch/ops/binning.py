@@ -13,6 +13,12 @@ visible gaussians, with depth_bits = min(22, 31 − tile_bits), capped at
 31 − bits_x − bits_y when bits_x + bits_y + 12 <= 31. The JAX sort is
 unstable; this one is stable over the gid-ascending pair list, so key ties
 go gid-ascending.
+
+It also returns each gaussian's slots as one run, for the backward's
+per-gaussian sum, without a second sort: the pairs expand gid-ascending and
+a gaussian's tiles ascend in its rect's row-major order, so within a
+gaussian the sort keeps its pairs in slot order, and the inverse of the
+sort's permutation lists every gaussian's slots contiguously in slot order.
 """
 
 from __future__ import annotations
@@ -30,6 +36,10 @@ class BinningOut(NamedTuple):
     tile_start: torch.Tensor   # [num_tiles] int32 first slot of each tile
     tile_end: torch.Tensor     # [num_tiles] int32 one past its last slot
     total_pairs: int
+    # gaussian g's slots are gid_order[run_start[g]:run_start[g + 1]],
+    # ascending
+    gid_order: torch.Tensor    # [total] int32 slot of each gid-major pair
+    run_start: torch.Tensor    # [N + 1] int32
 
 
 def depth_bits_for(grid_x: int, grid_y: int) -> int:
@@ -55,8 +65,9 @@ def bin_gaussians(pre: PreprocessOut, width: int, height: int) -> BinningOut:
     total = int(tiles_touched.sum())          # the frame's one host read
     if total == 0:
         z = torch.zeros(num_tiles, dtype=torch.int32, device=dev)
-        return BinningOut(torch.zeros(0, dtype=torch.int32, device=dev),
-                          z, z.clone(), 0)
+        none = torch.zeros(0, dtype=torch.int32, device=dev)
+        return BinningOut(none, z, z.clone(), 0, none.clone(),
+                          torch.zeros(n + 1, dtype=torch.int32, device=dev))
 
     depth_bits = depth_bits_for(grid_x, grid_y)
     g_valid = tiles_touched > 0
@@ -88,5 +99,10 @@ def bin_gaussians(pre: PreprocessOut, width: int, height: int) -> BinningOut:
         sorted_key >> depth_bits,
         torch.arange(num_tiles + 1, dtype=torch.int64, device=dev),
         side="left").to(torch.int32)
+    gid_order = torch.empty(total, dtype=torch.int32, device=dev)
+    gid_order[order] = torch.arange(total, dtype=torch.int32, device=dev)
+    run_start = torch.cat([offsets, offsets.new_tensor([total])])
     return BinningOut(sorted_gid=sorted_gid, tile_start=bounds[:-1].contiguous(),
-                      tile_end=bounds[1:].contiguous(), total_pairs=total)
+                      tile_end=bounds[1:].contiguous(), total_pairs=total,
+                      gid_order=gid_order,
+                      run_start=run_start.to(torch.int32))

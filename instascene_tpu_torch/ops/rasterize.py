@@ -1,11 +1,15 @@
 """Rasterize 2D gaussian surfels: preprocess → bin → pack → blend (K1).
 
 Port of instascene_tpu/ops/rasterize.py:35-143 (`RasterizeConfig`, reduced
-to what this slice serves), :242-364 (`_rasterize_impl`, `rasterize`) and
+to what the port serves so far), :242-364 (`_rasterize_impl`, `rasterize`,
+with the t_offset densification tap), :488-495 (`densify_screen_grad`) and
 instascene_tpu/ops/rasterize_pallas.py:30-57 (`pallas_tiles_to_map`,
 `maps_from_pallas`). Buffers follow the exact pair total, so the TPU's pair
 and tile caps, their grow-and-retry loop, slab plans and gather tuning are
 gone; `n_dropped` is always 0.
+
+Differentiable: torch autograd runs through preprocess, SH and pack, and
+the blend's gradient comes from K2 (ops/blend_visits.BlendFunction).
 
 Flags that belong to later slices raise NotImplementedError rather than
 being ignored.
@@ -19,7 +23,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from .binning import bin_gaussians
-from .blend_visits import blend_fwd, pack_flat_cols
+from . import blend_visits as bv
+from .blend_visits import pack_flat_cols
 from .preprocess import TILE, preprocess_gaussians
 
 
@@ -36,10 +41,14 @@ class RasterizeConfig:
     # viewer fast path: forward-only color + alpha [+ features]; depth,
     # normal, median and distortion outputs are zeros
     fwd_viewer: bool = False
+    # skip the expected-depth and distortion machinery (K1/K2 no_dist) for
+    # callers whose loss reads neither rend_dist nor the expected depth
+    # (lambda_dist == 0 and depth_ratio == 1, the reference defaults); the
+    # depth and distortion outputs come back exact zeros
+    no_depth_dist: bool = False
     # later slices
     track_contrib: bool = False      # K1 track mode (slice 4)
     bwd_extras_only: bool = False    # K1 extras_only + K2 (slice 3)
-    no_depth_dist: bool = False      # K1 no_dist + K2 (slice 2)
     clip_rect: bool = False          # K1 clip_rect (slice 4)
     conic_cull: bool = False         # preprocess.conic_cull_masks (slice 4)
     tiles_per_view: int = 0          # K1 merged multi-view (slice 4)
@@ -49,7 +58,6 @@ class RasterizeConfig:
                                   "mode)",
                  "bwd_extras_only": "slice 3 (semantic step, K1 extras_only "
                                     "and K2)",
-                 "no_depth_dist": "slice 2 (geometry training, K1 no_dist)",
                  "clip_rect": "slice 4 (cached-superset binning, K1 "
                               "clip_rect)",
                  "conic_cull": "slice 4 (exact conic pair culling)",
@@ -108,11 +116,15 @@ def maps_from_tiles(out, iout, width, height, n_extra) -> dict:
 
 def rasterize(means3d, scales, rotations, opacities, cam: CameraMats, bg,
               cfg: RasterizeConfig, colors=None, shs=None, sh_degree: int = 0,
-              extras=None, alive=None, done0=None) -> RasterizeOut:
+              extras=None, t_offset=None, alive=None,
+              done0=None) -> RasterizeOut:
     """means3d [N,3]; scales [N,2] (activated); rotations [N,4] (w,x,y,z);
     opacities [N] or [N,1] (activated); exactly one of colors [N,3] /
-    shs [N,K,3]; extras [N,E] optional feature channels. All on one
-    device: CUDA runs the kernel, CPU its plain version."""
+    shs [N,K,3]; extras [N,E] optional feature channels; t_offset [N,3,3]
+    optional zero tensor whose gradient is dL/dT (the densification tap:
+    added to T after the screen AABB, so it reaches the blend alone). All
+    on one device: CUDA runs the kernels, CPU their plain versions.
+    Differentiable unless cfg.fwd_viewer."""
     cfg.check()
     if done0 is not None:
         raise NotImplementedError("sampled-pixel done0 masks come in slice 3 "
@@ -127,10 +139,17 @@ def rasterize(means3d, scales, rotations, opacities, cam: CameraMats, bg,
     binning = bin_gaussians(pre, width, height)
     E = extras.shape[1] if extras is not None else 0
     grid_x = (width + TILE - 1) // TILE
-    flat = pack_flat_cols(pre.T, pre.xy, pre.normal_view, opac, pre.color,
+    T_used = pre.T if t_offset is None else pre.T + t_offset
+    flat = pack_flat_cols(T_used, pre.xy, pre.normal_view, opac, pre.color,
                           extras)
-    out, iout = blend_fwd(flat, binning.sorted_gid, binning.tile_start,
-                          binning.tile_end, grid_x, E, viewer=cfg.fwd_viewer)
+    bargs = (binning.sorted_gid, binning.tile_start, binning.tile_end,
+             grid_x, E)
+    if cfg.fwd_viewer:
+        out, iout = bv.blend_fwd(flat.detach(), *bargs, viewer=True)
+    else:
+        out, iout = bv.blend(flat, *bargs,
+                             (binning.gid_order, binning.run_start),
+                             no_dist=cfg.no_depth_dist)
     maps = maps_from_tiles(out, iout, width, height, E)
     bg = torch.as_tensor(bg, dtype=torch.float32, device=means3d.device)
     color = maps["color_nobg"] + maps["final_T"][..., None] * bg
@@ -144,3 +163,13 @@ def rasterize(means3d, scales, rotations, opacities, cam: CameraMats, bg,
                         visible=pre.valid & (pre.radius > 0),
                         depth=pre.depth, n_dropped=0, T=pre.T,
                         total_pairs=binning.total_pairs)
+
+
+def densify_screen_grad(t_grad: torch.Tensor, depth: torch.Tensor,
+                        width: int, height: int) -> torch.Tensor:
+    """dL/dT → the reference's NDC-space view-space gradient of the
+    densification stats (backward.cu:652-655): dL/dT[0,2]·z·W/2,
+    dL/dT[1,2]·z·H/2. [N,2]."""
+    gx = t_grad[:, 0, 2] * depth * 0.5 * width
+    gy = t_grad[:, 1, 2] * depth * 0.5 * height
+    return torch.stack([gx, gy], dim=-1)

@@ -1,7 +1,8 @@
 """Spherical harmonics evaluation, degrees 0-3.
 
-Port of instascene_tpu/ops/sh.py:14-80 (`eval_sh`, `sh_to_color`): same
-constants, same `+0.5, clamp at 0` convention.
+Port of instascene_tpu/ops/sh.py:14-80 (`RGB2SH`, `num_sh_coeffs`,
+`eval_sh`, `sh_to_color`): same constants, same `+0.5, clamp at 0`
+convention.
 """
 
 from __future__ import annotations
@@ -15,6 +16,14 @@ C2 = (1.0925484305920792, -1.0925484305920792, 0.31539156525252005,
 C3 = (-0.5900435899266435, 2.890611442640554, -0.4570457994644658,
       0.3731763325901154, -0.4570457994644658, 1.445305721320277,
       -0.5900435899266435)
+
+
+def RGB2SH(rgb):
+    return (rgb - 0.5) / C0
+
+
+def num_sh_coeffs(degree: int) -> int:
+    return (degree + 1) ** 2
 
 
 def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:

@@ -48,12 +48,10 @@ def render(viewpoint_camera, gaussians, pipe, bg_color,
 
     viewer=True: forward-only fast path — only `render`, `rend_alpha` and
     `seg_feature` are meaningful; depth/normal/median/distortion outputs are
-    zeros."""
+    zeros. t_offset [N,3,3]: the densification tap (see
+    ops.rasterize.rasterize). Differentiable through torch autograd and K2
+    unless viewer=True."""
     p = gaussians
-    if t_offset is not None:
-        raise NotImplementedError("the t_offset densification tap needs the "
-                                  "blend backward (K2), which comes in "
-                                  "slice 2")
     dev = p.device
     width = int(viewpoint_camera.width)
     height = int(viewpoint_camera.height)
@@ -80,7 +78,8 @@ def render(viewpoint_camera, gaussians, pipe, bg_color,
     out = rasterize(p.xyz, p.scaling_activated() * scaling_modifier,
                     p.rotation_normalized(), p.opacity_activated()[:, 0],
                     cam, bg_color, cfg, colors=colors, shs=shs,
-                    sh_degree=sh_degree, extras=seg_feature, alive=p.alive)
+                    sh_degree=sh_degree, extras=seg_feature,
+                    t_offset=t_offset, alive=p.alive)
     b = out.blend
     rend_alpha = b.alpha[..., None]
     common = {

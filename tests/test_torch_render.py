@@ -134,14 +134,22 @@ def test_later_slice_options_raise():
     st, mk = make_bench_scene(n=50, seed=0, profile="trained")
     p = from_numpy(st, device="cpu")
     cam = mk(0, 32, 32)
-    for flag in ("bwd_extras_only", "no_depth_dist", "clip_rect",
-                 "conic_cull", "track_contrib"):
+    for flag in ("bwd_extras_only", "clip_rect", "conic_cull",
+                 "track_contrib"):
         with pytest.raises(NotImplementedError, match="slice"):
             render(cam, p, PipelineParams(), np.zeros(3),
                    cfg=RasterizeConfig(32, 32, **{flag: True}))
     with pytest.raises(NotImplementedError, match="slice"):
         render(cam, p, PipelineParams(), np.zeros(3),
                cfg=RasterizeConfig(32, 32, tiles_per_view=4))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        render(cam, p, PipelineParams(), np.zeros(3),
-               t_offset=torch.zeros(50, 3, 3))
+    # slice 2 serves no_depth_dist and the t_offset densification tap
+    out = render(cam, p, PipelineParams(), np.zeros(3),
+                 cfg=RasterizeConfig(32, 32, no_depth_dist=True))
+    assert not out["rend_dist"].any()
+    # (surfels scaled up: a splat smaller than the 2D filter takes no
+    # gradient through T, only through its centre)
+    t0 = torch.zeros(50, 3, 3, requires_grad=True)
+    out = render(cam, p, PipelineParams(), np.zeros(3), t_offset=t0,
+                 scaling_modifier=12.0)
+    out["render"].sum().backward()
+    assert torch.isfinite(t0.grad).all() and t0.grad.any()
