@@ -43,7 +43,29 @@ lines; any failure exits non-zero and prints no result:
    a save and a checkpoint at 30, and a resume from the checkpoint. K1 and
    K2 must have launched; n_alive must grow, PSNR must rise, the PLY must
    load back.
-6. one JSON line with the kernels' numbers, then the last line
+   Phase 2 also holds K1 `track` (E=0 and 16), K1 `extras_only` (E=16)
+   without and with a ~2,000-pixel done0 mask (sampled pixels bit for bit
+   `full`'s, the others T = 1, 0, n_contrib 0) and K2 `extras_only` on
+   each against their plain versions at mid size;
+6. the semantic frame at 976x728 (the same scene with its features, E=16):
+   K1 extras_only with a 32k-pixel done0 and without, K2 extras_only, the
+   segment sum at D=16 and K1 track against their plain versions, timed,
+   with their bounds;
+7. the semantic path at full width: semantic_train_step with bench.py's
+   inputs (3 warm-up and 20 timed plain steps, 3 warm-up and 6 timed
+   steps with the 5-view window) with the stage split and the sustained
+   it/s, launch counts reset just before the steps and read just after
+   (K1 and K2 extras_only and the segment sum must have launched); the
+   tracker view's s/view; then the semantic CLI (train_semantic.main) on
+   a scene written with the port's writers (the geometry CLI's 8 views,
+   point_cloud.ply, sam/mask maps from the port's tracker render):
+   priors, 30 iterations, a save, the HDBSCAN export, launch counts reset
+   just before main and read just after. It must find >= 2 instances and
+   write output_dict.npy, sam/mask_sorted, a PLY with segfeat_0..15 that
+   loads back finite and point_cloud_labels.ply; K1 extras_only and
+   track, K2 extras_only and the segment sum must have launched in it.
+   Each phase prints its seconds;
+8. one JSON line with the kernels' numbers, then the last line
    {"ok": true, "device": {...}}.
 """
 
@@ -117,6 +139,9 @@ OPS_HIT_MODE = {"full": 25, "no_dist": 10, "viewer": 0}
 OPS_BWD_HIT = 54
 OPS_BWD_HIT_E = 3
 OPS_BWD_HIT_FULL = 24
+# the packed columns the splat and its mask read: A, B, C, Tw, xy, opacity
+# (not the view normal or the color)
+SPLAT_COLS = 15
 
 
 class SmokeFailure(Exception):
@@ -187,10 +212,13 @@ def stage_ms(p, cam, width, height):
             "pack": time_ms(lambda: pack(pre), 3)}
 
 
-def time_ms(fn, reps):
-    """Median of `reps` CUDA-event timings of fn() (after one warm-up)."""
+def time_ms(fn, reps, warm=True):
+    """Median of `reps` CUDA-event timings of fn() (after one warm-up call
+    unless warm=False: the plain versions, whose launches an earlier call
+    already warmed)."""
     import torch
-    fn()
+    if warm:
+        fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -251,16 +279,21 @@ def compare_kernel(label, flat, b, grid_x, E, mode, exact, timing=False):
     return res
 
 
-def k1_bound(flat, b, E, mode, n_eval, n_hit):
+def k1_bound(flat, b, E, mode, n_eval, n_hit, extra_bytes=0):
     """Least time for K1's work on these inputs: each input read once and
     each output written once over HBM bandwidth, against the FP32
     operations these inputs need at the FP32 SIMT peak — every pixel
     evaluates its tile's slots until it latches done (n_eval), and
-    contributes n_hit times."""
+    contributes n_hit times. `extras_only` needs only the splat and
+    feature columns of flat and writes only final T, the features and
+    n_contrib (the other rows are zeros that nothing reads). extra_bytes:
+    a mode's other inputs and outputs (done0, the contributor buffer)."""
     import torch
     nt = b.tile_start.numel()
-    bytes_ = (flat.numel() * 4 + b.sorted_gid.numel() * 4 + 2 * nt * 4
-              + nt * (12 + E) * 256 * 4 + nt * 2 * 256 * 4)
+    cols, rows, irows = ((SPLAT_COLS + E, 1 + E, 1) if mode == "extras_only"
+                         else (flat.shape[1], 12 + E, 2))
+    bytes_ = (flat.shape[0] * cols * 4 + b.sorted_gid.numel() * 4
+              + 2 * nt * 4 + nt * (rows + irows) * 256 * 4 + extra_bytes)
     evals = int(n_eval.sum(dtype=torch.int64))
     hits = int(n_hit.sum(dtype=torch.int64))
     ops = evals * OPS_EVAL + hits * (OPS_HIT + 2 * E + OPS_HIT_MODE[mode])
@@ -285,15 +318,17 @@ def col_rel_err(got, want):
     return float(((got - want).abs().amax(dim=0) / scale).max())
 
 
-def compare_k2(label, flat, b, grid_x, E, no_dist, timing=False):
-    """K2 and the segment sum on the card against their plain versions on
-    the same inputs (K1's own forward, one seeded random cotangent), then
-    both kernels a second time: d_sorted and d_flat bit for bit equal."""
+def compare_k2(label, flat, b, grid_x, E, mode, timing=False, fwd=None):
+    """K2 in `mode` (full, no_dist or extras_only) and the segment sum on
+    the card against their plain versions on the same inputs (K1's own
+    forward in that mode, or the given fwd = (out, iout), and one seeded
+    random cotangent), then both kernels a second time: d_sorted and d_flat
+    bit for bit equal."""
     import torch
     from instascene_tpu_torch.ops import blend_visits as bv
-    mode = "no_dist" if no_dist else "full"
+    kw = dict(no_dist=mode == "no_dist", extras_only=mode == "extras_only")
     args = (flat, b.sorted_gid, b.tile_start, b.tile_end, grid_x, E)
-    out, iout = bv.blend_fwd(*args, no_dist=no_dist)
+    out, iout = fwd if fwd is not None else bv.blend_fwd(*args, **kw)
     saved = torch.stack([out[:, 9], out[:, 10 + E], out[:, 11 + E]],
                         dim=1).contiguous()
     gen = torch.Generator(device=flat.device).manual_seed(5 + E)
@@ -301,14 +336,14 @@ def compare_k2(label, flat, b, grid_x, E, no_dist, timing=False):
     n = flat.shape[0]
     runs = (b.gid_order, b.run_start)
     bwd = (*args, gout, saved, iout)
-    d1 = bv.blend_bwd(*bwd, no_dist=no_dist)
+    d1 = bv.blend_bwd(*bwd, **kw)
     f1 = bv.reduce_per_gaussian(d1, b.sorted_gid, n, runs)
-    d2 = bv.blend_bwd(*bwd, no_dist=no_dist)
+    d2 = bv.blend_bwd(*bwd, **kw)
     f2 = bv.reduce_per_gaussian(d2, b.sorted_gid, n, runs)
     torch.cuda.synchronize()
     same = bool(torch.equal(d1, d2) and torch.equal(f1, f2))
     d_ref, (evals, hits, slots) = bv.blend_bwd_reference(
-        *bwd, no_dist=no_dist, count_work=True)
+        *bwd, count_work=True, **kw)
     f_ref = bv.reduce_per_gaussian_reference(d_ref, b.sorted_gid, n)
     torch.cuda.synchronize()
     err_rows, err_flat = col_rel_err(d1, d_ref), col_rel_err(f1, f_ref)
@@ -327,18 +362,23 @@ def compare_k2(label, flat, b, grid_x, E, no_dist, timing=False):
            "flat_max_abs_err": float((f1 - f_ref).abs().max()),
            "rel_err": max(err_rows, err_flat)}
     if timing:
-        D = 21 + E
+        D = d1.shape[1]
         nt = b.tile_start.numel()
         pairs = b.sorted_gid.numel()
-        res["ms"] = time_ms(lambda: bv.blend_bwd(*bwd, no_dist=no_dist), 20)
+        res["ms"] = time_ms(lambda: bv.blend_bwd(*bwd, **kw), 20)
         res["plain_ms"] = time_ms(lambda: bv.blend_bwd_reference(
-            *bwd, no_dist=no_dist), 1)
-        bytes_ = (flat.numel() * 4 + pairs * 4 + 2 * nt * 4
-                  + nt * (12 + E + 3 + 2) * 256 * 4 + pairs * D * 4)
-        ops = (evals * OPS_EVAL
-               + hits * (OPS_BWD_HIT + OPS_BWD_HIT_E * E
-                         + (0 if no_dist else OPS_BWD_HIT_FULL))
-               + (hits - slots) * D)
+            *bwd, **kw), 1, warm=False)
+        # extras_only reads the splat columns of flat and per pixel gout's
+        # E feature rows, final T and n_contrib; the other modes all of
+        # flat, gout, saved (T, m1, m2) and iout
+        cols, rows = ((SPLAT_COLS, E + 2) if mode == "extras_only"
+                      else (flat.shape[1], 12 + E + 3 + 2))
+        bytes_ = (flat.shape[0] * cols * 4 + pairs * 4 + 2 * nt * 4
+                  + nt * rows * 256 * 4 + pairs * D * 4)
+        per_hit = (OPS_BWD_EXTRAS_HIT + E if mode == "extras_only" else
+                   OPS_BWD_HIT + OPS_BWD_HIT_E * E
+                   + (OPS_BWD_HIT_FULL if mode == "full" else 0))
+        ops = evals * OPS_EVAL + hits * per_hit + (hits - slots) * D
         res.update(bound(bytes_, ops), evals=evals, hits=hits, slots=slots)
         gid64 = b.sorted_gid.to(torch.int64)
         acc = torch.zeros((n, D), dtype=torch.float32, device=flat.device)
@@ -521,9 +561,8 @@ def train_frame_kernels(p, make_cam):
           f"most {k1['max_evals']} evaluations, {k1['hits']} contributions, "
           f"{k1['ops']} FP32 ops)", flush=True)
     k2 = {}
-    for no_dist in (True, False):
-        r = compare_k2("train-frame", flat, b, gx, 0, no_dist, timing=True)
-        mode = "no_dist" if no_dist else "full"
+    for mode in ("no_dist", "full"):
+        r = compare_k2("train-frame", flat, b, gx, 0, mode, timing=True)
         sg = r["segment_sum"]
         print(f"[kernel] train-frame K2 {mode} E=0: K2 {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
@@ -536,44 +575,65 @@ def train_frame_kernels(p, make_cam):
 
 
 class StageClock:
-    """CUDA events recorded as a train step's stages end (train_step's
-    on_stage), and around K2 and the segment sum inside its backward."""
+    """CUDA events recorded as a step's stages end (the step's on_stage
+    marks), and around every call of the stage functions wrapped with
+    `wrapped` while a clock is current, summed per stage."""
 
     current = None
 
     def __init__(self):
         import torch
         self.torch = torch
-        self.events = []
+        self.marks = {}
+        self.spans = []          # (stage, start event, end event)
         self.mark("start")
 
-    def mark(self, name):
+    def event(self):
         e = self.torch.cuda.Event(enable_timing=True)
         e.record()
-        self.events.append((name, e))
+        return e
 
-    def split(self):
-        """Stage ms of the step (call after a synchronize)."""
-        ev = dict(self.events)
-        el = lambda a, b: ev[a].elapsed_time(ev[b])
-        k2 = el("k2_start", "k2")
-        red = el("reduce_start", "reduce")
-        return {"step": el("start", "adam"),
-                "forward render": el("start", "render"),
-                "losses": el("render", "loss"),
-                "K2": k2, "reduction": red,
-                "rest of backward": el("loss", "backward") - k2 - red,
-                "Adam + densify stats": el("backward", "adam")}
+    def mark(self, name):
+        self.marks[name] = self.event()
+
+    def ms(self, a, b):
+        """ms from mark a to mark b (after a synchronize)."""
+        return self.marks[a].elapsed_time(self.marks[b])
+
+    def total(self, stage):
+        """ms summed over the wrapped calls of `stage`."""
+        return sum(a.elapsed_time(b) for s, a, b in self.spans if s == stage)
 
 
-def clocked(fn, before, after):
-    """fn with CUDA events recorded (StageClock.current) around each call."""
-    def call(*args, **kw):
-        StageClock.current.mark(before)
-        out = fn(*args, **kw)
-        StageClock.current.mark(after)
-        return out
-    return call
+def wrapped(stages):
+    """Context manager: {(module, name): stage} replaced by the function
+    with events around each call into StageClock.current, restored on
+    exit."""
+    import contextlib
+
+    def wrap(fn, stage):
+        def call(*args, **kw):
+            clock = StageClock.current
+            if clock is None:
+                return fn(*args, **kw)
+            a = clock.event()
+            out = fn(*args, **kw)
+            clock.spans.append((stage, a, clock.event()))
+            return out
+        return call
+
+    @contextlib.contextmanager
+    def cm():
+        saved = {k: getattr(*k) for k in stages}
+        for (mod, name), stage in stages.items():
+            setattr(mod, name, wrap(saved[(mod, name)], stage))
+        try:
+            yield
+        finally:
+            for (mod, name), fn in saved.items():
+                setattr(mod, name, fn)
+            StageClock.current = None
+    return cm()
 
 
 def train_phase(p0, make_cam, dev):
@@ -598,10 +658,8 @@ def train_phase(p0, make_cam, dev):
     lrs = geometry_lrs(OptimizationParams(), 1.0, 1e-4)
     bg = torch.zeros(3, device=dev)
     results = {}
-    orig = (bv.blend_bwd, bv.reduce_per_gaussian)
-    bv.blend_bwd = clocked(orig[0], "k2_start", "k2")
-    bv.reduce_per_gaussian = clocked(orig[1], "reduce_start", "reduce")
-    try:
+    with wrapped({(bv, "blend_bwd"): "K2",
+                  (bv, "reduce_per_gaussian"): "reduction"}):
         for recipe, dist, steps in (("no_dist", False, TRAIN["steps"]),
                                     ("dist", True, TRAIN["dist_steps"])):
             cfg = RasterizeConfig(W, H, no_depth_dist=not dist)
@@ -618,7 +676,16 @@ def train_phase(p0, make_cam, dev):
                     **lam)
                 torch.cuda.synchronize()
                 if i >= TRAIN["warm"]:
-                    splits.append(clock.split())
+                    k2, red = clock.total("K2"), clock.total("reduction")
+                    splits.append({
+                        "step": clock.ms("start", "adam"),
+                        "forward render": clock.ms("start", "render"),
+                        "losses": clock.ms("render", "loss"),
+                        "K2": k2, "reduction": red,
+                        "rest of backward": clock.ms("loss", "backward")
+                        - k2 - red,
+                        "Adam + densify stats": clock.ms("backward",
+                                                         "adam")})
                     losses.append(float(m["loss"]))
                     pairs.append(int(m["total_pairs"]))
             med = {k: float(np.median([x[k] for x in splits]))
@@ -631,9 +698,6 @@ def train_phase(p0, make_cam, dev):
             check(all(np.isfinite(losses)), f"{recipe}: non-finite loss")
             results[recipe] = {"median_ms": med, "pairs": pairs,
                                "losses": losses}
-    finally:
-        bv.blend_bwd, bv.reduce_per_gaussian = orig
-        StageClock.current = None
     return results
 
 
@@ -754,6 +818,400 @@ def cli_phase(st, make_cam, tmp):
           "the resume did not take one more step")
 
 
+# ---------------------------------------------------------------- semantic
+# the semantic benchmark (bench.py:207-329): 976x728, six orbit cameras, a
+# random 40-label segmap (rng(1)) and random 3D labels, batch 32k, 64
+# labels, lambda (sv 1e-6, mv 1e-6, 3D 2.5e-6), the 5-view window (views
+# 1-5) every 10th step; sustained it/s = 1 / (0.9 t_plain + 0.1 t_mv)
+SEM = dict(width=976, height=728, cams=6, labels=40, batch=32 * 1024,
+           max_labels=64, warm=3, steps=20, mv_steps=6, n_mv=5)
+SEM_CLI_ITERS = 30
+# K1 extras_only adds per contribution the done test and the weight (4)
+# and E features (2 each), no color; track is `full` plus the w > 0.1 test
+OPS_HIT_MODE.update({"extras_only": -6, "track": 26})
+# K2 extras_only per contribution: T recovered and w (3) + 1 per feature
+OPS_BWD_EXTRAS_HIT = 3
+
+
+def done0_of(idx, nt, width, dev):
+    """[T, 1, 256] int32 done mask latching all but the flat pixels idx."""
+    import torch
+    d = torch.ones((nt, 1, 256), dtype=torch.int32, device=dev)
+    gx = (width + 15) // 16
+    y, x = idx // width, idx % width
+    d[(y // 16) * gx + x // 16, 0, (y % 16) * 16 + x % 16] = 0
+    return d
+
+
+def compare_extras(label, flat, b, grid_x, width, height, n_sampled,
+                   timing=False):
+    """K1 extras_only (E=16) on the card against its plain version, without
+    and with a done0 mask of n_sampled random pixels: final T and features
+    within TOL, n_contrib exactly; at the sampled pixels T and features bit
+    for bit K1 `full`'s, the others (T = 1, 0, n_contrib 0). Then K2
+    extras_only on each forward against its plain version (K2_TOL of each
+    column's largest |value|), the segment sum at D = 16, both twice (bit
+    for bit equal). Returns the numbers for the kernels' line."""
+    import torch
+    from instascene_tpu_torch.ops import blend_visits as bv
+    E = 16
+    args = (flat, b.sorted_gid, b.tile_start, b.tile_end, grid_x, E)
+    nt = b.tile_start.numel()
+    gen = torch.Generator(device=flat.device).manual_seed(11)
+    idx = torch.randint(0, width * height, (n_sampled,), generator=gen,
+                        device=flat.device)
+    d0 = done0_of(idx, nt, width, flat.device)
+    full, ifull = bv.blend_fwd(*args)
+    res = {}
+    for tag, mask in (("", None), (" done0", d0)):
+        out_k, iout_k = bv.blend_fwd(*args, extras_only=True, done0=mask)
+        torch.cuda.synchronize()
+        out_r, iout_r, n_eval, n_hit = bv.blend_fwd_reference(
+            *args, extras_only=True, done0=mask, count_work=True)
+        torch.cuda.synchronize()
+        check(torch.equal(iout_k, iout_r),
+              f"{label} extras_only{tag}: iout differs from the plain version")
+        eT = float((out_k[:, 9] - out_r[:, 9]).abs().max())
+        eF = float((out_k[:, 10:10 + E] - out_r[:, 10:10 + E]).abs().max())
+        zero = [r for r in range(12 + E) if not 9 <= r < 10 + E]
+        check(not out_k[:, zero].any() and not iout_k[:, 1].any(),
+              f"{label} extras_only{tag}: a row it does not compute is "
+              f"nonzero")
+        check(eT <= TOL["final_T"] and eF <= TOL["features"],
+              f"{label} extras_only{tag}: T {eT}, features {eF}")
+        line = (f"[kernel] {label} extras_only{tag} E=16: pairs="
+                f"{b.total_pairs} final T {eT:.3g} (tol {TOL['final_T']:g}),"
+                f" features {eF:.3g} (tol {TOL['features']:g}), n_contrib "
+                f"equal")
+        if mask is not None:
+            s = mask[:, 0] == 0
+            bit = all(torch.equal(out_k[:, r][s], full[:, r][s])
+                      for r in range(9, 10 + E)) and torch.equal(
+                iout_k[:, 0][s], ifull[:, 0][s])
+            rest = bool((out_k[:, 9][~s] == 1).all()
+                        and not out_k[:, 10:10 + E].transpose(1, 2)[~s].any()
+                        and not iout_k[:, 0][~s].any())
+            line += (f"; {int(s.sum())} sampled pixels bit for bit K1 full's:"
+                     f" {bit}; the others (1, 0, 0): {rest}")
+            check(bit and rest, f"{label} extras_only done0: sampled pixels "
+                  f"differ from full or latched ones are not (1, 0, 0)")
+        print(line, flush=True)
+        r = {"max_abs_err": max(eT, eF)}
+        if timing:
+            r["ms"] = time_ms(lambda: bv.blend_fwd(
+                *args, extras_only=True, done0=mask), 20)
+            r["plain_ms"] = time_ms(lambda: bv.blend_fwd_reference(
+                *args, extras_only=True, done0=mask), 1, warm=False)
+            r.update(k1_bound(flat, b, E, "extras_only", n_eval, n_hit,
+                              extra_bytes=0 if mask is None
+                              else mask.numel() * 4))
+        res[tag.strip() or "plain"] = r
+        res.setdefault("k2", {})[tag.strip() or "plain"] = compare_k2(
+            label + tag, flat, b, grid_x, E, "extras_only", timing,
+            fwd=(out_k, iout_k))
+    return res
+
+
+def compare_track(label, flat, b, grid_x, E, timing=False):
+    """K1 track on the card against its plain version: contributor ids
+    exactly, weights within 1e-6, out and iout equal to K1 `full`'s."""
+    import torch
+    from instascene_tpu_torch.ops import blend_visits as bv
+    args = (flat, b.sorted_gid, b.tile_start, b.tile_end, grid_x, E)
+    out, iout, ids, w = bv.blend_fwd(*args, track=True)
+    full, ifull = bv.blend_fwd(*args)
+    torch.cuda.synchronize()
+    _, _, rids, rw, n_eval, n_hit = bv.blend_fwd_reference(
+        *args, track=True, count_work=True)
+    torch.cuda.synchronize()
+    same_ids = bool(torch.equal(ids, rids))
+    ew = float((w - rw).abs().max())
+    as_full = bool(torch.equal(out, full) and torch.equal(iout, ifull))
+    print(f"[kernel] {label} track E={E}: pairs={b.total_pairs} tracked "
+          f"slots {int((ids >= 0).sum())}, ids equal: {same_ids}, weights "
+          f"{ew:.3g} (tol 1e-6), out/iout equal to full's: {as_full}",
+          flush=True)
+    check(same_ids and ew <= 1e-6 and as_full,
+          f"{label} track E={E}: ids {same_ids}, w {ew}, full {as_full}")
+    res = {"max_abs_err": ew}
+    if timing:
+        res["ms"] = time_ms(lambda: bv.blend_fwd(*args, track=True), 20)
+        res["plain_ms"] = time_ms(lambda: bv.blend_fwd_reference(
+            *args, track=True), 1, warm=False)
+        res.update(k1_bound(flat, b, E, "track", n_eval, n_hit,
+                            extra_bytes=ids.numel() * 8))
+    return res
+
+
+def semantic_frame_kernels(p, make_cam):
+    """The semantic step's kernels on camera 0 at 976x728 (300k gaussians,
+    E=16): K1 extras_only with a 32k-pixel done0 and without, K2
+    extras_only, the segment sum at D = 16 and K1 track, against their
+    plain versions, timed, with their bounds."""
+    W, H = SEM["width"], SEM["height"]
+    flat, b, gx = frame_inputs(p, make_cam(0, W, H), W, H, True)
+    res = compare_extras("semantic-frame", flat, b, gx, W, H, SEM["batch"],
+                         timing=True)
+    for tag in ("done0", "plain"):
+        r = res[tag]
+        print(f"[kernel] semantic-frame extras_only ({tag}) E=16: K1 "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.1f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bytes']} bytes, "
+              f"{r['evals']} evaluations, {r['hits']} contributions, "
+              f"{r['ops']} FP32 ops)", flush=True)
+        k2 = res["k2"][tag]
+        sg = k2["segment_sum"]
+        print(f"[kernel] semantic-frame K2 extras_only ({tag}) E=16: "
+              f"{k2['ms']:.4f} ms, plain {k2['plain_ms']:.1f} ms, bound "
+              f"{k2['bound_ms']:.4f} ms ({k2['bound_by']}: {k2['bytes']} "
+              f"bytes, {k2['ops']} FP32 ops); segment sum D=16 "
+              f"{sg['ms']:.4f} ms, plain {sg['plain_ms']:.4f} ms, index_add_ "
+              f"{sg['library_ms']:.4f} ms, bound {sg['bound_ms']:.4f} ms "
+              f"({sg['bound_by']})", flush=True)
+    tr = compare_track("semantic-frame", flat, b, gx, 16, timing=True)
+    print(f"[kernel] semantic-frame track E=16: K1 {tr['ms']:.4f} ms, plain "
+          f"{tr['plain_ms']:.1f} ms, bound {tr['bound_ms']:.4f} ms "
+          f"({tr['bound_by']}: {tr['bytes']} bytes, {tr['ops']} FP32 ops)",
+          flush=True)
+    res["track"] = tr
+    return res
+
+
+def semantic_inputs(st, make_cam, dev):
+    """bench.py's semantic inputs on the port: the 300k scene with its
+    features, six orbit cameras with their binning, the random 40-label
+    segmap as raw and sorted map, random 3D labels. Returns (params, cams,
+    hyp, scfg, pairs per view)."""
+    import torch
+    from instascene_tpu_torch.config import OptimizationParams
+    from instascene_tpu_torch.models.gaussians import from_numpy
+    from instascene_tpu_torch.models.optimizer import semantic_lrs
+    from instascene_tpu_torch.ops.rasterize import (RasterizeConfig,
+                                                    compute_binning_cache)
+    from instascene_tpu_torch.pipelines import train_semantic as ts
+    from instascene_tpu_torch.pipelines.train import camera_tensors
+    from instascene_tpu_torch.semantic.contrastive import valid_ids_pack
+    W, H = SEM["width"], SEM["height"]
+    p = from_numpy(st, dev)
+    rng = np.random.default_rng(1)
+    segmap = torch.as_tensor(rng.integers(0, SEM["labels"], (H, W)).astype(
+        np.int32), device=dev)
+    lab3d = torch.as_tensor(rng.integers(0, SEM["labels"], p.capacity).astype(
+        np.int32), device=dev)
+    seg_pack = valid_ids_pack(segmap.reshape(-1) > 0)
+    vis_pack = valid_ids_pack(lab3d > 0)
+    seg_nv, vis_nv = int(seg_pack[-1]), int(vis_pack[-1])
+    cams = []
+    for i in range(SEM["cams"]):
+        ct = camera_tensors(make_cam(i, W, H), dev)
+        binning = compute_binning_cache(p, ct.mats, W, H)
+        cams.append(ts.SemanticCamera(
+            ct.w2v, ct.full_proj, ct.campos, segmap, segmap, binning,
+            seg_pack, seg_pack, vis_pack, seg_nv, seg_nv, vis_nv))
+    hyp = ts.SemanticHypers(
+        bg=torch.zeros(3, device=dev),
+        lrs=semantic_lrs(OptimizationParams()), lam_sv=1e-6, lam_mv=1e-6,
+        lam_3d=2.5e-6, seg3d_labels=lab3d)
+    scfg = ts.SemanticStepConfig(
+        raster=RasterizeConfig(W, H, bwd_extras_only=True),
+        batch=SEM["batch"], max_labels=SEM["max_labels"])
+    return p, cams, hyp, scfg, [c.binning.total_pairs for c in cams]
+
+
+def semantic_phase(st, make_cam, dev):
+    """semantic_train_step at the benchmark's size: 3 warm-up steps, 20
+    timed plain steps, 3 more warm-up steps and 6 timed steps with the
+    5-view window (views 1-5), each with its stage split, the launch
+    counts reset just before the steps and read just after; the sustained
+    it/s by bench.py's formula; then the tracker view's s/view."""
+    import torch
+    from instascene_tpu_torch.models.optimizer import init_adam_state
+    from instascene_tpu_torch.ops import blend_visits as bv
+    from instascene_tpu_torch.ops import rasterize as rmod
+    from instascene_tpu_torch.pipelines import train_semantic as ts
+    W, H = SEM["width"], SEM["height"]
+    p, cams, hyp, scfg, pairs = semantic_inputs(st, make_cam, dev)
+    mv = ts.SemanticMVBlock(cams[1:1 + SEM["n_mv"]])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = [p, init_adam_state(p)]
+    results = {}
+    reset_counts()
+    with wrapped({(rmod, "preprocess_gaussians"): "preprocess",
+                  (rmod, "pack_flat_cols"): "pack", (bv, "blend_fwd"): "K1",
+                  (bv, "blend_bwd"): "K2",
+                  (bv, "reduce_per_gaussian"): "segment sum"}):
+        for tag, window, steps in (("plain", None, SEM["steps"]),
+                                   ("mv", mv, SEM["mv_steps"])):
+            splits, losses = [], []
+            for i in range(SEM["warm"] + steps):
+                StageClock.current = clock = StageClock()
+                state[0], state[1], loss = ts.semantic_train_step(
+                    state[0], state[1], cams[i % len(cams)], window, hyp,
+                    scfg, generator=gen, on_stage=clock.mark)
+                torch.cuda.synchronize()
+                if i >= SEM["warm"]:
+                    g = {k: clock.total(k) for k in (
+                        "preprocess", "pack", "K1", "K2", "segment sum")}
+                    splits.append({
+                        "step": clock.ms("start", "adam"),
+                        "preprocess + SH": g["preprocess"],
+                        "pack": g["pack"], "K1": g["K1"],
+                        "losses, draws and the rest of the forward":
+                            clock.ms("start", "loss") - g["preprocess"]
+                            - g["pack"] - g["K1"],
+                        "K2 + segment sum": g["K2"] + g["segment sum"],
+                        "rest of backward": clock.ms("loss", "backward")
+                            - g["K2"] - g["segment sum"],
+                        "Adam": clock.ms("backward", "adam")})
+                    losses.append(float(loss))
+            med = {k: float(np.median([x[k] for x in splits]))
+                   for k in splits[0]}
+            print(f"[semantic] {tag} steps at {W}x{H}, {p.n_alive()} "
+                  f"gaussians, E=16: {steps} timed; losses {losses[0]:.6g} "
+                  f"→ {losses[-1]:.6g}", flush=True)
+            print(f"[semantic] {tag} median ms (CUDA events): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in med.items()), flush=True)
+            check(all(np.isfinite(losses)), f"semantic {tag}: non-finite "
+                  f"loss")
+            results[tag] = {"median_ms": med, "losses": losses}
+    torch.cuda.synchronize()
+    results["counts"] = counts()
+    check(bool(torch.isfinite(state[0].seg_feature).all()),
+          "semantic: non-finite features")
+    t_plain = results["plain"]["median_ms"]["step"]
+    t_mv = results["mv"]["median_ms"]["step"]
+    sustained = 1e3 / (0.9 * t_plain + 0.1 * t_mv)
+    print(f"[semantic] pairs per view {pairs}; plain {1e3 / t_plain:.2f} "
+          f"it/s, with the window {1e3 / t_mv:.2f} it/s, sustained (bench.py:"
+          f"325-329) {sustained:.2f} it/s", flush=True)
+    results.update(sustained_its=sustained, pairs=pairs)
+
+    # the priors stage's tracker view (bench.py:478-511): full render with
+    # fresh binning and contributor tracking, E=16
+    from instascene_tpu_torch.ops.rasterize import RasterizeConfig
+    cfg = RasterizeConfig(W, H, track_contrib=True)
+    view = lambda: ts.render_features(p, cams[0].mats, hyp.bg, cfg)
+    results["tracker_s"] = time_ms(view, 5) * 1e-3
+    print(f"[semantic] tracker view {W}x{H}, E=16: "
+          f"{results['tracker_s']:.5f} s/view (CUDA events)", flush=True)
+    return results
+
+
+def write_semantic_scene(st, make_cam, dev, root):
+    """The geometry CLI's COLMAP scene plus what the semantic stage reads:
+    point_cloud.ply (the 300k scene without features) and sam/mask/<image>
+    maps from the port's own tracker render — each pixel the true cluster +
+    1 of its largest-weight tracked contributor, 0 where alpha < 0.5,
+    nothing was tracked, the contributor is background, or another tracked
+    contributor of the pixel belongs to another cluster. The last rule
+    keeps a mask's gaussians on its own instance, as a segmenter's mask of
+    an opaque object does: with the scene's semi-transparent splats mixed
+    in, the spatial track judges nearly every mask undersegmented. It also
+    cuts the masks along the true clusters, so the instances the stage
+    finds show that the path runs, not how well the spatial track
+    separates instances (tests/test_torch_spatial_track.py holds that to
+    the JAX package's)."""
+    import torch
+    from instascene_tpu_torch.models.gaussians import save_ply
+    from instascene_tpu_torch.ops.rasterize import RasterizeConfig
+    from instascene_tpu_torch.pipelines.train_semantic import render_features
+    from instascene_tpu_torch.render import camera_mats
+    from instascene_tpu_torch.utils.image import write_png
+    W, H = TRAIN["width"], TRAIN["height"]
+    write_colmap_scene(st, make_cam, dev, root)
+    p = train_scene(st, dev)
+    save_ply(p, os.path.join(root, "point_cloud.ply"))
+    os.makedirs(os.path.join(root, "sam", "mask"))
+    clusters = torch.as_tensor(make_cam.clusters, device=dev).long()
+    bg = int(clusters.max())
+    cfg = RasterizeConfig(W, H, track_contrib=True)
+    for i in range(CLI_CAMS):
+        with torch.no_grad():
+            blend = render_features(p, camera_mats(make_cam(2 * i, W, H), dev),
+                                    torch.zeros(3, device=dev), cfg).blend
+        top = blend.contrib_w.argmax(dim=-1, keepdim=True)
+        gid = torch.gather(blend.contrib_ids, -1, top)[..., 0].long()
+        cl = clusters[gid.clamp(min=0)]
+        ids = blend.contrib_ids.long()
+        mixed = ((ids >= 0) & (clusters[ids.clamp(min=0)] != cl[..., None])
+                 ).any(dim=-1)
+        lab = torch.where((gid >= 0) & (blend.alpha >= 0.5) & (cl != bg)
+                          & ~mixed, cl + 1, 0)
+        write_png(os.path.join(root, "sam", "mask", f"{i:03d}.png"),
+                  lab.to(torch.uint8).cpu().numpy())
+
+
+def semantic_cli_phase(st, make_cam, tmp):
+    """The semantic CLI at full width: priors (tracker renders, spatial
+    track), SEM_CLI_ITERS contrastive iterations with the save at the
+    last, the HDBSCAN export; the launch counts reset just before
+    train_semantic.main and read just after."""
+    import torch
+    from instascene_tpu_torch import train_semantic
+    from instascene_tpu_torch.data.ply import read_ply
+    from instascene_tpu_torch.models.gaussians import load_ply
+    root = os.path.join(tmp, "data", "orbit", "scene")
+    t0 = time.perf_counter()
+    write_semantic_scene(st, make_cam, DEVICE, root)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    reset_counts()
+    seg = train_semantic.main([
+        "-s", root, "-m", os.path.join(tmp, "out"), "--use_seg_feature",
+        "--gram_feat_3d", "--iterations", str(SEM_CLI_ITERS), "--device",
+        DEVICE])
+    torch.cuda.synchronize()
+    cli_counts = counts()
+    t2 = time.perf_counter()
+    m3d = seg.seg3d_masks
+    clusters = make_cam.clusters
+    purity = []
+    for k in range(m3d.shape[1]):
+        members = clusters[:len(m3d)][m3d[:, k]]
+        purity.append(float(np.bincount(members).max() / max(len(members), 1))
+                      if len(members) else 0.0)
+    od = os.path.join(seg.model_path, "semantic_association",
+                      "output_dict.npy")
+    ply = os.path.join(seg.model_path, "point_cloud",
+                       f"iteration_{SEM_CLI_ITERS}", "point_cloud.ply")
+    names = read_ply(ply)["vertex"].dtype.names
+    feats = load_ply(ply, seg_feat_dim=16, load_seg_feat=True,
+                     device="cpu").seg_feature
+    labels_ply = os.path.join(seg.model_path, "point_cloud",
+                              f"iteration_{SEM_CLI_ITERS}_hdbscan",
+                              "point_cloud_labels.ply")
+    n_labels = len(np.unique(np.load(labels_ply.replace(".ply", ".npy"))))
+    tm = seg.timings
+    print("[semantic-cli] HDBSCAN stages, s: " + ", ".join(
+        f"{k[8:]} {v:.2f}" for k, v in tm.items()
+        if k.startswith("HDBSCAN ")), flush=True)
+    print(f"[semantic-cli] scene written in {t1 - t0:.1f} s; "
+          f"train_semantic.main in {t2 - t1:.1f} s host wall: tracker renders "
+          f"{tm['tracker renders']:.2f} s, spatial track "
+          f"{tm['spatial track']:.2f} s, training {tm['training']:.2f} s "
+          f"({SEM_CLI_ITERS} iterations, last loss {seg.last_loss:.6g}), "
+          f"HDBSCAN export {tm['hdbscan export']:.2f} s", flush=True)
+    print(f"[semantic-cli] {m3d.shape[1]} instances, purity against the true "
+          f"clusters (the masks were cut along them) " + ", ".join(
+              f"{x:.3f}" for x in purity)
+          + f"; HDBSCAN labels {n_labels}", flush=True)
+    print(f"[semantic-cli] launches in train_semantic.main: {cli_counts}",
+          flush=True)
+    for k in ("K1 extras_only", "K1 track", "K2 extras_only", "segment_sum"):
+        check(cli_counts[k] > 0, f"the semantic CLI never launched {k}")
+    check(os.path.exists(od) and os.path.isdir(os.path.join(
+        root, "sam", "mask_sorted")), "output_dict.npy or mask_sorted missing")
+    check(m3d.shape[1] >= 2, f"only {m3d.shape[1]} instances")
+    check(all(f"segfeat_{i}" in names for i in range(16)),
+          "the PLY has no segfeat_0..15")
+    check(feats is not None and bool(np.isfinite(feats.numpy()).all()),
+          "the PLY's features do not load back finite")
+    check(os.path.exists(labels_ply), "point_cloud_labels.ply missing")
+    return {"instances": m3d.shape[1], "purity": purity,
+            "counts": cli_counts, **tm}
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -770,6 +1228,8 @@ def main() -> int:
     from instascene_tpu_torch.models.gaussians import from_numpy
 
     # ---- 1. device and build
+    phase_s = {}
+    t_phase = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -785,10 +1245,12 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
+    phase_s["device and build"] = time.perf_counter() - t_phase
 
     dev = torch.device(DEVICE)
     with torch.no_grad():
         # ---- 2. kernel vs plain, and the goldens
+        t_phase = time.perf_counter()
         golden_check(dev)
         st, make_cam = make_bench_scene(n=MID["n"], seed=0,
                                         profile="trained")
@@ -802,8 +1264,13 @@ def main() -> int:
         for E in (0, 16):
             flat, b, gx = frame_inputs(p_mid, cam, MID["width"],
                                        MID["height"], E > 0)
-            for no_dist in (True, False):
-                compare_k2("mid-size", flat, b, gx, E, no_dist)
+            for mode in ("no_dist", "full"):
+                compare_k2("mid-size", flat, b, gx, E, mode)
+            compare_track("mid-size", flat, b, gx, E)
+        # K1 extras_only without and with a ~2,000-pixel done0, and K2
+        # extras_only on each (E=16, the last frame_inputs above)
+        compare_extras("mid-size", flat, b, gx, MID["width"], MID["height"],
+                       2000)
         del p_mid, flat, b
 
         st, make_cam = make_bench_scene(n=FULL["n"], seed=0,
@@ -827,20 +1294,26 @@ def main() -> int:
                       f"{r['hits']} contributions, {r['ops']} FP32 ops)",
                       flush=True)
             del flat, b
+        phase_s["kernels vs plain, goldens"] = time.perf_counter() - t_phase
 
         # ---- 3. the serving path at full width
+        t_phase = time.perf_counter()
         tmp = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
             serve = main_path(p_full, tmp)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         del p_full
+        phase_s["serving"] = time.perf_counter() - t_phase
 
         # ---- 4. the training frame's kernels
+        t_phase = time.perf_counter()
         p_train = train_scene(st, dev)
         k1_train, k2_train = train_frame_kernels(p_train, make_cam)
+        phase_s["training frame kernels"] = time.perf_counter() - t_phase
 
     # ---- 5. the training path at full width
+    t_phase = time.perf_counter()
     reset_counts()
     steps = train_phase(p_train, make_cam, dev)
     step_counts = counts()
@@ -852,6 +1325,7 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.synchronize()
     train_counts = counts()
+    phase_s["training (steps and CLI)"] = time.perf_counter() - t_phase
     print(f"[train] launches on the training path: train steps "
           f"{step_counts}; with the CLI {train_counts}", flush=True)
     check(train_counts["K1 no_dist"] > 0 and train_counts["K1 full"] > 0,
@@ -861,7 +1335,32 @@ def main() -> int:
     check(train_counts["segment_sum"] > 0,
           "the training path never launched the segment sum")
 
-    # ---- 6. the kernels' line and the result
+    # ---- 6. the semantic frame's kernels at full width
+    t_phase = time.perf_counter()
+    with torch.no_grad():
+        sem_k = semantic_frame_kernels(from_numpy(st, dev), make_cam)
+    phase_s["semantic frame kernels"] = time.perf_counter() - t_phase
+
+    # ---- 7. the semantic path at full width: steps, then the CLI (each
+    # with its own launch counts)
+    t_phase = time.perf_counter()
+    sem = semantic_phase(st, make_cam, dev)
+    n_steps = 2 * SEM["warm"] + SEM["steps"] + SEM["mv_steps"]
+    print(f"[semantic] launches in the {n_steps} semantic_train_step calls: "
+          f"{sem['counts']}", flush=True)
+    for k in ("K1 extras_only", "K2 extras_only", "segment_sum"):
+        check(sem["counts"][k] > 0, f"the semantic steps never launched {k}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        sem_cli = semantic_cli_phase(st, make_cam, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    sem_counts = sem_cli["counts"]
+    phase_s["semantic (steps and CLI)"] = time.perf_counter() - t_phase
+    print("[phases] seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in phase_s.items()), flush=True)
+
+    # ---- 8. the kernels' line and the result
     frame = (f"{TRAIN['width']}x{TRAIN['height']}, {len(st['xyz'])} "
              f"gaussians, E=0")
     full_err = max(v["max_abs_err"] for v in full.values())
@@ -904,8 +1403,48 @@ def main() -> int:
          "max_abs_err": sg["max_abs_err"], "ms": sg["ms"],
          "plain_ms": sg["plain_ms"], "bound_ms": sg["bound_ms"],
          "bound_by": sg["bound_by"], "library_ms": sg["library_ms"]}]
+    sframe = (f"{SEM['width']}x{SEM['height']}, {len(st['xyz'])} gaussians, "
+              f"E=16")
+    x0, xp = sem_k["done0"], sem_k["plain"]
+    kernels.append(dict(
+        k1_entry("extras_only", x0, f"done0 of {SEM['batch']} pixels, "
+                 f"{sframe}", sem_counts["K1 extras_only"]),
+        ms_no_done0=xp["ms"], plain_ms_no_done0=xp["plain_ms"],
+        bound_ms_no_done0=xp["bound_ms"], bound_by_no_done0=xp["bound_by"],
+        max_abs_err=max(x0["max_abs_err"], xp["max_abs_err"])))
+    kernels.append(k1_entry("track", sem_k["track"], sframe,
+                            sem_counts["K1 track"]))
+    k2x = sem_k["k2"]["done0"]
+    kernels.append({
+        "name": "blend_bwd", "route": "cuda",
+        "source": "instascene_tpu_torch/csrc/blend_bwd.cu",
+        "replaces": "instascene_tpu/ops/blend_visits.py:395",
+        "mode": f"extras_only, on the done0 forward, {sframe}",
+        "launches": sem_counts["K2 extras_only"],
+        "max_abs_err": max(k2x["max_abs_err"],
+                           sem_k["k2"]["plain"]["max_abs_err"]),
+        "ms": k2x["ms"], "plain_ms": k2x["plain_ms"],
+        "bound_ms": k2x["bound_ms"], "bound_by": k2x["bound_by"],
+        "library_ms": None})
+    sg16 = k2x["segment_sum"]
+    kernels.append({
+        "name": "segment_sum", "route": "cuda",
+        "source": "instascene_tpu_torch/csrc/blend_bwd.cu",
+        "replaces": "instascene_tpu/ops/blend_visits.py:729",
+        "mode": f"d_flat of K2 extras_only (D=16), {sframe}",
+        "launches": sem_counts["segment_sum"],
+        "max_abs_err": sg16["max_abs_err"], "ms": sg16["ms"],
+        "plain_ms": sg16["plain_ms"], "bound_ms": sg16["bound_ms"],
+        "bound_by": sg16["bound_by"], "library_ms": sg16["library_ms"]})
     print(json.dumps({"kernels": kernels, "train_step_median_ms": {
-        k: v["median_ms"] for k, v in steps.items()}}), flush=True)
+        k: v["median_ms"] for k, v in steps.items()},
+        "semantic_step_median_ms": {k: sem[k]["median_ms"]
+                                    for k in ("plain", "mv")},
+        "semantic_sustained_its": sem["sustained_its"],
+        "tracker_s_per_view": sem["tracker_s"],
+        "semantic_cli_s": {k: sem_cli[k] for k in (
+            "tracker renders", "spatial track", "training",
+            "hdbscan export")}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

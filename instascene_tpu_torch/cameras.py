@@ -3,8 +3,10 @@
 Port of instascene_tpu/cameras.py:26-253 (`fov2focal`, `focal2fov`,
 `get_world2view`, `get_projection_matrix`, `Camera` with its image,
 alpha mask and mono-normal prior, `MiniCam`, `load_camera` with the
-reference's -r rules, `_load_normal_prior`). Segmentation maps load with
-the semantic trainer of a later slice.
+reference's -r rules, `_load_normal_prior`) and :254-278 (`_load_segmap`:
+`sam/mask`, or `sam/mask_filtered` with --load_filter_segmap, and
+`sam/mask_sorted`, NEAREST-resized unscaled ints, decoded by
+utils/image.py).
 
 All matrices are row-major maps acting on column vectors:
 
@@ -77,6 +79,8 @@ class Camera:
     gt_alpha_mask: Optional[np.ndarray] = None   # [H,W,1] f32
     normal: Optional[np.ndarray] = None          # [H,W,3] f32, world, unit
     normal_mask: Optional[np.ndarray] = None     # [H,W] bool
+    segmap: Optional[np.ndarray] = None          # [H,W] int32 instance ids
+    sorted_segmap: Optional[np.ndarray] = None   # [H,W] int32 cluster ids
     znear: float = 0.01
     zfar: float = 100.0
     trans: np.ndarray = field(default_factory=lambda: np.zeros(3))
@@ -154,8 +158,8 @@ def load_camera(args, uid: int, cam_info, resolution_scale: float = 1.0,
     """A Camera from a CameraInfo with the reference's resolution rules
     (utils/camera_utils.py:25-102): -r -1 caps the width at 1600, 1/2/4/8
     divide, any other value is a target width. A fourth image band is the
-    alpha mask; with load_images and args.w_normal_prior the mono-normal
-    prior loads too."""
+    alpha mask; with load_images the segmaps load (see _load_segmap) and,
+    with args.w_normal_prior, the mono-normal prior."""
     from .utils.image import load_image, read_image
 
     raw = read_image(cam_info.image_path)
@@ -180,14 +184,19 @@ def load_camera(args, uid: int, cam_info, resolution_scale: float = 1.0,
     else:            # gray (+ alpha, which PIL's convert("RGB") drops)
         rgb = np.repeat(img[..., :1], 3, axis=2)
 
-    normal = None
-    if load_images and getattr(args, "w_normal_prior", None):
-        normal = _load_normal_prior(args, cam_info, resolution)
+    normal = segmap = sorted_segmap = None
+    if load_images:
+        if getattr(args, "w_normal_prior", None):
+            normal = _load_normal_prior(args, cam_info, resolution)
+        segmap = _load_segmap(args, cam_info, resolution)
+        sorted_segmap = _load_segmap(args, cam_info, resolution,
+                                     override_dir="sam/mask_sorted")
     return Camera(uid=uid, colmap_id=cam_info.uid, R=cam_info.R, T=cam_info.T,
                   fovx=cam_info.FovX, fovy=cam_info.FovY,
                   image_name=cam_info.image_name,
                   width=resolution[0], height=resolution[1],
-                  image=rgb, gt_alpha_mask=alpha, normal=normal)
+                  image=rgb, gt_alpha_mask=alpha, normal=normal,
+                  segmap=segmap, sorted_segmap=sorted_segmap)
 
 
 def _load_normal_prior(args, cam_info, resolution):
@@ -220,3 +229,29 @@ def _load_normal_prior(args, cam_info, resolution):
     # camera → world: n_world = n_cam @ inv(R) (camera_utils.py:77)
     n = n @ np.linalg.inv(cam_info.R).astype(np.float32)
     return n.astype(np.float32)
+
+
+def _load_segmap(args, cam_info, resolution,
+                 override_dir: Optional[str] = None):
+    """The instance label map <source>/sam/<dir>/<image>.png as int32 [H,W]
+    (NEAREST-resized, unscaled), or None when absent. The default map
+    loads only with args.use_seg_feature, from sam/mask_filtered when it
+    exists and args.load_filter_segmap is set, else sam/mask; an
+    override_dir (sam/mask_sorted) always loads."""
+    from .utils.image import load_image
+
+    if not getattr(args, "use_seg_feature", False) and override_dir is None:
+        return None
+    name = os.path.basename(cam_info.image_path).split(".")[0] + ".png"
+    if override_dir is None:
+        filtered = (os.path.exists(os.path.join(args.source_path,
+                                                "sam/mask_filtered"))
+                    and getattr(args, "load_filter_segmap", False))
+        seg_dir = "sam/mask_filtered" if filtered else "sam/mask"
+    else:
+        seg_dir = override_dir
+    path = os.path.join(args.source_path, seg_dir, name)
+    if not os.path.exists(path):
+        return None
+    arr = load_image(path, resolution, resize_nearest=True, scale=False)
+    return arr[..., 0].astype(np.int32)

@@ -2,14 +2,22 @@
 // deterministic per-gaussian segment sum that follows it.
 //
 // Replaces the TPU kernel instascene_tpu/ops/blend_visits.py::_bwd_kernel_visits
-// (K2) in its `full` and `no_dist` modes, and the scatter-add of its custom
+// (K2) in its `full`, `no_dist` and `extras_only` modes, and the scatter-add
+// of its custom
 // VJP (:729-736). Inputs: the packed table flat [N, 21+E], the depth-sorted
 // pair list and tile ranges K1 blended, gout [T, 12+E, 256] (the cotangent
 // of K1's out), saved [T, 3, 256] (out's final T, m1 and m2 rows) and K1's
 // iout [T, 2, 256] (n_contrib, med_slot). Output d_sorted [pairs, 21+E]: per
 // slot, the gradient of Σ gout·out with respect to that slot's packed row.
 // `no_dist` leaves out the expected-depth and distortion chains (gD and gdist
-// never enter; the depth gradient is the median tap alone).
+// never enter; the depth gradient is the median tap alone). `extras_only`
+// (the semantic step, blend_visits.py:473-478) emits only the E feature
+// columns, d_sorted [pairs, E]: per slot the block recomputes the splat, takes
+// the slot where K1's mask holds and slot <= n_contrib, recovers T before it
+// as T_after / (1 - alpha) back to front from the saved final T, and reduces
+// w · gout[10+e] over the tile's pixels. It needs no suffix sum, no dL/dalpha
+// and no geometry column; pixels a done0 mask latched have n_contrib 0 and
+// take no part.
 //
 // Design. The TPU kernel re-walks its (chunk, tile) visits in reverse on a
 // sequential grid, recovers T per 128-slot visit as T_exit / P_in (a
@@ -41,6 +49,10 @@
 // registers, stops each tile at its largest n_contrib, lets warps without a
 // contribution skip the shuffles, and needs one barrier per slot
 // (double-buffered partials). chip_smoke.py computes the bound per run.
+// `extras_only` does K1's splat and 5 + E operations per contribution, then
+// E shuffle reductions per slot: on the semantic frame (976x728, E = 16) it
+// is bound by the same instruction issue, with E columns where the other
+// modes reduce 21 + E.
 //
 // The segment sum: d_flat[g] = Σ d_sorted[s] over g's slots, in slot order
 // from 0, one thread per (gaussian, column) over the runs that binning lists
@@ -63,7 +75,9 @@ constexpr int BATCH = 256;       // pair rows staged in shared memory per pass
 constexpr int NW = P2 / 32;      // warps per block
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
-template <int E, bool NO_DIST>
+enum Mode { FULL = 0, NO_DIST = 1, EXTRAS = 2 };  // ops/blend_visits.BWD_MODES
+
+template <int E, int MODE>
 __global__ void __launch_bounds__(P2)
 blend_bwd_kernel(const float* __restrict__ flat,
                  const int* __restrict__ sorted_gid,
@@ -75,8 +89,10 @@ blend_bwd_kernel(const float* __restrict__ flat,
   constexpr int D = 21 + E;
   constexpr int OC = 12 + E;
   constexpr int NF = E > 0 ? E : 1;
+  constexpr bool GEOM = MODE != EXTRAS;      // the 21 geometry columns
+  constexpr int DO = GEOM ? D : NF;          // d_sorted's columns
   __shared__ float rows[BATCH * D];
-  __shared__ float part[2][NW][D];
+  __shared__ float part[2][NW][DO];
   __shared__ int max_nc;
 
   const int t = blockIdx.x;
@@ -113,7 +129,8 @@ blend_bwd_kernel(const float* __restrict__ flat,
   if (lane == 0) atomicMax(&max_nc, wmax);
   __syncthreads();
   const int hi = s + min(max_nc, e - s);
-  for (int i = p; i < (e - hi) * D; i += P2) d_sorted[(size_t)hi * D + i] = 0.f;
+  for (int i = p; i < (e - hi) * DO; i += P2)
+    d_sorted[(size_t)hi * DO + i] = 0.f;
 
   float T = T_fin;   // transmittance after the current slot
   float S = 0.f;     // Σ dL/dw · w over the later slots
@@ -133,10 +150,18 @@ blend_bwd_kernel(const float* __restrict__ flat,
       const int slot = base - s + j + 1;
       const Terms q = eval(g, pxf, pyf);
       const bool cm = q.m && slot <= nc;
-      float c[D];
+      float c[DO];
 #pragma unroll
-      for (int k = 0; k < D; ++k) c[k] = 0.f;
-      if (cm) {
+      for (int k = 0; k < DO; ++k) c[k] = 0.f;
+      if constexpr (!GEOM) {
+        if (cm) {
+          const float Ti = T / (1.0f - q.alpha);
+          const float w = q.alpha * Ti;
+          T = Ti;
+#pragma unroll
+          for (int k = 0; k < E; ++k) c[k] = w * gext[k];
+        }
+      } else if (cm) {
         const float one_minus = 1.0f - q.alpha;
         const float Ti = T / one_minus;
         const float w = q.alpha * Ti;
@@ -149,7 +174,7 @@ blend_bwd_kernel(const float* __restrict__ flat,
 #pragma unroll
         for (int k = 0; k < E; ++k) dLdw = dLdw + g[EXT + k] * gext[k];
         float dLdd = slot == med_slot ? gmed : 0.0f;
-        if (!NO_DIST) {
+        if (MODE == FULL) {
           const float inv_d = 1.0f / q.depth_ray;
           const float md = MD_SCALE * (1.0f - NEAR_N * inv_d);
           dLdw = dLdw + q.depth_ray * gD +
@@ -198,7 +223,7 @@ blend_bwd_kernel(const float* __restrict__ flat,
       float* pw = part[buf][warp];
       if (__any_sync(FULL_MASK, cm)) {
 #pragma unroll
-        for (int k = 0; k < D; ++k) {
+        for (int k = 0; k < DO; ++k) {
           float v = c[k];
 #pragma unroll
           for (int off = 16; off > 0; off >>= 1)
@@ -207,20 +232,20 @@ blend_bwd_kernel(const float* __restrict__ flat,
         }
         if (lane == 0) {
 #pragma unroll
-          for (int k = 0; k < D; ++k) pw[k] = c[k];
+          for (int k = 0; k < DO; ++k) pw[k] = c[k];
         }
       } else if (lane == 0) {
 #pragma unroll
-        for (int k = 0; k < D; ++k) pw[k] = 0.f;
+        for (int k = 0; k < DO; ++k) pw[k] = 0.f;
       }
       // one barrier per slot: the partials are double-buffered, so the
       // next slot's writes go to the other buffer while these are read
       __syncthreads();
-      if (p < D) {
+      if (p < DO) {
         float sum = part[buf][0][p];
 #pragma unroll
         for (int w8 = 1; w8 < NW; ++w8) sum = sum + part[buf][w8][p];
-        d_sorted[(size_t)(base + j) * D + p] = sum;
+        d_sorted[(size_t)(base + j) * DO + p] = sum;
       }
       buf ^= 1;
     }
@@ -243,18 +268,24 @@ __global__ void segment_sum_kernel(const float* __restrict__ d_sorted,
 }
 
 template <int E>
-cudaError_t launch(int no_dist, const float* flat, const int* sorted_gid,
+cudaError_t launch(int mode, const float* flat, const int* sorted_gid,
                    const int* tile_start, const int* tile_end, int num_tiles,
                    int grid_x, const float* gout, const float* saved,
                    const int* iout, float* d_sorted, cudaStream_t stream) {
-  if (no_dist)
-    blend_bwd_kernel<E, true><<<num_tiles, P2, 0, stream>>>(
+  if (mode == FULL)
+    blend_bwd_kernel<E, FULL><<<num_tiles, P2, 0, stream>>>(
+        flat, sorted_gid, tile_start, tile_end, grid_x, gout, saved, iout,
+        d_sorted);
+  else if (mode == NO_DIST)
+    blend_bwd_kernel<E, NO_DIST><<<num_tiles, P2, 0, stream>>>(
+        flat, sorted_gid, tile_start, tile_end, grid_x, gout, saved, iout,
+        d_sorted);
+  else if (mode == EXTRAS && E > 0)
+    blend_bwd_kernel<E, EXTRAS><<<num_tiles, P2, 0, stream>>>(
         flat, sorted_gid, tile_start, tile_end, grid_x, gout, saved, iout,
         d_sorted);
   else
-    blend_bwd_kernel<E, false><<<num_tiles, P2, 0, stream>>>(
-        flat, sorted_gid, tile_start, tile_end, grid_x, gout, saved, iout,
-        d_sorted);
+    return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
 
@@ -264,16 +295,16 @@ cudaError_t launch(int no_dist, const float* flat, const int* sorted_gid,
 extern "C" int blend_bwd_launch(const float* flat, const int* sorted_gid,
                                 const int* tile_start, const int* tile_end,
                                 int num_tiles, int grid_x, int n_extra,
-                                int no_dist, const float* gout,
+                                int mode, const float* gout,
                                 const float* saved, const int* iout,
                                 float* d_sorted, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (num_tiles <= 0) return (int)cudaSuccess;
   if (n_extra == 16)
-    return (int)launch<16>(no_dist, flat, sorted_gid, tile_start, tile_end,
+    return (int)launch<16>(mode, flat, sorted_gid, tile_start, tile_end,
                            num_tiles, grid_x, gout, saved, iout, d_sorted, st);
   if (n_extra == 0)
-    return (int)launch<0>(no_dist, flat, sorted_gid, tile_start, tile_end,
+    return (int)launch<0>(mode, flat, sorted_gid, tile_start, tile_end,
                           num_tiles, grid_x, gout, saved, iout, d_sorted, st);
   return (int)cudaErrorInvalidValue;
 }

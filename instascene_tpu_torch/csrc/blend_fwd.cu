@@ -1,8 +1,9 @@
 // Forward alpha-compositing blend of 2DGS surfels, one 16x16 tile per block.
 //
 // Replaces the TPU kernel instascene_tpu/ops/blend_visits.py::_fwd_kernel_visits
-// (K1) in its `full`, `viewer` and `no_dist` modes. Same function, same
-// public layout:
+// (K1) in its `full`, `viewer`, `no_dist`, `extras_only` (with the optional
+// sampled-pixel done0 mask) and `track` modes. Same function, same public
+// layout:
 //   out  [num_tiles, 12+E, 256] f32: 0:3 color (no background), 3 expected
 //        depth sum, 4:7 view normal, 7 median depth, 8 distortion, 9 final T,
 //        10:10+E features, 10+E / 11+E the m1 / m2 totals
@@ -11,7 +12,17 @@
 // `viewer` writes color, final T, features and n_contrib; its other rows are
 // exact zeros. `no_dist` skips the depth sum, the distortion and the m1/m2
 // sums (rows 3, 8, 10+E, 11+E are exact zeros); every other row and iout are
-// as `full` computes them.
+// as `full` computes them. `extras_only` (the semantic step) accumulates the
+// E features alone and writes final T, the features and n_contrib; every
+// other row and iout row 1 are exact zeros. Its optional done0 [T, 256] i32
+// pre-latches every pixel where it is non-zero (the loss reads only the few
+// sampled pixels of a tile): such a pixel comes back T = 1, zero features,
+// n_contrib 0, and the block leaves as soon as its unlatched pixels latch.
+// A sampled pixel's values are bit for bit those of `full` (a pixel's blend
+// does not depend on its neighbours). `track` is `full` plus the contributor
+// buffer: each contribution with w > 0.1 writes its gaussian id
+// (sorted_gid) and w into the pixel's next of TRACK_K = 10 slots, in blend
+// order; empty slots are -1 and 0 (ids, w [T, 10, 256]).
 //
 // Design. The TPU kernel walks a sequential grid of (chunk, tile) visits,
 // carries T/m1/m2/done in VMEM scratch and turns the per-slot recurrence
@@ -37,6 +48,15 @@
 // every thread of the block reads the same row), and stops each pixel at its
 // done latch and each block when all its pixels are done.
 //
+// `extras_only` with done0 on the semantic step's frame (976x728, 32k
+// sampled pixels, ~16 per tile): the FP32 work shrinks to the sampled
+// pixels' evaluations, so the bytes bound it — the packed rows of each
+// tile's walked range, which every block still gathers into shared memory
+// until its few sampled pixels latch (or its range ends), and the outputs.
+// The design keeps the fused gather and stops each block at its last
+// sampled pixel's latch. `track` adds at most 10 scattered id/weight
+// stores per pixel to `full`'s work: FP32 issue bounds it as `full`.
+//
 // Rounding: see splat.cuh. The plain PyTorch version
 // (ops/blend_visits.py::blend_fwd_reference) sums in the same order.
 
@@ -50,7 +70,10 @@ using namespace splat;
 
 constexpr int BATCH = 256;  // pair rows staged in shared memory per pass
 
-enum Mode { FULL = 0, VIEWER = 1, NO_DIST = 2 };  // ops/blend_visits.MODES
+// ops/blend_visits.MODES
+enum Mode { FULL = 0, VIEWER = 1, NO_DIST = 2, EXTRAS = 3, TRACK = 4 };
+constexpr int TRACK_K = 10;      // contributor slots per pixel
+constexpr float TRACK_W = 0.1f;  // a contribution is tracked when w > this
 
 template <int E, int MODE>
 __global__ void __launch_bounds__(P2)
@@ -58,13 +81,17 @@ blend_fwd_kernel(const float* __restrict__ flat,
                  const int* __restrict__ sorted_gid,
                  const int* __restrict__ tile_start,
                  const int* __restrict__ tile_end, int grid_x,
-                 float* __restrict__ out, int* __restrict__ iout) {
+                 const int* __restrict__ done0, float* __restrict__ out,
+                 int* __restrict__ iout, int* __restrict__ track_ids,
+                 float* __restrict__ track_w) {
   constexpr int D = 21 + E;
   constexpr int OC = 12 + E;
   constexpr int NF = E > 0 ? E : 1;
-  constexpr bool AUX = MODE != VIEWER;   // normal and median
-  constexpr bool DIST = MODE == FULL;    // depth sum, distortion, m1/m2
+  constexpr bool COLOR = MODE != EXTRAS;
+  constexpr bool AUX = MODE != VIEWER && MODE != EXTRAS;  // normal, median
+  constexpr bool DIST = MODE == FULL || MODE == TRACK;    // depth, distortion
   __shared__ float rows[BATCH * D];
+  __shared__ int gids[MODE == TRACK ? BATCH : 1];
 
   const int t = blockIdx.x;
   const int p = threadIdx.x;
@@ -74,7 +101,11 @@ blend_fwd_kernel(const float* __restrict__ flat,
   const int e = tile_end[t];
 
   float T = 1.0f;
-  bool done = false;
+  // done0 (extras_only only): pixels the caller will not read start latched
+  bool done = MODE == EXTRAS && done0 != nullptr && done0[t * P2 + p] != 0;
+  int n_track = 0;
+  int* tid = MODE == TRACK ? track_ids + (size_t)t * TRACK_K * P2 + p : nullptr;
+  float* tw = MODE == TRACK ? track_w + (size_t)t * TRACK_K * P2 + p : nullptr;
   float col0 = 0.f, col1 = 0.f, col2 = 0.f;
   float feat[NF];
 #pragma unroll
@@ -94,6 +125,7 @@ blend_fwd_kernel(const float* __restrict__ flat,
       const int c = i - r * D;
       rows[i] = flat[(size_t)sorted_gid[base + r] * D + c];
     }
+    if (MODE == TRACK && p < nb) gids[p] = sorted_gid[base + p];
     __syncthreads();
     if (done) continue;
     for (int j = 0; j < nb; ++j) {
@@ -107,9 +139,11 @@ blend_fwd_kernel(const float* __restrict__ flat,
       }
       const float w = q.alpha * T;
       const int slot = base - s + j + 1;
-      col0 = col0 + w * g[COL];
-      col1 = col1 + w * g[COL + 1];
-      col2 = col2 + w * g[COL + 2];
+      if (COLOR) {
+        col0 = col0 + w * g[COL];
+        col1 = col1 + w * g[COL + 1];
+        col2 = col2 + w * g[COL + 2];
+      }
 #pragma unroll
       for (int k = 0; k < E; ++k) feat[k] = feat[k] + w * g[EXT + k];
       if (AUX) {
@@ -130,8 +164,19 @@ blend_fwd_kernel(const float* __restrict__ flat,
           med_slot = slot;
         }
       }
+      if (MODE == TRACK && w > TRACK_W && n_track < TRACK_K) {
+        tid[n_track * P2] = gids[j];
+        tw[n_track * P2] = w;
+        ++n_track;
+      }
       last = slot;
       T = test_T;
+    }
+  }
+  if (MODE == TRACK) {
+    for (int k = n_track; k < TRACK_K; ++k) {
+      tid[k * P2] = -1;
+      tw[k * P2] = 0.0f;
     }
   }
 
@@ -155,39 +200,58 @@ blend_fwd_kernel(const float* __restrict__ flat,
   io[P2] = med_slot;
 }
 
+template <int E, int MODE>
+void launch_mode(const float* flat, const int* sorted_gid,
+                 const int* tile_start, const int* tile_end, int num_tiles,
+                 int grid_x, const int* done0, float* out, int* iout,
+                 int* track_ids, float* track_w, cudaStream_t stream) {
+  blend_fwd_kernel<E, MODE><<<num_tiles, P2, 0, stream>>>(
+      flat, sorted_gid, tile_start, tile_end, grid_x, done0, out, iout,
+      track_ids, track_w);
+}
+
 template <int E>
 cudaError_t launch(int mode, const float* flat, const int* sorted_gid,
                    const int* tile_start, const int* tile_end, int num_tiles,
-                   int grid_x, float* out, int* iout, cudaStream_t stream) {
-  if (mode == FULL)
-    blend_fwd_kernel<E, FULL><<<num_tiles, P2, 0, stream>>>(
-        flat, sorted_gid, tile_start, tile_end, grid_x, out, iout);
-  else if (mode == VIEWER)
-    blend_fwd_kernel<E, VIEWER><<<num_tiles, P2, 0, stream>>>(
-        flat, sorted_gid, tile_start, tile_end, grid_x, out, iout);
-  else if (mode == NO_DIST)
-    blend_fwd_kernel<E, NO_DIST><<<num_tiles, P2, 0, stream>>>(
-        flat, sorted_gid, tile_start, tile_end, grid_x, out, iout);
-  else
+                   int grid_x, const int* done0, float* out, int* iout,
+                   int* track_ids, float* track_w, cudaStream_t stream) {
+  if (done0 != nullptr && mode != EXTRAS) return cudaErrorInvalidValue;
+  if (mode == TRACK && (track_ids == nullptr || track_w == nullptr))
     return cudaErrorInvalidValue;
+  void (*fn)(const float*, const int*, const int*, const int*, int, int,
+             const int*, float*, int*, int*, float*, cudaStream_t) =
+      mode == FULL      ? launch_mode<E, FULL>
+      : mode == VIEWER  ? launch_mode<E, VIEWER>
+      : mode == NO_DIST ? launch_mode<E, NO_DIST>
+      : mode == EXTRAS  ? launch_mode<E, EXTRAS>
+      : mode == TRACK   ? launch_mode<E, TRACK>
+                        : nullptr;
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  fn(flat, sorted_gid, tile_start, tile_end, num_tiles, grid_x, done0, out,
+     iout, track_ids, track_w, stream);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point for ctypes. Returns a cudaError_t (0 = launched).
+// done0 may be null (required null outside extras_only); track_ids and
+// track_w are read only in track mode.
 extern "C" int blend_fwd_launch(const float* flat, const int* sorted_gid,
                                 const int* tile_start, const int* tile_end,
                                 int num_tiles, int grid_x, int n_extra,
-                                int mode, float* out, int* iout,
+                                int mode, const int* done0, float* out,
+                                int* iout, int* track_ids, float* track_w,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (num_tiles <= 0) return (int)cudaSuccess;
   if (n_extra == 16)
     return (int)launch<16>(mode, flat, sorted_gid, tile_start, tile_end,
-                           num_tiles, grid_x, out, iout, st);
+                           num_tiles, grid_x, done0, out, iout, track_ids,
+                           track_w, st);
   if (n_extra == 0)
     return (int)launch<0>(mode, flat, sorted_gid, tile_start, tile_end,
-                          num_tiles, grid_x, out, iout, st);
+                          num_tiles, grid_x, done0, out, iout, track_ids,
+                          track_w, st);
   return (int)cudaErrorInvalidValue;
 }

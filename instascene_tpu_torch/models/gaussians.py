@@ -2,7 +2,8 @@
 
 Port of instascene_tpu/models/gaussians.py:32-121 (`GaussianParams` with
 its activations, `capacity`, `n_alive`, `one_up_sh_degree`, and
-`create_from_pcd`) and :124-233 (`compact`, `save_ply`, `load_ply`), plus
+`create_from_pcd`), :124-233 (`compact`, `save_ply`, `load_ply`) and
+:299-326 (`set_3d_feat`), plus
 `from_numpy`, which takes the JAX field names as numpy arrays so both
 packages can be fed one state. Fixed capacity with an `alive` mask, as in
 the JAX package: densification writes new gaussians into dead slots
@@ -243,3 +244,35 @@ def load_ply(path: str, max_sh_degree: int = 3, seg_feat_dim: int = 0,
         rotation=rotation, opacity=opac, alive=np.ones(n, bool),
         seg_feature=seg, active_sh_degree=max_sh_degree,
         max_sh_degree=max_sh_degree), device)
+
+
+def set_3d_feat(p: GaussianModel, seg3d_masks: np.ndarray, seg_feat_dim: int,
+                gram_feat: bool = False, seed: int = 0):
+    """Initial per-gaussian seg features from numpy's default_rng(seed),
+    drawn in the JAX package's order so the two agree: random unit vectors,
+    or with gram_feat one Gram-Schmidt-orthogonalised anchor per instance
+    given to its member gaussians (reference gaussian_model.py:149-179).
+    A model that already has features is returned as it is. Returns
+    (model, class_feat [K, E] numpy or None)."""
+    if p.seg_feature is not None:
+        return p, None
+    rng = np.random.default_rng(seed)
+    n = p.capacity
+    feat = rng.random((n, seg_feat_dim)).astype(np.float32)
+    class_feat = None
+    if gram_feat:
+        k = seg3d_masks.shape[1]
+        init = rng.random((k, seg_feat_dim)).astype(np.float32)
+        for i in range(k):
+            v = init[i]
+            for j in range(i):
+                v = v - np.dot(v, init[j]) * init[j]
+            init[i] = v / (np.linalg.norm(v) + 1e-9)
+        alive_n = p.n_alive()
+        for i in range(k):
+            ids = np.nonzero(seg3d_masks[:, i])[0]
+            feat[ids[ids < alive_n]] = init[i]
+        class_feat = init
+    feat = feat / (np.linalg.norm(feat, axis=1, keepdims=True) + 1e-9)
+    return p.replace(seg_feature=torch.as_tensor(feat, device=p.device)), \
+        class_feat

@@ -1,7 +1,8 @@
 """Adam over the GaussianModel's fields, with per-field learning rates.
 
 Port of instascene_tpu/models/optimizer.py:22-128 (`AdamState`,
-`init_adam_state`, `geometry_lrs`, `adam_step`, `zero_state_rows`): the
+`init_adam_state`, `geometry_lrs`, `semantic_lrs`, `adam_step` with its
+`frozen_fields`, `zero_state_rows`): the
 reference's torch.optim.Adam as it configures it (β = (0.9, 0.999),
 eps = 1e-15 added outside the sqrt, bias correction by one global step
 count), hand-rolled so that densification can zero moment rows. Updates
@@ -45,20 +46,35 @@ def geometry_lrs(opt, spatial_lr_scale: float,
             "rotation": opt.rotation_lr, "seg_feature": 0.0}
 
 
+def semantic_lrs(opt) -> Dict[str, float]:
+    """Learning rates of semantic training: only seg_feature trains
+    (reference gaussian_model.py:217-232)."""
+    return {f: 0.0 for f in TRAINABLE_FIELDS} | {
+        "seg_feature": opt.seg_feature_lr}
+
+
+# the fields semantic training never moves (adam_step's frozen_fields)
+GEOMETRY_FIELDS = ("xyz", "features_dc", "features_rest", "scaling",
+                   "rotation", "opacity")
+
+
 def adam_step(params: GaussianModel, grads: Dict[str, Optional[torch.Tensor]],
               state: AdamState, lrs: Dict[str, float], b1: float = 0.9,
-              b2: float = 0.999, eps: float = 1e-15):
+              b2: float = 0.999, eps: float = 1e-15,
+              frozen_fields: tuple = ()):
     """One Adam step → (new params, new state). `grads` maps field → its
-    gradient (None or absent counts as zero)."""
+    gradient (None or absent counts as zero). frozen_fields are skipped
+    outright: their params and moments are neither read nor written (the
+    semantic step freezes the geometry)."""
     count = state.count + 1
     dev = params.device
     f32 = torch.float32
     c1 = 1.0 - torch.tensor(b1, dtype=f32, device=dev) ** float(count)
     c2 = 1.0 - torch.tensor(b2, dtype=f32, device=dev) ** float(count)
-    updates, new_m, new_v = {}, {}, {}
+    updates, new_m, new_v = {}, dict(state.m), dict(state.v)
     for f in TRAINABLE_FIELDS:
         p = getattr(params, f)
-        if p is None:
+        if p is None or f in frozen_fields:
             continue
         g = grads.get(f)
         if g is None:

@@ -4,12 +4,13 @@ Function that joins them.
 
 Port of instascene_tpu/ops/blend_pallas.py:51-89 (`pack_flat_cols`),
 :150-182 (`_splat_terms`) and instascene_tpu/ops/blend_visits.py:62-392
-(`_fwd_kernel_visits`, the TPU kernel K1, in its `full`, `viewer` and
-`no_dist` modes), :395-607 (`_bwd_kernel_visits`, the TPU kernel K2, in its
-`full` and `no_dist` modes) and :687-751 (the custom VJP with its
-per-gaussian scatter-add). The kernels are csrc/blend_fwd.cu and
-csrc/blend_bwd.cu (CUDA C++ for sm_90a); their headers say what bounds them
-on the H100 and how the design answers that.
+(`_fwd_kernel_visits`, the TPU kernel K1, in its `full`, `viewer`,
+`no_dist`, `extras_only` (with the sampled-pixel done0 mask) and `track`
+modes), :395-607 (`_bwd_kernel_visits`, the TPU kernel K2, in its `full`,
+`no_dist` and `extras_only` modes) and :612-751 (`blend_visits_track` and
+the custom VJP with its per-gaussian scatter-add). The kernels are
+csrc/blend_fwd.cu and csrc/blend_bwd.cu (CUDA C++ for sm_90a); their
+headers say what bounds them on the H100 and how the design answers that.
 
 The TPU layout machinery (pair caps, the (chunk, tile) visit list and its
 SMEM budget) is gone: the inputs are the per-gaussian packed table `flat`
@@ -21,9 +22,8 @@ out [num_tiles, 12+E, 256] f32 and iout [num_tiles, 2, 256] i32
 `blend_fwd`, `blend_bwd` and `reduce_per_gaussian` launch their kernels for
 CUDA tensors (or raise) and run the plain versions for CPU tensors; each
 adds one to its entry of `LAUNCHES` (by kernel and mode) where it launches.
-`blend` is the differentiable entry (`BlendFunction`). K1's extras_only (with done0), track, clip_rect and
-tiles_per_view modes and K2's extras_only, clip_rect and tiles_per_view
-modes come in later slices.
+`blend` is the differentiable entry (`BlendFunction`). K1's and K2's
+clip_rect and tiles_per_view modes come in a later slice.
 """
 
 from __future__ import annotations
@@ -43,10 +43,15 @@ DMD_DD = FAR_N * NEAR_N / (FAR_N - NEAR_N)   # d(md)/d(depth) · depth²
 ALPHA_MIN = 1.0 / 255.0
 T_DONE = 1e-4
 KERNEL_E = (0, 16)                      # feature widths the kernels are built for
-MODES = ("full", "viewer", "no_dist")   # K1's modes here; its C entry takes the index
+# K1's and K2's modes; their C entries take the index
+MODES = ("full", "viewer", "no_dist", "extras_only", "track")
+BWD_MODES = ("full", "no_dist", "extras_only")
+TRACK_K = 10        # contributor slots per pixel (track mode)
+TRACK_W = 0.1       # a contribution is tracked when its weight exceeds this
 # kernel launches, by kernel and mode (the plain versions launch nothing)
-LAUNCHES = dict.fromkeys(("K1 full", "K1 viewer", "K1 no_dist", "K2 full",
-                          "K2 no_dist", "segment_sum"), 0)
+LAUNCHES = dict.fromkeys(
+    [f"K1 {m}" for m in MODES] + [f"K2 {m}" for m in BWD_MODES]
+    + ["segment_sum"], 0)
 
 
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -122,7 +127,9 @@ def _walk_order(tile_start, tile_end, grid_x):
 
 def blend_fwd_reference(flat, sorted_gid, tile_start, tile_end, grid_x: int,
                         n_extra: int, viewer: bool = False,
-                        count_work: bool = False, no_dist: bool = False):
+                        count_work: bool = False, no_dist: bool = False,
+                        extras_only: bool = False, done0=None,
+                        track: bool = False):
     """The plain PyTorch version of K1: vectorised over tiles × pixels,
     looping over the within-tile slot index in the kernel's order with the
     kernel's arithmetic (see _splat).
@@ -130,7 +137,13 @@ def blend_fwd_reference(flat, sorted_gid, tile_start, tile_end, grid_x: int,
     no_dist: the depth sum, the distortion and the m1/m2 totals are skipped
     and their rows (3, 8, 10+E, 11+E) are exact zeros; every other row and
     iout are as `full` computes them. viewer: only color, final T, features
-    and n_contrib are computed.
+    and n_contrib are computed. extras_only: only final T, the features and
+    n_contrib; done0 [T, 1, 256] (or [T, 256]) int, extras_only only,
+    pre-latches every pixel where it is non-zero (T = 1, zero features,
+    n_contrib 0). track: `full` plus the contributor buffer, returned after
+    iout as ids [T, TRACK_K, 256] int32 (-1 empty) and w [T, TRACK_K, 256]
+    f32 (0 empty): each contribution with w > TRACK_W, in blend order, while
+    slots are free.
 
     count_work=True also returns the work these inputs need, per pixel
     [T, 256] int32: the slots it must evaluate (up to and including the one
@@ -141,21 +154,35 @@ def blend_fwd_reference(flat, sorted_gid, tile_start, tile_end, grid_x: int,
     OC = 12 + E
     nt = tile_start.shape[0]
     f32 = torch.float32
+    if done0 is not None and not extras_only:
+        raise ValueError("done0 masks serve the extras_only mode only")
+    color = not extras_only
+    aux = not (viewer or extras_only)
+    dist = aux and not no_dist
     order, start, max_count, n_at, pxf, pyf = _walk_order(
         tile_start, tile_end, grid_x)
 
     T = torch.ones((nt, P2), dtype=f32, device=dev)
-    done = torch.zeros((nt, P2), dtype=torch.bool, device=dev)
+    if done0 is None:
+        done = torch.zeros((nt, P2), dtype=torch.bool, device=dev)
+    else:
+        done = done0.reshape(nt, P2)[order] != 0
     acc = torch.zeros((nt, OC, P2), dtype=f32, device=dev)
     last = torch.zeros((nt, P2), dtype=torch.int32, device=dev)
     med_slot = torch.zeros((nt, P2), dtype=torch.int32, device=dev)
     n_eval = torch.zeros((nt, P2), dtype=torch.int32, device=dev)
     n_hit = torch.zeros((nt, P2), dtype=torch.int32, device=dev)
+    if track:
+        ids = torch.full((nt, TRACK_K, P2), -1, dtype=torch.int32,
+                         device=dev)
+        tw = torch.zeros((nt, TRACK_K, P2), dtype=f32, device=dev)
+        n_track = torch.zeros((nt, P2), dtype=torch.int32, device=dev)
     gid_l = sorted_gid.to(torch.int64)
 
     for k in range(max_count):
         na = n_at(k)
-        g = flat[gid_l[start[:na] + k]][:, :, None]        # [na, D, 1]
+        gk = gid_l[start[:na] + k]
+        g = flat[gk][:, :, None]                           # [na, D, 1]
         s = _splat(g, pxf[:na], pyf[:na])
         alpha, depth_ray = s["alpha"], s["depth_ray"]
         Tk = T[:na]
@@ -168,12 +195,13 @@ def blend_fwd_reference(flat, sorted_gid, tile_start, tile_end, grid_x: int,
         w = torch.where(contrib, alpha * Tk, 0.0)
         wc = w[:, None]
         a = acc[:na]
-        a[:, 0:3] = a[:, 0:3] + wc * g[:, _COL:_COL + 3]
+        if color:
+            a[:, 0:3] = a[:, 0:3] + wc * g[:, _COL:_COL + 3]
         if E:
             a[:, 10:10 + E] = a[:, 10:10 + E] + wc * g[:, _EXT:_EXT + E]
-        if not viewer:
+        if aux:
             a[:, 4:7] = a[:, 4:7] + wc * g[:, _NRM:_NRM + 3]
-            if not no_dist:
+            if dist:
                 a[:, 3] = a[:, 3] + w * depth_ray
                 d_safe = torch.where(contrib, depth_ray, 1.0)
                 md = MD_SCALE * (1.0 - NEAR_N / d_safe)
@@ -186,6 +214,16 @@ def blend_fwd_reference(flat, sorted_gid, tile_start, tile_end, grid_x: int,
             cand = contrib & (Tk > 0.5)
             a[:, 7] = torch.where(cand, depth_ray, a[:, 7])
             med_slot[:na] = torch.where(cand, k + 1, med_slot[:na])
+        if track:
+            big = contrib & (w > TRACK_W)
+            cnt = n_track[:na]
+            for slot in range(TRACK_K):
+                sel = big & (cnt == slot)
+                ids[:na, slot] = torch.where(sel, gk[:, None].to(torch.int32),
+                                             ids[:na, slot])
+                tw[:na, slot] = torch.where(sel, w, tw[:na, slot])
+            n_track[:na] = torch.clamp(cnt + big.to(torch.int32),
+                                       max=TRACK_K)
         last[:na] = torch.where(contrib, k + 1, last[:na])
         T[:na] = torch.where(contrib, test_T, Tk)
         if count_work:
@@ -197,18 +235,28 @@ def blend_fwd_reference(flat, sorted_gid, tile_start, tile_end, grid_x: int,
     out[order] = acc
     iout = torch.empty((nt, 2, P2), dtype=torch.int32, device=dev)
     iout[order] = torch.stack([last, med_slot], dim=1)
+    res = (out, iout)
+    if track:
+        ids_out = torch.empty_like(ids)
+        ids_out[order] = ids
+        tw_out = torch.empty_like(tw)
+        tw_out[order] = tw
+        res += (ids_out, tw_out)
     if not count_work:
-        return out, iout
+        return res
     work = torch.empty((nt, 2, P2), dtype=torch.int32, device=dev)
     work[order] = torch.stack([n_eval, n_hit], dim=1)
-    return out, iout, work[:, 0], work[:, 1]
+    return res + (work[:, 0], work[:, 1])
 
 
 def blend_bwd_reference(flat, sorted_gid, tile_start, tile_end, grid_x: int,
                         n_extra: int, gout, saved, iout,
-                        no_dist: bool = False, count_work: bool = False):
+                        no_dist: bool = False, count_work: bool = False,
+                        extras_only: bool = False):
     """The plain PyTorch version of K2: per-slot gradients d_sorted
-    [pairs, 21+E] of Σ gout·out with respect to each slot's packed row.
+    [pairs, 21+E] of Σ gout·out with respect to each slot's packed row
+    (extras_only: [pairs, E], the feature columns alone, w · gout[10+e]
+    summed over the tile's pixels).
 
     gout [T, 12+E, 256] is the cotangent of K1's out; saved [T, 3, 256]
     holds out's final T, m1 and m2 rows; iout is K1's (n_contrib,
@@ -226,7 +274,7 @@ def blend_bwd_reference(flat, sorted_gid, tile_start, tile_end, grid_x: int,
     n_contrib there."""
     dev = flat.device
     E = n_extra
-    D = 21 + E
+    D = E if extras_only else 21 + E
     f32 = torch.float32
     order, start, max_count, n_at, pxf, pyf = _walk_order(
         tile_start, tile_end, grid_x)
@@ -256,6 +304,14 @@ def blend_bwd_reference(flat, sorted_gid, tile_start, tile_end, grid_x: int,
         Ta = T[:na]
         Ti = Ta / one_minus
         w = torch.where(cm, alpha * Ti, 0.0)
+        if extras_only:
+            d_sorted[start[:na] + k] = torch.stack(
+                [w * gext[:na, e] for e in range(E)], dim=1).sum(dim=2)
+            T[:na] = torch.where(cm, Ti, Ta)
+            if count_work:
+                n_hits += int(cm.sum())
+                n_slots += int(cm.any(dim=1).sum())
+            continue
         dLdw = g[:, _NRM] * gnrm[:na, 0]
         for c, gc in ((_NRM + 1, gnrm[:na, 1]), (_NRM + 2, gnrm[:na, 2]),
                       (_COL, gcol[:na, 0]), (_COL + 1, gcol[:na, 1]),
@@ -361,77 +417,108 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _mode(viewer: bool, no_dist: bool, extras_only: bool,
+          track: bool) -> str:
+    chosen = [m for m, on in (("viewer", viewer), ("no_dist", no_dist),
+                              ("extras_only", extras_only), ("track", track))
+              if on]
+    if len(chosen) > 1:
+        raise ValueError(f"{' and '.join(chosen)} are separate modes of K1")
+    return chosen[0] if chosen else "full"
+
+
 def blend_fwd(flat, sorted_gid, tile_start, tile_end, grid_x: int,
-              n_extra: int, viewer: bool = False, no_dist: bool = False):
-    """K1 forward blend → (out [T, 12+E, 256] f32, iout [T, 2, 256] i32).
+              n_extra: int, viewer: bool = False, no_dist: bool = False,
+              extras_only: bool = False, done0=None, track: bool = False):
+    """K1 forward blend → (out [T, 12+E, 256] f32, iout [T, 2, 256] i32),
+    and with track the contributor buffer (ids [T, TRACK_K, 256] i32, w
+    [T, TRACK_K, 256] f32) after them. done0 [T, 1, 256] int32 (extras_only
+    only): the sampled-pixel mask (see blend_fwd_reference).
 
     CUDA tensors launch csrc/blend_fwd.cu (and raise on anything it does
     not take); CPU tensors run blend_fwd_reference. Forward only: for
     gradients call `blend`."""
-    if viewer and no_dist:
-        raise ValueError("viewer and no_dist are separate modes of K1")
+    mode = _mode(viewer, no_dist, extras_only, track)
+    if done0 is not None and mode != "extras_only":
+        raise ValueError("done0 masks serve K1's extras_only mode only")
     if torch.is_grad_enabled() and flat.requires_grad:
         raise ValueError("blend_fwd is the forward kernel alone; call "
                          "blend() (BlendFunction) for gradients, or "
                          "detach flat")
     if flat.device.type == "cpu":
         return blend_fwd_reference(flat, sorted_gid, tile_start, tile_end,
-                                   grid_x, n_extra, viewer, no_dist=no_dist)
+                                   grid_x, n_extra, viewer, no_dist=no_dist,
+                                   extras_only=extras_only, done0=done0,
+                                   track=track)
     if flat.device.type != "cuda":
         raise ValueError(f"blend_fwd: unsupported device {flat.device}")
     _check_common("blend_fwd", flat, sorted_gid, tile_start, tile_end,
                   n_extra)
     nt = tile_start.shape[0]
+    dev = flat.device
+    if done0 is not None:
+        _check_tiles("done0", done0, torch.int32, (nt, 1, P2), dev)
     out = torch.empty((nt, 12 + n_extra, P2), dtype=torch.float32,
-                      device=flat.device)
-    iout = torch.empty((nt, 2, P2), dtype=torch.int32, device=flat.device)
-    mode = MODES.index("viewer" if viewer else
-                       "no_dist" if no_dist else "full")
+                      device=dev)
+    iout = torch.empty((nt, 2, P2), dtype=torch.int32, device=dev)
+    ids = tw = None
+    if track:
+        ids = torch.empty((nt, TRACK_K, P2), dtype=torch.int32, device=dev)
+        tw = torch.empty((nt, TRACK_K, P2), dtype=torch.float32, device=dev)
+    ptr = lambda a: a.data_ptr() if a is not None else None
     fn = _lib_fn("blend_fwd.cu", "blend_fwd_launch",
-                 [_P] * 4 + [_I] * 4 + [_P] * 3)
-    with torch.cuda.device(flat.device):
+                 [_P] * 4 + [_I] * 4 + [_P] * 6)
+    with torch.cuda.device(dev):
         err = fn(flat.data_ptr(), sorted_gid.data_ptr(),
                  tile_start.data_ptr(), tile_end.data_ptr(), nt, grid_x,
-                 n_extra, mode, out.data_ptr(), iout.data_ptr(),
-                 _stream(flat.device))
+                 n_extra, MODES.index(mode), ptr(done0), out.data_ptr(),
+                 iout.data_ptr(), ptr(ids), ptr(tw), _stream(dev))
     if err != 0:
         raise RuntimeError(f"blend_fwd kernel launch failed: cudaError {err}")
-    LAUNCHES[f"K1 {MODES[mode]}"] += 1
-    return out, iout
+    LAUNCHES[f"K1 {mode}"] += 1
+    return (out, iout, ids, tw) if track else (out, iout)
 
 
 def blend_bwd(flat, sorted_gid, tile_start, tile_end, grid_x: int,
-              n_extra: int, gout, saved, iout, no_dist: bool = False):
-    """K2 backward blend → d_sorted [pairs, 21+E] f32 (see
-    blend_bwd_reference for what it computes).
+              n_extra: int, gout, saved, iout, no_dist: bool = False,
+              extras_only: bool = False):
+    """K2 backward blend → d_sorted [pairs, 21+E] f32 ([pairs, E] with
+    extras_only; see blend_bwd_reference for what it computes).
 
     CUDA tensors launch csrc/blend_bwd.cu (and raise on anything it does
     not take); CPU tensors run blend_bwd_reference."""
+    if no_dist and extras_only:
+        raise ValueError("no_dist and extras_only are separate modes of K2")
     if flat.device.type == "cpu":
         return blend_bwd_reference(flat, sorted_gid, tile_start, tile_end,
                                    grid_x, n_extra, gout, saved, iout,
-                                   no_dist=no_dist)
+                                   no_dist=no_dist, extras_only=extras_only)
     if flat.device.type != "cuda":
         raise ValueError(f"blend_bwd: unsupported device {flat.device}")
     _check_common("blend_bwd", flat, sorted_gid, tile_start, tile_end,
                   n_extra)
+    if extras_only and n_extra == 0:
+        raise ValueError("K2 extras_only needs feature channels (E > 0)")
     nt = tile_start.shape[0]
     dev = flat.device
     _check_tiles("gout", gout, torch.float32, (nt, 12 + n_extra, P2), dev)
     _check_tiles("saved", saved, torch.float32, (nt, 3, P2), dev)
     _check_tiles("iout", iout, torch.int32, (nt, 2, P2), dev)
-    d_sorted = torch.empty((sorted_gid.shape[0], 21 + n_extra),
+    mode = "extras_only" if extras_only else "no_dist" if no_dist else "full"
+    d_sorted = torch.empty((sorted_gid.shape[0],
+                            n_extra if extras_only else 21 + n_extra),
                            dtype=torch.float32, device=dev)
     fn = _lib_fn("blend_bwd.cu", "blend_bwd_launch",
                  [_P] * 4 + [_I] * 4 + [_P] * 5)
     with torch.cuda.device(dev):
         err = fn(flat.data_ptr(), sorted_gid.data_ptr(),
                  tile_start.data_ptr(), tile_end.data_ptr(), nt, grid_x,
-                 n_extra, int(no_dist), gout.data_ptr(), saved.data_ptr(),
-                 iout.data_ptr(), d_sorted.data_ptr(), _stream(dev))
+                 n_extra, BWD_MODES.index(mode), gout.data_ptr(),
+                 saved.data_ptr(), iout.data_ptr(), d_sorted.data_ptr(),
+                 _stream(dev))
     if err != 0:
         raise RuntimeError(f"blend_bwd kernel launch failed: cudaError {err}")
-    LAUNCHES["K2 no_dist" if no_dist else "K2 full"] += 1
+    LAUNCHES[f"K2 {mode}"] += 1
     return d_sorted
 
 
@@ -479,22 +566,26 @@ def reduce_per_gaussian(d_sorted, sorted_gid, n: int, runs):
 
 
 class BlendFunction(torch.autograd.Function):
-    """Differentiable K1 (`full` or `no_dist`): forward runs blend_fwd;
-    backward runs blend_bwd (K2) and reduce_per_gaussian and returns d_flat.
-    Saved for the backward: flat, the pair list, tile ranges and per-gaussian
-    runs, iout and out's final T, m1 and m2 rows."""
+    """Differentiable K1 (`full`, `no_dist` or `extras_only`, the last
+    with an optional done0 mask): forward runs blend_fwd; backward runs
+    blend_bwd (K2) and reduce_per_gaussian and returns d_flat (extras_only:
+    zero in the 21 geometry columns, as the JAX VJP pads it). Saved for the
+    backward: flat, the pair list, tile ranges and per-gaussian runs, iout
+    and out's final T, m1 and m2 rows."""
 
     @staticmethod
     def forward(ctx, flat, sorted_gid, tile_start, tile_end, gid_order,
-                run_start, grid_x, n_extra, no_dist):
+                run_start, grid_x, n_extra, no_dist, extras_only, done0):
         out, iout = blend_fwd(flat, sorted_gid, tile_start, tile_end, grid_x,
-                              n_extra, no_dist=no_dist)
+                              n_extra, no_dist=no_dist,
+                              extras_only=extras_only, done0=done0)
         E = n_extra
         saved = torch.stack([out[:, 9], out[:, 10 + E], out[:, 11 + E]],
                             dim=1).contiguous()
         ctx.save_for_backward(flat, sorted_gid, tile_start, tile_end,
                               gid_order, run_start, iout, saved)
-        ctx.grid_x, ctx.n_extra, ctx.no_dist = grid_x, n_extra, no_dist
+        ctx.grid_x, ctx.n_extra = grid_x, n_extra
+        ctx.no_dist, ctx.extras_only = no_dist, extras_only
         ctx.mark_non_differentiable(iout)
         return out, iout
 
@@ -504,15 +595,22 @@ class BlendFunction(torch.autograd.Function):
          saved) = ctx.saved_tensors
         d_sorted = blend_bwd(flat, sorted_gid, tile_start, tile_end,
                              ctx.grid_x, ctx.n_extra, gout.contiguous(),
-                             saved, iout, no_dist=ctx.no_dist)
+                             saved, iout, no_dist=ctx.no_dist,
+                             extras_only=ctx.extras_only)
         d_flat = reduce_per_gaussian(d_sorted, sorted_gid, flat.shape[0],
                                      (gid_order, run_start))
-        return (d_flat,) + (None,) * 8
+        if ctx.extras_only:
+            # pixels done0 latched have n_contrib 0: no mask input needed
+            d_flat = torch.cat([d_flat.new_zeros((flat.shape[0], _EXT)),
+                                d_flat], dim=1)
+        return (d_flat,) + (None,) * 10
 
 
 def blend(flat, sorted_gid, tile_start, tile_end, grid_x: int, n_extra: int,
-          runs, no_dist: bool = False):
+          runs, no_dist: bool = False, extras_only: bool = False,
+          done0=None):
     """Differentiable K1 → (out, iout); gradients reach `flat` through K2.
     runs = (gid_order, run_start) of the same binning (BinningOut)."""
     return BlendFunction.apply(flat, sorted_gid, tile_start, tile_end,
-                               *runs, grid_x, n_extra, no_dist)
+                               *runs, grid_x, n_extra, no_dist, extras_only,
+                               done0)

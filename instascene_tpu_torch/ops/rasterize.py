@@ -1,12 +1,16 @@
 """Rasterize 2D gaussian surfels: preprocess → bin → pack → blend (K1).
 
 Port of instascene_tpu/ops/rasterize.py:35-143 (`RasterizeConfig`, reduced
-to what the port serves so far), :242-364 (`_rasterize_impl`, `rasterize`,
-with the t_offset densification tap), :488-495 (`densify_screen_grad`) and
+to what the port serves so far), :146-230 (`_blend_via_pallas`: the
+extras-only mode with its sampled-pixel done0 mask, contributor tracking,
+`extra_tiles`), :242-364 (`_rasterize_impl`, `rasterize`, with the t_offset
+densification tap and `cached_binning`), :488-495 (`densify_screen_grad`),
+:498-587 (`compute_binning_cache`) and
 instascene_tpu/ops/rasterize_pallas.py:30-57 (`pallas_tiles_to_map`,
 `maps_from_pallas`). Buffers follow the exact pair total, so the TPU's pair
 and tile caps, their grow-and-retry loop, slab plans and gather tuning are
-gone; `n_dropped` is always 0.
+gone; `n_dropped` is always 0. The frozen-geometry binning cache is the
+camera's BinningOut itself (no visit layout, no chain-reduce indices).
 
 Differentiable: torch autograd runs through preprocess, SH and pack, and
 the blend's gradient comes from K2 (ops/blend_visits.BlendFunction).
@@ -22,7 +26,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .binning import bin_gaussians
+from .binning import BinningOut, bin_gaussians
 from . import blend_visits as bv
 from .blend_visits import pack_flat_cols
 from .preprocess import TILE, preprocess_gaussians
@@ -46,19 +50,20 @@ class RasterizeConfig:
     # (lambda_dist == 0 and depth_ratio == 1, the reference defaults); the
     # depth and distortion outputs come back exact zeros
     no_depth_dist: bool = False
+    # forward-only full blend plus the per-pixel w > 0.1 contributor buffer
+    # (K1 track): BlendOut.contrib_ids / contrib_w [H,W,10]
+    track_contrib: bool = False
+    # feature-lifting fast path (K1/K2 extras_only): the forward computes
+    # only the features, final T and n_contrib (every other map is zero)
+    # and the gradient reaches the feature columns alone
+    bwd_extras_only: bool = False
     # later slices
-    track_contrib: bool = False      # K1 track mode (slice 4)
-    bwd_extras_only: bool = False    # K1 extras_only + K2 (slice 3)
     clip_rect: bool = False          # K1 clip_rect (slice 4)
     conic_cull: bool = False         # preprocess.conic_cull_masks (slice 4)
     tiles_per_view: int = 0          # K1 merged multi-view (slice 4)
 
     def check(self) -> None:
-        later = {"track_contrib": "slice 4 (contributor tracking, K1 track "
-                                  "mode)",
-                 "bwd_extras_only": "slice 3 (semantic step, K1 extras_only "
-                                    "and K2)",
-                 "clip_rect": "slice 4 (cached-superset binning, K1 "
+        later = {"clip_rect": "slice 4 (cached-superset binning, K1 "
                               "clip_rect)",
                  "conic_cull": "slice 4 (exact conic pair culling)",
                  "tiles_per_view": "slice 4 (merged multi-view, K1 "
@@ -68,6 +73,10 @@ class RasterizeConfig:
                 raise NotImplementedError(
                     f"RasterizeConfig.{name} is not ported yet: it comes in "
                     f"{when}")
+        modes = [m for m in ("fwd_viewer", "track_contrib",
+                             "bwd_extras_only") if getattr(self, m)]
+        if len(modes) > 1:
+            raise ValueError(f"RasterizeConfig: {modes} are separate modes")
 
 
 class BlendOut(NamedTuple):
@@ -80,6 +89,11 @@ class BlendOut(NamedTuple):
     extra: Optional[torch.Tensor]  # [H,W,E]
     final_T: torch.Tensor        # [H,W]
     n_contrib: torch.Tensor      # [H,W] int32
+    contrib_ids: Optional[torch.Tensor] = None  # [H,W,10] int32 (track)
+    contrib_w: Optional[torch.Tensor] = None    # [H,W,10] f32 (track)
+    # the kernels' tile-major features [T,E,256]: a loss that reads sampled
+    # pixels fetches them here, with no [H,W,E] map and no un-transpose
+    extra_tiles: Optional[torch.Tensor] = None
 
 
 class RasterizeOut(NamedTuple):
@@ -117,18 +131,25 @@ def maps_from_tiles(out, iout, width, height, n_extra) -> dict:
 def rasterize(means3d, scales, rotations, opacities, cam: CameraMats, bg,
               cfg: RasterizeConfig, colors=None, shs=None, sh_degree: int = 0,
               extras=None, t_offset=None, alive=None,
-              done0=None) -> RasterizeOut:
+              done0=None, cached_binning=None) -> RasterizeOut:
     """means3d [N,3]; scales [N,2] (activated); rotations [N,4] (w,x,y,z);
     opacities [N] or [N,1] (activated); exactly one of colors [N,3] /
     shs [N,K,3]; extras [N,E] optional feature channels; t_offset [N,3,3]
     optional zero tensor whose gradient is dL/dT (the densification tap:
     added to T after the screen AABB, so it reaches the blend alone). All
     on one device: CUDA runs the kernels, CPU their plain versions.
-    Differentiable unless cfg.fwd_viewer."""
+    Differentiable unless cfg.fwd_viewer or cfg.track_contrib.
+
+    cached_binning: the camera's BinningOut from compute_binning_cache
+    (frozen geometry): preprocess still runs, binning is skipped. done0
+    [num_tiles, 1, 256] int32 (cfg.bwd_extras_only only): 1 pre-latches a
+    pixel done; the other pixels' features and gradients are bit for bit
+    those of done0=None, the latched pixels' come back zero and must not be
+    read."""
     cfg.check()
-    if done0 is not None:
-        raise NotImplementedError("sampled-pixel done0 masks come in slice 3 "
-                                  "(semantic step, K1 extras_only)")
+    if done0 is not None and not cfg.bwd_extras_only:
+        raise ValueError("sampled-pixel done0 masks require "
+                         "cfg.bwd_extras_only")
     width, height = cfg.width, cfg.height
     n = means3d.shape[0]
     opac = torch.reshape(opacities, (n,))
@@ -136,7 +157,8 @@ def rasterize(means3d, scales, rotations, opacities, cam: CameraMats, bg,
         means3d, scales, rotations, cam.w2v, cam.full_proj, cam.campos,
         width, height, opac, color=colors, shs=shs, sh_degree=sh_degree,
         alive=alive)
-    binning = bin_gaussians(pre, width, height)
+    binning = (cached_binning if cached_binning is not None
+               else bin_gaussians(pre, width, height))
     E = extras.shape[1] if extras is not None else 0
     grid_x = (width + TILE - 1) // TILE
     T_used = pre.T if t_offset is None else pre.T + t_offset
@@ -144,12 +166,16 @@ def rasterize(means3d, scales, rotations, opacities, cam: CameraMats, bg,
                           extras)
     bargs = (binning.sorted_gid, binning.tile_start, binning.tile_end,
              grid_x, E)
+    ids = tw = None
     if cfg.fwd_viewer:
         out, iout = bv.blend_fwd(flat.detach(), *bargs, viewer=True)
+    elif cfg.track_contrib:
+        out, iout, ids, tw = bv.blend_fwd(flat.detach(), *bargs, track=True)
     else:
         out, iout = bv.blend(flat, *bargs,
                              (binning.gid_order, binning.run_start),
-                             no_dist=cfg.no_depth_dist)
+                             no_dist=cfg.no_depth_dist,
+                             extras_only=cfg.bwd_extras_only, done0=done0)
     maps = maps_from_tiles(out, iout, width, height, E)
     bg = torch.as_tensor(bg, dtype=torch.float32, device=means3d.device)
     color = maps["color_nobg"] + maps["final_T"][..., None] * bg
@@ -158,7 +184,12 @@ def rasterize(means3d, scales, rotations, opacities, cam: CameraMats, bg,
                      median_depth=maps["median_depth"],
                      distortion=maps["distortion"],
                      extra=maps["extra"] if extras is not None else None,
-                     final_T=maps["final_T"], n_contrib=maps["n_contrib"])
+                     final_T=maps["final_T"], n_contrib=maps["n_contrib"],
+                     contrib_ids=(tiles_to_map(ids, width, height)
+                                  if ids is not None else None),
+                     contrib_w=(tiles_to_map(tw, width, height)
+                                if tw is not None else None),
+                     extra_tiles=out[:, 10:10 + E] if E else None)
     return RasterizeOut(blend=blend, radii=pre.radius.to(torch.int32),
                         visible=pre.valid & (pre.radius > 0),
                         depth=pre.depth, n_dropped=0, T=pre.T,
@@ -173,3 +204,18 @@ def densify_screen_grad(t_grad: torch.Tensor, depth: torch.Tensor,
     gx = t_grad[:, 0, 2] * depth * 0.5 * width
     gy = t_grad[:, 1, 2] * depth * 0.5 * height
     return torch.stack([gx, gy], dim=-1)
+
+
+def compute_binning_cache(params, cam: CameraMats, width: int,
+                          height: int) -> BinningOut:
+    """The frozen-geometry binning of one camera (semantic training: the
+    geometry never moves, so each camera's pair list is computed once):
+    preprocess with the opacity-aware rects, as every render does, then
+    bin. Pass it as rasterize(..., cached_binning=...)."""
+    with torch.no_grad():
+        pre = preprocess_gaussians(
+            params.xyz, params.scaling_activated(),
+            params.rotation_normalized(), cam.w2v, cam.full_proj,
+            cam.campos, width, height, params.opacity_activated()[:, 0],
+            color=torch.zeros_like(params.xyz), alive=params.alive)
+        return bin_gaussians(pre, width, height)

@@ -1,0 +1,574 @@
+"""Semantic feature lifting: the spatial-track priors, the contrastive step
+and the trainer that drives them.
+
+Port of instascene_tpu/pipelines/train_semantic.py:37-185 (`render_features`,
+`_pix_to_tile`, `_done0_from_idx`, `_draw_sv_pixel_idx`,
+`single_view_and_3d_losses` with the tile-major fetch from `extra_tiles`),
+:188-243 (the step's dataclasses), :460-514 (`_mv_full_loss` with the
+sampled-pixel done masks), :517-691 (`semantic_train_step`), :694-907 and
+:990-1103 (`SegSplatting`: `robust_semantic_priors`, `_precompute_binning`,
+`_precompute_sampling`, `_camera_bundles`, `_max_labels`, `train_segfeat`,
+`save`) and :1163-1177 (`export_segment_results`).
+
+Stage 1 renders every training view with contributor tracking (K1 track)
+and runs the spatial-track mask clustering on the host (output_dict.npy,
+sam/mask_sorted, sam/mask_filtered); stage 2 trains the 16-channel features
+with frozen geometry: single-view ProtoNCE on two segmap types and 3D
+ProtoNCE every step, multi-view ProtoNCE over a window of views every 10th
+step, through K1 and K2 in their extras_only modes with sampled-pixel done
+masks; then the HDBSCAN instance export.
+
+What differs from the JAX package:
+  * the binning cache is each camera's BinningOut, computed once (no probe
+    pass, no pair caps, no visit layout);
+  * the pixel draws come from a torch.Generator; `draws=` injects index sets
+    instead (tests inject JAX's, replayed from its key splits), and all of a
+    step's draws are made before it renders, since they depend only on the
+    segmaps, the samplers and the frozen visibility;
+  * autograd reaches the features alone: the packed table is built from
+    detached geometry, as JAX differentiates with respect to seg_feature
+    only.
+The tile-subsampled, merged and sparse-pixel multi-view variants
+(--mv_tile_subsample, --mv_merged, --sparse_px), camera-batch data
+parallelism (--dp) and `render_views` wait for later slices (ROADMAP A9,
+A12).
+"""
+
+from __future__ import annotations
+
+import os
+import random
+import shutil
+import time
+from dataclasses import dataclass
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..models import gaussians as gmod
+from ..models.optimizer import (GEOMETRY_FIELDS, adam_step, init_adam_state,
+                                semantic_lrs)
+from ..ops.binning import BinningOut
+from ..ops.preprocess import TILE, preprocess_gaussians
+from ..ops.rasterize import (CameraMats, RasterizeConfig,
+                             compute_binning_cache, rasterize)
+from ..semantic.contrastive import (contrastive_loss, sample_from_ids,
+                                    valid_ids_pack)
+from ..semantic.spatial_track import GausCluster
+from .train import camera_tensors
+
+
+def render_features(params: gmod.GaussianModel, cam: CameraMats, bg,
+                    cfg: RasterizeConfig, seg_feature=None,
+                    cached_binning: Optional[BinningOut] = None, done0=None):
+    """Render with `seg_feature` (default the model's), L2-normalised, as
+    the extra channels. Geometry enters detached: gradients reach only the
+    features."""
+    feat = seg_feature if seg_feature is not None else params.seg_feature
+    if feat is not None:
+        feat = feat / (torch.linalg.norm(feat, dim=1, keepdim=True) + 1e-6)
+    d = lambda a: a.detach()
+    return rasterize(d(params.xyz), d(params.scaling_activated()),
+                     d(params.rotation_normalized()),
+                     d(params.opacity_activated()[:, 0]), cam, bg, cfg,
+                     shs=d(params.features()),
+                     sh_degree=params.active_sh_degree, extras=feat,
+                     alive=params.alive, cached_binning=cached_binning,
+                     done0=done0)
+
+
+def _pix_to_tile(idx, width: int, tile: int, grid_x: int):
+    """Flat pixel index → (tile index, row-major position in the tile)."""
+    y, x = idx // width, idx % width
+    return (y // tile) * grid_x + (x // tile), (y % tile) * tile + (x % tile)
+
+
+def _done0_from_idx(idx_list, width: int, height: int, tile: int = TILE):
+    """[num_tiles, 1, tile²] int32 done mask: 1 everywhere but the sampled
+    flat pixel indices of idx_list, so K1 extras_only skips the pixels the
+    loss never reads."""
+    grid_x = (width + tile - 1) // tile
+    grid_y = (height + tile - 1) // tile
+    d = torch.ones((grid_x * grid_y, 1, tile * tile), dtype=torch.int32,
+                   device=idx_list[0].device)
+    for idx in idx_list:
+        t, p2 = _pix_to_tile(idx, width, tile, grid_x)
+        d[t, 0, p2] = 0
+    return d
+
+
+@dataclass
+class SemanticCamera:
+    """One training view's constant inputs to the semantic step (built once
+    by SegSplatting._camera_bundles): camera, segmaps, the frozen-geometry
+    binning, and the valid-index sampler packs with their valid counts
+    (host ints, so drawing needs no device read)."""
+    w2v: torch.Tensor            # [4,4]
+    full_proj: torch.Tensor      # [4,4]
+    campos: torch.Tensor         # [3]
+    segmap: torch.Tensor         # [H,W] int raw/filtered instance labels
+    sorted_segmap: torch.Tensor  # [H,W] int cluster-consistent labels
+    binning: BinningOut
+    seg_samp: torch.Tensor       # valid_ids_pack(segmap > 0)
+    sorted_samp: torch.Tensor    # valid_ids_pack(sorted_segmap > 0)
+    vis3d_samp: torch.Tensor     # valid_ids_pack(visible & 3D label > 0)
+    seg_nv: int
+    sorted_nv: int
+    vis3d_nv: int
+
+    @property
+    def mats(self) -> CameraMats:
+        return CameraMats(self.w2v, self.full_proj, self.campos)
+
+
+@dataclass
+class SemanticMVBlock:
+    """The every-10th-step multi-view window: its views, in order (their
+    sorted segmaps are the labels)."""
+    cams: List[SemanticCamera]
+
+
+@dataclass
+class SemanticHypers:
+    """Constants shared by every step."""
+    bg: torch.Tensor
+    lrs: dict                    # per-field learning rates (semantic_lrs)
+    lam_sv: float
+    lam_mv: float
+    lam_3d: float
+    seg3d_labels: torch.Tensor   # [capacity] int 3D prior labels
+    class_feat: Optional[torch.Tensor] = None   # [max_labels, E] anchors
+
+
+@dataclass(frozen=True)
+class SemanticStepConfig:
+    raster: RasterizeConfig      # bwd_extras_only=True
+    batch: int
+    max_labels: int
+    consider_negative: bool = False
+
+
+def _sv_types(cam: SemanticCamera, cf):
+    """(segmap, sampler pack, valid count, mask type) per single-view loss:
+    the raw/filtered segmap, and with class anchors the sorted one."""
+    out = [(cam.segmap, cam.seg_samp, cam.seg_nv, 0)]
+    if cf is not None:
+        out.append((cam.sorted_segmap, cam.sorted_samp, cam.sorted_nv, 1))
+    return out
+
+
+def _mv_pack(mv: SemanticMVBlock):
+    """The window's valid pixels as one sampler pack over the concatenated
+    sorted segmaps (ascending, as the prefix-sum search of the JAX package
+    orders them) and their count."""
+    hw = mv.cams[0].sorted_segmap.numel()
+    parts = [c.sorted_samp[:c.sorted_nv].to(torch.int64) + v * hw
+             for v, c in enumerate(mv.cams)]
+    nv = sum(c.sorted_nv for c in mv.cams)
+    return torch.cat(parts + [parts[0].new_tensor([nv])]), nv
+
+
+def draw_step_pixels(generator: torch.Generator, cam: SemanticCamera,
+                     mv: Optional[SemanticMVBlock], cf, batch: int,
+                     consider_negative: bool) -> dict:
+    """All index sets one step reads, drawn before it renders (they depend
+    only on segmaps, samplers and the frozen visibility): {"sv": one per
+    single-view loss, "d3": the 3D set, "mv": the window's set (flat index
+    over the concatenated views), when mv is given}. Uniform with
+    replacement over each valid set; with consider_negative the raw
+    segmap's set is uniform over all its pixels."""
+    sv = []
+    for seg, pack, nv, mask_type in _sv_types(cam, cf):
+        if consider_negative and mask_type == 0:
+            sv.append(torch.randint(0, seg.numel(), (batch,),
+                                    generator=generator, device=seg.device))
+        else:
+            sv.append(sample_from_ids(generator, pack, batch, nv)[0])
+    out = {"sv": sv, "d3": sample_from_ids(generator, cam.vis3d_samp, batch,
+                                           cam.vis3d_nv)[0]}
+    if mv is not None:
+        pack, nv = _mv_pack(mv)
+        out["mv"] = sample_from_ids(generator, pack, batch, nv)[0]
+    return out
+
+
+def single_view_and_3d_losses(seg_feature, out, cam: SemanticCamera,
+                              hyp: SemanticHypers, scfg: SemanticStepConfig,
+                              draws: dict):
+    """Single-view ProtoNCE on the raw/filtered (weight 0.5) and, with class
+    anchors, the sorted (weight 1) segmap, plus 3D ProtoNCE over visible
+    gaussians (reference train_semantic.py:108-141, :175-195). The sampled
+    features are fetched from the kernel's tile-major output."""
+    cf = hyp.class_feat
+    W = cam.segmap.shape[1]
+    grid_x = (W + TILE - 1) // TILE
+    total = seg_feature.new_zeros(())
+    for (seg, _, nv, mask_type), idx in zip(_sv_types(cam, cf), draws["sv"]):
+        idx = idx.to(torch.int64)
+        neg = scfg.consider_negative and mask_type == 0
+        if not (neg or nv > 0):
+            continue
+        t, p2 = _pix_to_tile(idx, W, TILE, grid_x)
+        f = out.blend.extra_tiles[t, :, p2]                  # [batch, E]
+        cl = contrastive_loss(f, seg.reshape(-1)[idx], scfg.max_labels,
+                              predef_u=cf if mask_type == 1 else None,
+                              consider_negative=neg)
+        total = total + cl * hyp.lam_sv * (1.0 if mask_type == 1 else 0.5)
+    if cam.vis3d_nv > 0:
+        idx = draws["d3"].to(torch.int64)
+        f3 = seg_feature[idx]
+        f3 = f3 / (torch.linalg.norm(f3, dim=1, keepdim=True) + 1e-6)
+        cl = contrastive_loss(f3, hyp.seg3d_labels[idx], scfg.max_labels,
+                              predef_u=cf)
+        total = total + cl * hyp.lam_3d
+    return total
+
+
+def _mv_full_loss(params, seg_feature, mv: SemanticMVBlock, hyp, scfg,
+                  idx):
+    """Multi-view ProtoNCE over the window (reference
+    train_semantic.py:145-172): every view renders with a done mask that
+    latches all but its own sampled pixels, whose features are fetched from
+    its tile-major output."""
+    cfg = scfg.raster
+    c0 = mv.cams[0]
+    H, W = c0.sorted_segmap.shape
+    hw = H * W
+    idx = idx.to(torch.int64)
+    view_of = idx // hw
+    grid_x = (W + TILE - 1) // TILE
+    grid_y = (H + TILE - 1) // TILE
+    t, p2 = _pix_to_tile(idx % hw, W, TILE, grid_x)
+    done = torch.ones((len(mv.cams), grid_x * grid_y, 1, TILE * TILE),
+                      dtype=torch.int32, device=idx.device)
+    done[view_of, t, 0, p2] = 0
+    f_mv = 0.0
+    for v, cam in enumerate(mv.cams):
+        out = render_features(params, cam.mats, hyp.bg, cfg, seg_feature,
+                              cam.binning, done0=done[v])
+        fv = out.blend.extra_tiles[t, :, p2]
+        f_mv = f_mv + torch.where((view_of == v)[:, None], fv, 0.0)
+    labels = torch.cat([c.sorted_segmap.reshape(-1) for c in mv.cams])
+    return contrastive_loss(f_mv, labels[idx], scfg.max_labels,
+                            predef_u=hyp.class_feat)
+
+
+def semantic_loss(params, seg_feature, cam: SemanticCamera,
+                  mv: Optional[SemanticMVBlock], hyp: SemanticHypers,
+                  scfg: SemanticStepConfig, draws: dict,
+                  mark: Callable[[str], None] = lambda name: None):
+    """The step's loss, differentiable in seg_feature: the single-view and
+    3D terms on `cam` (rendered with the single-view sampled-pixel mask),
+    plus λ_mv · the multi-view term when mv is given. mark(name) is called
+    as the render ("render") and the losses ("loss") end."""
+    cfg = scfg.raster
+    done0 = _done0_from_idx([i.to(torch.int64) for i in draws["sv"]],
+                            cfg.width, cfg.height)
+    out = render_features(params, cam.mats, hyp.bg, cfg, seg_feature,
+                          cam.binning, done0=done0)
+    mark("render")
+    total = single_view_and_3d_losses(seg_feature, out, cam, hyp, scfg,
+                                      draws)
+    if mv is not None and sum(c.sorted_nv for c in mv.cams) > 0:
+        total = total + _mv_full_loss(params, seg_feature, mv, hyp, scfg,
+                                      draws["mv"]) * hyp.lam_mv
+    mark("loss")
+    return total
+
+
+def semantic_train_step(params: gmod.GaussianModel, opt_state,
+                        cam: SemanticCamera, mv: Optional[SemanticMVBlock],
+                        hyp: SemanticHypers, scfg: SemanticStepConfig,
+                        generator: Optional[torch.Generator] = None,
+                        draws: Optional[dict] = None,
+                        on_stage: Optional[Callable[[str], None]] = None):
+    """One contrastive step → (params, opt_state, loss): the single-view
+    and 3D losses on `cam`, plus the multi-view loss over `mv` when given,
+    differentiated with respect to seg_feature alone, then Adam on the
+    features (geometry frozen). draws: injected index sets in
+    draw_step_pixels' layout (ints, any device), else they are drawn from
+    `generator`. on_stage(name) is called as each stage ends: "draws",
+    "render", "loss", "backward", "adam"."""
+    mark = on_stage or (lambda name: None)
+    dev = params.device
+    if draws is None:
+        draws = draw_step_pixels(generator, cam, mv, hyp.class_feat,
+                                 scfg.batch, scfg.consider_negative)
+    else:
+        as_t = lambda a: torch.as_tensor(np.asarray(a) if not isinstance(
+            a, torch.Tensor) else a).to(device=dev, dtype=torch.int64)
+        draws = {k: ([as_t(a) for a in v] if k == "sv" else as_t(v))
+                 for k, v in draws.items()}
+    mark("draws")
+    seg = params.seg_feature.detach().requires_grad_(True)
+    loss = semantic_loss(params, seg, cam, mv, hyp, scfg, draws, mark)
+    (g,) = torch.autograd.grad(loss, [seg])
+    mark("backward")
+    with torch.no_grad():
+        params, opt_state = adam_step(params, {"seg_feature": g}, opt_state,
+                                      hyp.lrs, frozen_fields=GEOMETRY_FIELDS)
+    mark("adam")
+    return params, opt_state, loss.detach()
+
+
+class SegSplatting:
+    """The semantic stage on `device` (CUDA unless "cpu" is asked for):
+    reference train_semantic.py SegSplatting."""
+
+    def __init__(self, dataset, opt, pipe, output_root: str = "output",
+                 dp: int = 0, device=None):
+        if dp:
+            raise NotImplementedError("--dp (camera-batch data parallelism) "
+                                      "is not ported yet: ROADMAP A12")
+        for flag in ("mv_tile_subsample", "mv_merged", "sparse_px"):
+            if int(getattr(opt, flag, 0)):
+                raise NotImplementedError(
+                    f"--{flag} is not ported yet: ROADMAP A9 (slice 4)")
+        self.device = resolve_device(device)
+        self.dataset = dataset
+        self.opt = opt
+        self.pipe = pipe
+        self.data_dir = dataset.source_path
+        sp = self.data_dir.rstrip("/").split("/")
+        self.model_path = os.path.join(
+            output_root, sp[-2] if len(sp) > 1 else "scene", sp[-1],
+            dataset.model_path)
+        self.params = gmod.load_ply(
+            os.path.join(self.data_dir, "point_cloud.ply"), max_sh_degree=3,
+            seg_feat_dim=dataset.seg_feat_dim,
+            load_seg_feat=dataset.load_seg_feat, device=self.device)
+        self.bg = torch.tensor([1.0, 1.0, 1.0] if dataset.white_background
+                               else [0.0, 0.0, 0.0], device=self.device)
+        self.class_feat = None
+        self.scene = None
+        self.rng = random.Random(0)
+        self.generator = torch.Generator(device=self.device).manual_seed(0)
+        self.timings = {}          # stage → host seconds
+
+    def _load_scene(self):
+        from ..data.dataset import Scene
+        self.scene = Scene(self.dataset, load_images=True,
+                           output_root=os.path.dirname(os.path.dirname(
+                               os.path.dirname(self.model_path)))
+                           or "output")
+        self.cam_objs = self.scene.get_train_cameras()
+        self.cams = [camera_tensors(c, self.device) for c in self.cam_objs]
+        self._max_labels_memo = None
+
+    def tracker_view(self, view_idx: int):
+        """One view's contributor tracking (K1 track): (contrib_ids
+        [H,W,10] numpy, the view's segmap)."""
+        cam_obj = self.cam_objs[view_idx]
+        cfg = RasterizeConfig(width=int(cam_obj.width),
+                              height=int(cam_obj.height), track_contrib=True)
+        with torch.no_grad():
+            out = render_features(self.params, self.cams[view_idx].mats,
+                                  self.bg, cfg)
+        return out.blend.contrib_ids.cpu().numpy(), np.asarray(
+            cam_obj.segmap)
+
+    def robust_semantic_priors(self):
+        """Stage 1 (reference train_semantic.py:33-72)."""
+        if self.dataset.preload_robust_semantic and os.path.exists(
+                self.dataset.preload_robust_semantic):
+            seg_dir = self.dataset.preload_robust_semantic
+        else:
+            seg_dir = os.path.join(self.model_path, "semantic_association")
+            os.makedirs(seg_dir, exist_ok=True)
+        self._load_scene()
+        n_alive = self.params.n_alive()
+        t0 = time.perf_counter()
+        trace_s = [0.0]
+
+        def trace_fn(view_idx: int):
+            ts = time.perf_counter()
+            res = self.tracker_view(view_idx)
+            trace_s[0] += time.perf_counter() - ts
+            return res
+
+        gc = GausCluster(n_alive, self.params.xyz[:n_alive].cpu().numpy(),
+                         [c.image_name for c in self.cam_objs], trace_fn)
+        self.gausclustering = gc
+        out_path = os.path.join(seg_dir, "output_dict.npy")
+        if not os.path.exists(out_path):
+            for d in ("mask_filtered", "mask_sorted", "mask_undersegment"):
+                p = os.path.join(self.data_dir, "sam", d)
+                if os.path.exists(p):
+                    shutil.rmtree(p)
+            gc.maskclustering(seg_dir)
+        self.timings["tracker renders"] = trace_s[0]
+        self.timings["spatial track"] = time.perf_counter() - t0 - trace_s[0]
+
+        priors = np.load(out_path, allow_pickle=True).item()
+        self.seg3d_masks = priors["mask_3d_labels"]
+        self.seg3d_labels = np.argmax(
+            self.seg3d_masks.astype(np.int16), axis=1).astype(np.int32)
+        if not os.path.exists(os.path.join(self.data_dir, "sam/mask_sorted")):
+            gc.rearrange_mask(os.path.join(self.data_dir, "sam/mask"),
+                              priors["mask_2d_clusters"])
+        if (len(priors["underseg_mask_ids"]) > 0 and
+                not os.path.exists(os.path.join(self.data_dir,
+                                                "sam/mask_filtered"))):
+            gc.filter_undersegment_mask(
+                os.path.join(self.data_dir, "sam/mask"),
+                priors["underseg_mask_ids"])
+
+        self._load_scene()          # picks up mask_sorted / mask_filtered
+        self.params, self.class_feat = gmod.set_3d_feat(
+            self.params, self.seg3d_masks, self.dataset.seg_feat_dim,
+            gram_feat=self.opt.gram_feat_3d)
+        lab = np.zeros(self.params.capacity, np.int32)
+        lab[:len(self.seg3d_labels)] = self.seg3d_labels
+        self.seg3d_labels_padded = torch.as_tensor(lab, device=self.device)
+
+    def _precompute_binning(self):
+        """Frozen geometry: each camera's binning, computed once."""
+        self.binning_cache = [
+            compute_binning_cache(self.params, ct.mats, int(c.width),
+                                  int(c.height))
+            for ct, c in zip(self.cams, self.cam_objs)]
+        return self.binning_cache
+
+    def _precompute_sampling(self):
+        """Per camera the valid-index sampler packs of the raw and sorted
+        segmaps and of the visible gaussians with a 3D label, and their
+        valid counts (one host read each, here)."""
+        lab3d_ok = self.seg3d_labels_padded > 0
+        p = self.params
+        packs = []
+        for ct, cam in zip(self.cams, self.cam_objs):
+            hw = int(cam.width) * int(cam.height)
+            row = []
+            for m in (cam.segmap, cam.sorted_segmap):
+                valid = (torch.as_tensor(m, device=self.device).reshape(-1)
+                         > 0 if m is not None else
+                         torch.zeros(hw, dtype=torch.bool, device=self.device))
+                row.append(valid_ids_pack(valid))
+            with torch.no_grad():
+                pre = preprocess_gaussians(
+                    p.xyz, p.scaling_activated(), p.rotation_normalized(),
+                    ct.w2v, ct.full_proj, ct.campos, int(cam.width),
+                    int(cam.height), p.opacity_activated()[:, 0],
+                    color=torch.zeros_like(p.xyz), alive=p.alive)
+            row.append(valid_ids_pack(pre.valid & (pre.radius > 0)
+                                      & lab3d_ok))
+            packs.append(row)
+        self.sampling_packs = packs
+        return packs
+
+    def _camera_bundles(self) -> List[SemanticCamera]:
+        bundles = []
+        for ci, (ct, cam) in enumerate(zip(self.cams, self.cam_objs)):
+            zeros = np.zeros((int(cam.height), int(cam.width)), np.int32)
+            maps = [torch.as_tensor(m if m is not None else zeros,
+                                    device=self.device)
+                    for m in (cam.segmap, cam.sorted_segmap)]
+            packs = self.sampling_packs[ci]
+            bundles.append(SemanticCamera(
+                ct.w2v, ct.full_proj, ct.campos, *maps,
+                self.binning_cache[ci], *packs,
+                *[int(pk[-1]) for pk in packs]))
+        return bundles
+
+    def _max_labels(self) -> int:
+        if getattr(self, "_max_labels_memo", None) is not None:
+            return self._max_labels_memo
+        m = 1
+        for c in self.cam_objs:
+            if c.segmap is not None:
+                m = max(m, int(c.segmap.max()))
+            if c.sorted_segmap is not None:
+                m = max(m, int(c.sorted_segmap.max()))
+        m = max(m, int(self.seg3d_labels.max()) + 1)
+        self._max_labels_memo = int((m + 7) // 8 * 8)
+        return self._max_labels_memo
+
+    def train_segfeat(self, iterations: Optional[int] = None,
+                      progress: bool = True, save_every: int = 2500):
+        """Stage 2 (reference train_semantic.py:75-237), then the HDBSCAN
+        export."""
+        opt = self.opt
+        iterations = iterations or opt.iterations
+        opt_state = init_adam_state(self.params)
+        max_labels = self._max_labels()
+        if not hasattr(self, "binning_cache"):
+            self._precompute_binning()
+        if not hasattr(self, "sampling_packs"):
+            self._precompute_sampling()
+        # tiny scenes: the window shrinks to the camera count
+        n_mv = min(int(opt.sample_mv_frames), len(self.cams))
+        cf = None
+        if self.class_feat is not None:
+            cf = torch.as_tensor(np.pad(self.class_feat, (
+                (0, max(0, max_labels - len(self.class_feat))), (0, 0))),
+                device=self.device)
+        hyp = SemanticHypers(
+            bg=self.bg, lrs=semantic_lrs(opt),
+            lam_sv=opt.lambda_singview_contras,
+            lam_mv=opt.lambda_multiview_contras,
+            lam_3d=opt.lambda_3D_contras,
+            seg3d_labels=self.seg3d_labels_padded, class_feat=cf)
+        bundles = self._camera_bundles()
+        scfg_of = {}
+
+        def scfg_for(ci):
+            wh = (int(self.cam_objs[ci].width), int(self.cam_objs[ci].height))
+            if wh not in scfg_of:
+                scfg_of[wh] = SemanticStepConfig(
+                    raster=RasterizeConfig(width=wh[0], height=wh[1],
+                                           bwd_extras_only=True),
+                    batch=int(opt.sample_batchsize), max_labels=max_labels,
+                    consider_negative=bool(opt.consider_negative_labels))
+            return scfg_of[wh]
+
+        stack = []
+        t0 = time.perf_counter()
+        for it in range(1, iterations + 1):
+            if not stack:
+                stack = list(range(len(self.cams)))
+            ci = stack.pop(self.rng.randint(0, len(stack) - 1))
+            mv = None
+            if opt.lambda_multiview_contras > 0 and it % 10 == 0:
+                v0 = self.rng.randint(0, max(0, len(self.cams) - n_mv - 1))
+                mv = SemanticMVBlock([bundles[v] for v in
+                                      range(v0, v0 + n_mv)])
+            self.params, opt_state, loss = semantic_train_step(
+                self.params, opt_state, bundles[ci], mv, hyp, scfg_for(ci),
+                generator=self.generator)
+            if progress and it % 10 == 0:
+                print(f"[ITER {it}] ContraLoss {float(loss):.3f}",
+                      flush=True)
+            if it % save_every == 0 or it == iterations:
+                self.save(it)
+        self.last_loss = float(loss)
+        self.timings["training"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        self.export_segment_results(iterations, use_hdbscan=True,
+                                    note=f"iteration_{iterations}_hdbscan")
+        self.timings["hdbscan export"] = time.perf_counter() - t1
+
+    def save(self, iteration: int) -> str:
+        path = os.path.join(self.model_path,
+                            f"point_cloud/iteration_{iteration}",
+                            "point_cloud.ply")
+        gmod.save_ply(self.params, path)
+        return path
+
+    def export_segment_results(self, iteration: int,
+                               score_threshold: float = 0.9,
+                               use_hdbscan: bool = False,
+                               note: Optional[str] = None):
+        """Per-instance point clouds (reference train_semantic.py:240-350);
+        the HDBSCAN labelling runs its spanning tree on the trainer's
+        device."""
+        from ..semantic.export import export_segment_results
+        save_dir = os.path.join(self.model_path, "point_cloud",
+                                note if note else f"iteration_{iteration}")
+        pc = gmod.compact(self.params)
+        return export_segment_results(
+            pc.xyz.cpu().numpy(), pc.seg_feature_normed().cpu().numpy(),
+            self.seg3d_masks, self.seg3d_labels, save_dir,
+            score_threshold=score_threshold, use_hdbscan=use_hdbscan,
+            device=self.device, seconds=self.timings)

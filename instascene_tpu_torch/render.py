@@ -1,7 +1,8 @@
 """The render() entry point.
 
 Port of instascene_tpu/render.py:63-232 (`render`): same key set, image maps
-channels-last [H,W,C], same `viewer=` fast path. The pair-cap bookkeeping
+channels-last [H,W,C], same `viewer=` fast path, and `track_contrib=`
+filling `gau_related_pixels` (render.py:181, :218). The pair-cap bookkeeping
 of the TPU path (high-water caps, deferred overflow checks) is gone: the
 binning sizes its buffers to the frame's pair total, so `n_dropped` is
 always 0.
@@ -48,9 +49,11 @@ def render(viewpoint_camera, gaussians, pipe, bg_color,
 
     viewer=True: forward-only fast path — only `render`, `rend_alpha` and
     `seg_feature` are meaningful; depth/normal/median/distortion outputs are
-    zeros. t_offset [N,3,3]: the densification tap (see
-    ops.rasterize.rasterize). Differentiable through torch autograd and K2
-    unless viewer=True."""
+    zeros. track_contrib=True: forward-only full render whose
+    `gau_related_pixels` is (contrib_ids, contrib_w) [H,W,10], each pixel's
+    w > 0.1 contributors in blend order (K1 track). t_offset [N,3,3]: the
+    densification tap (see ops.rasterize.rasterize). Differentiable through
+    torch autograd and K2 unless viewer or track_contrib."""
     p = gaussians
     dev = p.device
     width = int(viewpoint_camera.width)
@@ -87,7 +90,9 @@ def render(viewpoint_camera, gaussians, pipe, bg_color,
         "radii": out.radii,
         "visibility_filter": out.visible,
         "seg_feature": b.extra,
-        "gau_related_pixels": None,
+        # (contrib_ids, contrib_w) [H,W,10] with track_contrib, else None
+        "gau_related_pixels": ((b.contrib_ids, b.contrib_w)
+                               if b.contrib_ids is not None else None),
         "rend_alpha": rend_alpha,
         "final_T": b.final_T,
         "n_contrib": b.n_contrib,

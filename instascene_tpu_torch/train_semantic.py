@@ -1,0 +1,59 @@
+"""Semantic feature-lifting CLI, flag-compatible with the root
+train_semantic.py:
+
+    python -m instascene_tpu_torch.train_semantic -s <scene> --use_seg_feature
+        [--gram_feat_3d] [--iterations N] [--device cpu] ...
+
+Port of train_semantic.py:15-47. The scene holds a trained point_cloud.ply
+and COLMAP cameras with images and sam/mask/<image>.png instance maps; the
+priors stage (tracker renders, spatial track) runs first, then contrastive
+training, then the HDBSCAN instance export, under
+output/<parent>/<scene>/<model_path> (or at -m when it is absolute). `--device` (default CUDA) picks where
+it runs. Refused with the item that brings them: --dp and --profile_trace
+(ROADMAP A12), non-zero --mv_tile_subsample, --mv_merged and --sparse_px
+(A9, slice 4).
+"""
+
+from __future__ import annotations
+
+import sys
+from argparse import ArgumentParser
+
+from .config import ModelParams, OptimizationParams, PipelineParams
+
+
+def parser() -> ArgumentParser:
+    ap = ArgumentParser(description="Training script parameters")
+    ModelParams.add_to_parser(ap)
+    OptimizationParams.add_to_parser(ap)
+    PipelineParams.add_to_parser(ap)
+    ap.add_argument("--dp", type=int, default=0)
+    ap.add_argument("--profile_trace", type=str, default=None)
+    ap.add_argument("--profile_window", nargs=2, type=int,
+                    default=[100, 120])
+    ap.add_argument("--device", type=str, default=None,
+                    help="torch device to train on (default: cuda)")
+    return ap
+
+
+def main(argv=None):
+    """Priors, contrastive training and the export; returns the
+    SegSplatting."""
+    args = parser().parse_args(argv if argv is not None else sys.argv[1:])
+    if args.profile_trace:
+        raise NotImplementedError("--profile_trace is not ported yet: "
+                                  "ROADMAP A12")
+    from .pipelines.train_semantic import SegSplatting
+
+    segsplat = SegSplatting(ModelParams.extract(args),
+                            OptimizationParams.extract(args),
+                            PipelineParams.extract(args),
+                            dp=args.dp, device=args.device)
+    segsplat.robust_semantic_priors()
+    segsplat.train_segfeat()
+    print("\nTraining complete.", flush=True)
+    return segsplat
+
+
+if __name__ == "__main__":
+    main()

@@ -4,9 +4,10 @@ loading as float arrays.
 The JAX package reads and writes images with PIL (utils/general.py:85-99
 `pil_to_array`, semantic_gui.py:86-96). This port encodes and decodes PNG
 with zlib + struct, so a PNG dataset loads where PIL is absent: every
-filter type (0-4), 8-bit gray, gray+alpha, RGB and RGBA, no interlace.
-Other formats, palette or 16-bit PNGs, and any resize go through PIL when
-it is importable, and otherwise raise naming the file.
+filter type (0-4), 8-bit gray, gray+alpha, RGB and RGBA, and 16-bit gray
+(instance label maps, as PIL writes a uint16 array), no interlace. Other
+formats, palette PNGs, and any resize go through PIL when it is importable,
+and otherwise raise naming the file.
 """
 
 from __future__ import annotations
@@ -26,20 +27,29 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
 
 
 def encode_png(img: np.ndarray) -> bytes:
-    """uint8 [H,W] (gray), [H,W,3] (RGB) or [H,W,4] (RGBA) → PNG bytes
-    (8-bit, no interlace, filter type 0 on every row)."""
+    """uint8 [H,W] (gray), [H,W,3] (RGB) or [H,W,4] (RGBA), or uint16
+    [H,W] (16-bit gray) → PNG bytes (no interlace, filter type 0 on every
+    row)."""
     img = np.ascontiguousarray(img)
-    if img.dtype != np.uint8:
-        raise ValueError(f"encode_png wants uint8, got {img.dtype}")
-    if img.ndim == 2:
-        img = img[..., None]
-    h, w, c = img.shape
-    color_type = {1: 0, 3: 2, 4: 6}[c]
+    if img.dtype == np.uint16 and img.ndim == 2:
+        depth = 16
+        img = img.astype(">u2").view(np.uint8).reshape(img.shape[0], -1, 1)
+        color_type = 0
+    elif img.dtype == np.uint8:
+        depth = 8
+        if img.ndim == 2:
+            img = img[..., None]
+        color_type = {1: 0, 3: 2, 4: 6}[img.shape[2]]
+    else:
+        raise ValueError(f"encode_png wants uint8, or 2-D uint16, got "
+                         f"{img.dtype} {img.shape}")
+    h, wb, c = img.shape
+    w = wb if depth == 8 else wb // 2
     raw = np.concatenate([np.zeros((h, 1), np.uint8),
-                          img.reshape(h, w * c)], axis=1).tobytes()
+                          img.reshape(h, wb * c)], axis=1).tobytes()
     return (_SIG
-            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type,
-                                          0, 0, 0))
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth,
+                                          color_type, 0, 0, 0))
             + _chunk(b"IDAT", zlib.compress(raw, 6))
             + _chunk(b"IEND", b""))
 
@@ -96,12 +106,13 @@ def _unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
 
 def decode_png(data: bytes) -> np.ndarray:
     """PNG bytes → uint8 [H, W, C] (C = 1 gray, 2 gray+alpha, 3 RGB,
-    4 RGBA). Raises UnsupportedPNG for palette, 16-bit or interlaced
-    images."""
+    4 RGBA), or uint16 [H, W, 1] for 16-bit gray. Raises UnsupportedPNG for
+    palette, other 16-bit or interlaced images."""
     if data[:8] != _SIG:
         raise UnsupportedPNG("not a PNG")
     pos, idat = 8, []
     w = h = c = None
+    depth = 8
     while pos < len(data):
         (n,) = struct.unpack(">I", data[pos:pos + 4])
         kind = data[pos + 4:pos + 8]
@@ -109,7 +120,8 @@ def decode_png(data: bytes) -> np.ndarray:
         if kind == b"IHDR":
             w, h, depth, ct, _, _, interlace = struct.unpack(">IIBBBBB",
                                                              body[:13])
-            if depth != 8 or ct not in _CHANNELS or interlace:
+            if (depth not in (8, 16) or (depth == 16 and ct != 0)
+                    or ct not in _CHANNELS or interlace):
                 raise UnsupportedPNG(f"PNG bit depth {depth}, color type "
                                      f"{ct}, interlace {interlace}")
             c = _CHANNELS[ct]
@@ -118,11 +130,16 @@ def decode_png(data: bytes) -> np.ndarray:
         elif kind == b"IEND":
             break
         pos += 12 + n
+    bpp = c * depth // 8               # bytes per pixel
     rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    rows = rows.reshape(h, 1 + w * c)
+    rows = rows.reshape(h, 1 + w * bpp)
     if (rows[:, 0] == 0).all():
-        return rows[:, 1:].reshape(h, w, c).copy()
-    return _unfilter(rows, c).reshape(h, w, c)
+        px = rows[:, 1:].copy()
+    else:
+        px = _unfilter(rows, bpp)
+    if depth == 16:
+        return px.view(">u2").astype(np.uint16).reshape(h, w, 1)
+    return px.reshape(h, w, c)
 
 
 def read_image(path: str) -> np.ndarray:

@@ -8,8 +8,8 @@ single-prompt clicks, delete, convex-hull crop) and the camera's pan and
 zoom.
 
 The JAX engine filters the selected gaussians with sklearn's DBSCAN; this
-port has its own `dbscan` on scipy (cKDTree + csgraph) with sklearn's
-semantics, since the GPU machine has no sklearn.
+port uses its own (semantic/cluster.py::dbscan, on scipy, with sklearn's
+semantics), since the GPU machine has no sklearn.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import torch
 
 from ..cameras import MiniCam, get_projection_matrix
 from ..models import gaussians as gmod
+from ..semantic.cluster import dbscan
 from ..semantic.export import pca_proj_matrix
 
 
@@ -67,45 +68,6 @@ class OrbitCamera:
         proj = get_projection_matrix(znear, zfar, self.fovx, self.fovy)
         return MiniCam(self.W, self.H, self.fovy, self.fovx, znear, zfar,
                        w2v=w2v, full_proj=(proj @ w2v).astype(np.float32))
-
-
-def dbscan(pts: np.ndarray, eps: float, min_samples: int) -> np.ndarray:
-    """DBSCAN labels with sklearn.cluster.DBSCAN's semantics: neighbours
-    within eps inclusive, min_samples counts the point itself, clusters
-    numbered in order of their lowest-index core point, a border point
-    joins the first cluster that reaches it (the lowest-numbered adjacent
-    one), noise is -1. Memory grows with the number of eps-pairs."""
-    from scipy.sparse import coo_matrix
-    from scipy.sparse.csgraph import connected_components
-    from scipy.spatial import cKDTree
-
-    n = len(pts)
-    labels = np.full(n, -1, np.int64)
-    pairs = cKDTree(np.asarray(pts, np.float64)).query_pairs(
-        eps, output_type="ndarray")
-    core = np.bincount(pairs.ravel(), minlength=n) + 1 >= min_samples
-    if not core.any():
-        return labels
-    core_idx = np.nonzero(core)[0]
-    remap = np.full(n, -1, np.int64)
-    remap[core_idx] = np.arange(len(core_idx))
-    cc = pairs[core[pairs[:, 0]] & core[pairs[:, 1]]]
-    graph = coo_matrix((np.ones(len(cc), np.int8),
-                        (remap[cc[:, 0]], remap[cc[:, 1]])),
-                       shape=(len(core_idx), len(core_idx)))
-    n_comp, comp = connected_components(graph, directed=False)
-    _, first = np.unique(comp, return_index=True)
-    rank = np.empty(n_comp, np.int64)
-    rank[np.argsort(first)] = np.arange(n_comp)
-    labels[core_idx] = rank[comp]
-    mixed = pairs[core[pairs[:, 0]] != core[pairs[:, 1]]]
-    c = np.where(core[mixed[:, 0]], mixed[:, 0], mixed[:, 1])
-    b = np.where(core[mixed[:, 0]], mixed[:, 1], mixed[:, 0])
-    border = np.full(n, np.iinfo(np.int64).max)
-    np.minimum.at(border, b, labels[c])
-    hit = border != np.iinfo(np.int64).max
-    labels[hit] = border[hit]
-    return labels
 
 
 @dataclass

@@ -228,3 +228,131 @@ def test_cuda_k2_matches_plain(cuda, E, no_dist):
         scale = want.abs().amax(dim=0).clamp(min=1e-30)
         err = ((got.to(want.device) - want).abs() / scale).amax()
         assert float(err) <= 1e-4, float(err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "done0"])
+def test_cuda_k1_extras_only_matches_plain(cuda, masked):
+    """K1 extras_only on the card: iout equal to its plain version, final T
+    and features within 3e-4; with done0 the sampled pixels equal K1
+    `full`'s bit for bit and the latched ones are (T = 1, 0, n_contrib 0)."""
+    from instascene_tpu_torch.ops.blend_visits import (LAUNCHES, blend_fwd,
+                                                       blend_fwd_reference)
+    E = 16
+    args = (*_port_inputs(E, cuda, boost=12.0), GRID_X, E)
+    nt = args[2].shape[0]
+    d0 = None
+    if masked:
+        gen = torch.Generator(device="cpu").manual_seed(2)
+        d0 = (torch.rand((nt, 1, 256), generator=gen) >= 0.1).to(
+            torch.int32).to(cuda)
+    want = {**LAUNCHES, "K1 extras_only": LAUNCHES["K1 extras_only"] + 1}
+    out, iout = blend_fwd(*args, extras_only=True, done0=d0)
+    torch.cuda.synchronize()
+    assert LAUNCHES == want
+    ref, iref = blend_fwd_reference(*args, extras_only=True, done0=d0)
+    assert torch.equal(iout, iref)
+    torch.testing.assert_close(out, ref, atol=3e-4, rtol=0)
+    zero = [r for r in range(12 + E) if not 9 <= r < 10 + E]
+    assert not out[:, zero].any() and not iout[:, 1].any()
+    if masked:
+        full, ifull = blend_fwd(*args)
+        s = d0[:, 0] == 0
+        assert torch.equal(iout[:, 0][s], ifull[:, 0][s])
+        for r in range(9, 10 + E):
+            assert torch.equal(out[:, r][s], full[:, r][s]), r
+        assert (out[:, 9][~s] == 1).all() and not iout[:, 0][~s].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [0, 16], ids=["E0", "E16"])
+def test_cuda_k1_track_matches_plain(cuda, E):
+    """K1 track on the card: contributor ids equal to its plain version,
+    weights within 1e-6, out and iout equal to K1 `full`'s."""
+    from instascene_tpu_torch.ops.blend_visits import (blend_fwd,
+                                                       blend_fwd_reference)
+    args = (*_port_inputs(E, cuda, boost=12.0), GRID_X, E)
+    out, iout, ids, w = blend_fwd(*args, track=True)
+    full, ifull = blend_fwd(*args)
+    torch.cuda.synchronize()
+    _, _, rids, rw = blend_fwd_reference(*args, track=True)
+    assert torch.equal(ids, rids) and (ids >= 0).any()
+    torch.testing.assert_close(w, rw, atol=1e-6, rtol=0)
+    assert torch.equal(out, full) and torch.equal(iout, ifull)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "done0"])
+def test_cuda_k2_extras_only_matches_plain(cuda, masked):
+    """K2 extras_only and the segment sum at D = 16 on the card: per-slot
+    rows and d_flat within 1e-4 of each column's largest |value| of the
+    plain versions, and bit for bit equal over two runs."""
+    from instascene_tpu_torch.ops.blend_visits import (
+        LAUNCHES, blend_bwd, blend_bwd_reference, blend_fwd,
+        reduce_per_gaussian)
+    E = 16
+    flat, b = _port_binned(E, cuda, boost=12.0)
+    gid, n = b.sorted_gid, flat.shape[0]
+    runs = (b.gid_order, b.run_start)
+    args = (flat, gid, b.tile_start, b.tile_end, GRID_X, E)
+    d0 = None
+    if masked:
+        gen = torch.Generator(device="cpu").manual_seed(3)
+        d0 = (torch.rand((b.tile_start.shape[0], 1, 256), generator=gen)
+              >= 0.1).to(torch.int32).to(cuda)
+    out, iout = blend_fwd(*args, extras_only=True, done0=d0)
+    saved = torch.stack([out[:, 9], out[:, 10 + E], out[:, 11 + E]],
+                        1).contiguous()
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    gout = torch.randn(out.shape, generator=gen).to(cuda)
+    want = {**LAUNCHES, "K2 extras_only": LAUNCHES["K2 extras_only"] + 2,
+            "segment_sum": LAUNCHES["segment_sum"] + 2}
+    d1 = blend_bwd(*args, gout, saved, iout, extras_only=True)
+    f1 = reduce_per_gaussian(d1, gid, n, runs)
+    d2 = blend_bwd(*args, gout, saved, iout, extras_only=True)
+    f2 = reduce_per_gaussian(d2, gid, n, runs)
+    torch.cuda.synchronize()
+    assert LAUNCHES == want
+    assert d1.shape == (gid.shape[0], E)
+    assert torch.equal(d1, d2) and torch.equal(f1, f2)
+    ref = blend_bwd_reference(*args, gout, saved, iout, extras_only=True)
+    fref = reduce_per_gaussian(ref.cpu(), gid.cpu(), n,
+                               (b.gid_order.cpu(), b.run_start.cpu()))
+    for got, want in ((d1, ref), (f1.cpu(), fref)):
+        scale = want.abs().amax(dim=0).clamp(min=1e-30)
+        err = ((got.to(want.device) - want).abs() / scale).amax()
+        assert float(err) <= 1e-4, float(err)
+
+
+@pytest.mark.cuda
+def test_cuda_prim_graph_matches_cpu(cuda):
+    """HDBSCAN's Prim's tree on the card, where its steps replay a captured
+    CUDA graph (n − 1 > 3·graph_steps, then eager steps for the rest):
+    bit for bit the card's eager steps on the same points and core
+    distances (min_samples 10, whose ties the tree breaks by index); the
+    same edges in the same order as the CPU's eager steps, distances to
+    rtol 1e-12, where no two reachabilities tie (random core distances:
+    between devices the norms may differ in the last bit, which decides a
+    tie); and hdbscan on the card labels the points as on the CPU (core
+    distances 0 at min_samples 1, so no ties), whose partition
+    tests/test_torch_export.py holds to sklearn's."""
+    from instascene_tpu_torch.semantic.export import (_core_distances,
+                                                      _prim_mst, hdbscan)
+    rng = np.random.default_rng(7)
+    n = 3000
+    centers = rng.normal(0, 1, (4, 16))
+    x = centers[rng.integers(0, 4, n)] + rng.normal(0, 0.2, (n, 16))
+    xc, xg = torch.as_tensor(x), torch.as_tensor(x, device=cuda)
+    core = _core_distances(xg, 10)
+    eager = _prim_mst(xg, core, graph_steps=n)
+    graph = _prim_mst(xg, core, graph_steps=256)
+    np.testing.assert_array_equal(graph, eager)
+    core_r = torch.as_tensor(rng.uniform(0.6, 1.4, n))
+    want = _prim_mst(xc, core_r)
+    got = _prim_mst(xg, core_r.to(cuda), graph_steps=256)
+    np.testing.assert_array_equal(got[:, :2], want[:, :2])
+    np.testing.assert_allclose(got[:, 2], want[:, 2], rtol=1e-12, atol=0)
+    a = hdbscan(x, 30, 1, 0.1, True, device="cpu")
+    b = hdbscan(x, 30, 1, 0.1, True, device=cuda)
+    assert len(np.unique(a[a >= 0])) >= 2
+    np.testing.assert_array_equal(b, a)

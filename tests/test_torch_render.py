@@ -134,14 +134,22 @@ def test_later_slice_options_raise():
     st, mk = make_bench_scene(n=50, seed=0, profile="trained")
     p = from_numpy(st, device="cpu")
     cam = mk(0, 32, 32)
-    for flag in ("bwd_extras_only", "clip_rect", "conic_cull",
-                 "track_contrib"):
+    for flag in ("clip_rect", "conic_cull"):
         with pytest.raises(NotImplementedError, match="slice"):
             render(cam, p, PipelineParams(), np.zeros(3),
                    cfg=RasterizeConfig(32, 32, **{flag: True}))
     with pytest.raises(NotImplementedError, match="slice"):
         render(cam, p, PipelineParams(), np.zeros(3),
                cfg=RasterizeConfig(32, 32, tiles_per_view=4))
+    # slice 3 serves contributor tracking (the priors' tracker renders);
+    # bwd_extras_only is exercised by tests/test_torch_semantic_step.py
+    out = render(cam, p, PipelineParams(), np.zeros(3), track_contrib=True)
+    ids, w = out["gau_related_pixels"]
+    assert ids.shape == (32, 32, 10) and w.shape == (32, 32, 10)
+    assert ((ids >= 0) == (w > 0.1)).all()
+    with pytest.raises(ValueError, match="separate modes"):
+        render(cam, p, PipelineParams(), np.zeros(3), track_contrib=True,
+               viewer=True)
     # slice 2 serves no_depth_dist and the t_offset densification tap
     out = render(cam, p, PipelineParams(), np.zeros(3),
                  cfg=RasterizeConfig(32, 32, no_depth_dist=True))
