@@ -45,25 +45,40 @@ lines; any failure exits non-zero and prints no result:
    load back.
    Phase 2 also holds K1 `track` (E=0 and 16), K1 `extras_only` (E=16)
    without and with a ~2,000-pixel done0 mask (sampled pixels bit for bit
-   `full`'s, the others T = 1, 0, n_contrib 0) and K2 `extras_only` on
-   each against their plain versions at mid size;
+   `full`'s, the others T = 1, 0, n_contrib 0), K2 `extras_only` on
+   each, K1/K2 over a list of 8 random tiles (K3/K4; listed rows bit for
+   bit the whole frame's), K5/K6 on 2,000 random draws (bit for bit K1
+   extras_only with the same pixels freed) and K1/K2 `tiles_per_view`
+   over three views concatenated (bit for bit each view's own render)
+   against their plain versions at mid size;
 6. the semantic frame at 976x728 (the same scene with its features, E=16):
    K1 extras_only with a 32k-pixel done0 and without, K2 extras_only, the
-   segment sum at D=16 and K1 track against their plain versions, timed,
-   with their bounds;
+   segment sum at D=16, K1 track, K5/K6 on 32k draws, K3/K4 on bench.py's
+   128 tiles of each window view (with the chunks the JAX package's capped
+   mini bundles would cut) and K1/K2 tiles_per_view over the 5-view window
+   against their plain versions, timed, with their bounds;
 7. the semantic path at full width: semantic_train_step with bench.py's
    inputs (3 warm-up and 20 timed plain steps, 3 warm-up and 6 timed
    steps with the 5-view window) with the stage split and the sustained
    it/s, launch counts reset just before the steps and read just after
    (K1 and K2 extras_only and the segment sum must have launched); the
-   tracker view's s/view; then the semantic CLI (train_semantic.main) on
-   a scene written with the port's writers (the geometry CLI's 8 views,
+   same for each multi-view variant, with its own counts: the window
+   tile-subsampled (K3/K4), merged (K1/K2 tiles_per_view), and sparse
+   pixels (K5/K6, 20 plain steps too; no dense fallback); the tracker
+   view's s/view; then the semantic CLI (train_semantic.main) on a scene
+   written with the port's writers (the geometry CLI's 8 views,
    point_cloud.ply, sam/mask maps from the port's tracker render):
    priors, 30 iterations, a save, the HDBSCAN export, launch counts reset
    just before main and read just after. It must find >= 2 instances and
    write output_dict.npy, sam/mask_sorted, a PLY with segfeat_0..15 that
    loads back finite and point_cloud_labels.ply; K1 extras_only and
    track, K2 extras_only and the segment sum must have launched in it.
+   Then the CLI three times more on that scene, each with its own counts:
+   with --mv_tile_subsample 128 --sparse_px 1 at 256 draws per set (K3,
+   K4, K5 and K6 must launch), the same at the reference's 32k draws
+   (K3/K4 must launch; the sparse steps that fall back to the dense path
+   are printed beside the K5/K6 launches) and with --mv_merged 1 (K1/K2
+   tiles_per_view must launch), each with a PLY that loads back finite.
    Each phase prints its seconds;
 8. one JSON line with the kernels' numbers, then the last line
    {"ok": true, "device": {...}}.
@@ -231,6 +246,19 @@ def time_ms(fn, reps, warm=True):
     return float(np.median(times))
 
 
+def timed(fn):
+    """(fn(), its CUDA-event ms): one call, no warm-up — the plain versions
+    with their work counts, which take seconds at full width."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    res = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return res, a.elapsed_time(b)
+
+
 def compare_kernel(label, flat, b, grid_x, E, mode, exact, timing=False):
     import torch
     from instascene_tpu_torch.ops.blend_visits import (blend_fwd,
@@ -318,15 +346,18 @@ def col_rel_err(got, want):
     return float(((got - want).abs().amax(dim=0) / scale).max())
 
 
-def compare_k2(label, flat, b, grid_x, E, mode, timing=False, fwd=None):
+def compare_k2(label, flat, b, grid_x, E, mode, timing=False, fwd=None,
+               **sel):
     """K2 in `mode` (full, no_dist or extras_only) and the segment sum on
     the card against their plain versions on the same inputs (K1's own
     forward in that mode, or the given fwd = (out, iout), and one seeded
     random cotangent), then both kernels a second time: d_sorted and d_flat
-    bit for bit equal."""
+    bit for bit equal. sel: tile_ids (K4) or tiles_per_view, passed to
+    both versions."""
     import torch
     from instascene_tpu_torch.ops import blend_visits as bv
-    kw = dict(no_dist=mode == "no_dist", extras_only=mode == "extras_only")
+    kw = dict(no_dist=mode == "no_dist", extras_only=mode == "extras_only",
+              **sel)
     args = (flat, b.sorted_gid, b.tile_start, b.tile_end, grid_x, E)
     out, iout = fwd if fwd is not None else bv.blend_fwd(*args, **kw)
     saved = torch.stack([out[:, 9], out[:, 10 + E], out[:, 11 + E]],
@@ -342,8 +373,8 @@ def compare_k2(label, flat, b, grid_x, E, mode, timing=False, fwd=None):
     f2 = bv.reduce_per_gaussian(d2, b.sorted_gid, n, runs)
     torch.cuda.synchronize()
     same = bool(torch.equal(d1, d2) and torch.equal(f1, f2))
-    d_ref, (evals, hits, slots) = bv.blend_bwd_reference(
-        *bwd, count_work=True, **kw)
+    (d_ref, (evals, hits, slots)), plain_ms = timed(
+        lambda: bv.blend_bwd_reference(*bwd, count_work=True, **kw))
     f_ref = bv.reduce_per_gaussian_reference(d_ref, b.sorted_gid, n)
     torch.cuda.synchronize()
     err_rows, err_flat = col_rel_err(d1, d_ref), col_rel_err(f1, f_ref)
@@ -363,18 +394,22 @@ def compare_k2(label, flat, b, grid_x, E, mode, timing=False, fwd=None):
            "rel_err": max(err_rows, err_flat)}
     if timing:
         D = d1.shape[1]
-        nt = b.tile_start.numel()
+        nt = out.shape[0]           # gout's rows (the listed tiles for K4)
         pairs = b.sorted_gid.numel()
         res["ms"] = time_ms(lambda: bv.blend_bwd(*bwd, **kw), 20)
-        res["plain_ms"] = time_ms(lambda: bv.blend_bwd_reference(
-            *bwd, **kw), 1, warm=False)
+        res["plain_ms"] = plain_ms      # one call, work counts included
         # extras_only reads the splat columns of flat and per pixel gout's
         # E feature rows, final T and n_contrib; the other modes all of
-        # flat, gout, saved (T, m1, m2) and iout
+        # flat, gout, saved (T, m1, m2) and iout. Over a tile list (K4)
+        # only the listed tiles' pairs, their gaussians and their d_sorted
+        # rows (the zeros of the other slots are the wrapper's fill)
+        walk, gauss = ((pairs, flat.shape[0]) if "tile_ids" not in sel
+                       else walked(sel["tile_ids"], b))
         cols, rows = ((SPLAT_COLS, E + 2) if mode == "extras_only"
                       else (flat.shape[1], 12 + E + 3 + 2))
-        bytes_ = (flat.shape[0] * cols * 4 + pairs * 4 + 2 * nt * 4
-                  + nt * rows * 256 * 4 + pairs * D * 4)
+        bytes_ = (gauss * cols * 4 + walk * 4
+                  + (3 if "tile_ids" in sel else 2) * nt * 4
+                  + nt * rows * 256 * 4 + walk * D * 4)
         per_hit = (OPS_BWD_EXTRAS_HIT + E if mode == "extras_only" else
                    OPS_BWD_HIT + OPS_BWD_HIT_E * E
                    + (OPS_BWD_HIT_FULL if mode == "full" else 0))
@@ -824,8 +859,15 @@ def cli_phase(st, make_cam, tmp):
 # labels, lambda (sv 1e-6, mv 1e-6, 3D 2.5e-6), the 5-view window (views
 # 1-5) every 10th step; sustained it/s = 1 / (0.9 t_plain + 0.1 t_mv)
 SEM = dict(width=976, height=728, cams=6, labels=40, batch=32 * 1024,
-           max_labels=64, warm=3, steps=20, mv_steps=6, n_mv=5)
+           max_labels=64, warm=3, steps=20, mv_steps=6, n_mv=5, mv_k=128)
 SEM_CLI_ITERS = 30
+# a reduced batch for the sparse CLI run that must launch K5/K6: the
+# tracker masks cover part of each frame, so at the reference's 32k the
+# draws crowd the covered tiles past the S slots pick_sparse_s sizes for
+# uniform draws, and a step whose tile overflows takes the dense path, as
+# the JAX package's does; at 256 the covered tiles hold a few draws each.
+# A second run at the reference batch prints how many steps fall back.
+SEM_CLI_SPARSE_BATCH = 256
 # K1 extras_only adds per contribution the done test and the weight (4)
 # and E features (2 each), no color; track is `full` plus the w > 0.1 test
 OPS_HIT_MODE.update({"extras_only": -6, "track": 26})
@@ -943,6 +985,182 @@ def compare_track(label, flat, b, grid_x, E, timing=False):
     return res
 
 
+def walked(sel, b):
+    """The pairs a walk over the tile list sel [K] of binning b reads
+    (K3/K4): (their count, the number of distinct gaussians among them)."""
+    import torch
+    from instascene_tpu_torch.ops.binning import select_tiles
+    ts = select_tiles(sel, b)
+    gids = torch.cat([b.sorted_gid[s0:s1] for s0, s1 in zip(
+        ts.tile_start.tolist(), ts.tile_end.tolist())])
+    return gids.numel(), int(torch.unique(gids).numel())
+
+
+def compare_selected(label, flat, b, grid_x, sel, E=16, timing=False):
+    """K1 extras_only over a tile list (K3) on the card against its plain
+    version (iout equal, T and features within TOL) and bit for bit the
+    whole frame's K1 extras_only rows of those tiles; then K2 extras_only
+    over the list (K4) and the segment sum against theirs (compare_k2).
+    sel = ("views", T, views) instead of a list: the merged window of the
+    frames views [(flat, BinningOut)] (K1/K2 tiles_per_view, flat and b
+    from ops/binning.merge_binnings), bit for bit each view's own
+    render."""
+    import torch
+    from instascene_tpu_torch.ops import blend_visits as bv
+    merged = isinstance(sel, tuple)
+    kw = (dict(tiles_per_view=sel[1]) if merged
+          else dict(tile_ids=sel))
+    args = (flat, b.sorted_gid, b.tile_start, b.tile_end, grid_x, E)
+    out, iout = bv.blend_fwd(*args, extras_only=True, **kw)
+    torch.cuda.synchronize()
+    (out_r, iout_r, n_eval, n_hit), plain_ms = timed(
+        lambda: bv.blend_fwd_reference(*args, extras_only=True,
+                                       count_work=True, **kw))
+    eT = float((out[:, 9] - out_r[:, 9]).abs().max())
+    eF = float((out[:, 10:10 + E] - out_r[:, 10:10 + E]).abs().max())
+    check(torch.equal(iout, iout_r) and eT <= TOL["final_T"]
+          and eF <= TOL["features"],
+          f"{label} {'merged' if merged else 'K3'}: iout equal "
+          f"{torch.equal(iout, iout_r)}, T {eT}, features {eF}")
+    if merged:
+        T = sel[1]
+        n = sel[2][0][0].shape[0]
+        bit = True
+        for v, (f, vb) in enumerate(sel[2]):
+            o, io = bv.blend_fwd(f, vb.sorted_gid, vb.tile_start,
+                                 vb.tile_end, grid_x, E, extras_only=True)
+            bit = bit and torch.equal(out[v * T:(v + 1) * T], o) \
+                and torch.equal(iout[v * T:(v + 1) * T], io)
+        what = f"{len(sel[2])} views of {T} tiles ({n} gaussians each)"
+    else:
+        full, ifull = bv.blend_fwd(*args, extras_only=True)
+        rows = sel.long()
+        bit = torch.equal(out, full[rows]) and torch.equal(iout, ifull[rows])
+        what = f"{sel.numel()} tiles"
+    print(f"[kernel] {label} {'K1 tiles_per_view' if merged else 'K3'} "
+          f"extras_only E={E}, {what}: pairs={b.total_pairs}, final T "
+          f"{eT:.3g}, features {eF:.3g}, iout equal; bit for bit the "
+          f"{'views' if merged else 'whole frame'}' own K1 extras_only: "
+          f"{bit}", flush=True)
+    check(bit, f"{label}: the selected/merged rows differ from K1's own")
+    res = {"max_abs_err": max(eT, eF)}
+    if timing:
+        res["ms"] = time_ms(lambda: bv.blend_fwd(*args, extras_only=True,
+                                                 **kw), 10)
+        res["plain_ms"] = plain_ms      # one call, work counts included
+        # the rows the walk needs: the listed tiles' pairs (all of them for
+        # the merged window), their gaussians' splat + feature columns,
+        # the tile ranges (and list), final T, the features, n_contrib
+        pairs, gauss = ((b.total_pairs, flat.shape[0]) if merged
+                        else walked(sel, b))
+        nrows = out.shape[0]
+        bytes_ = (gauss * (SPLAT_COLS + E) * 4 + pairs * 4 + 3 * nrows * 4
+                  + nrows * (E + 2) * 256 * 4)
+        evals = int(n_eval.sum(dtype=torch.int64))
+        hits = int(n_hit.sum(dtype=torch.int64))
+        res.update(bound(bytes_, evals * OPS_EVAL + hits * (
+            OPS_HIT + 2 * E + OPS_HIT_MODE["extras_only"])), evals=evals,
+            hits=hits, pairs_walked=pairs)
+    res["k2"] = compare_k2(label + (" merged" if merged else " tile list"),
+                           flat, b, grid_x, E, "extras_only", timing,
+                           fwd=(out, iout), **kw)
+    return res
+
+
+def compare_sparse(label, flat, b, grid_x, width, height, n_draws, E=16,
+                   timing=False):
+    """K5 and K6 on n_draws random pixels (slots from spix_from_idx): K5
+    against its plain version (n_contrib exactly, T and features within
+    TOL) and at every drawn pixel bit for bit K1 extras_only with a done0
+    that frees the same pixels; K6 and the segment sum at D = E against
+    theirs (K2_TOL of each column's largest |value|), twice, bit for bit
+    equal."""
+    import torch
+    from instascene_tpu_torch.ops import blend_sparse as bs
+    from instascene_tpu_torch.ops import blend_visits as bv
+    dev = flat.device
+    nt = b.tile_start.numel()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    idx = torch.randint(0, width * height, (n_draws,), generator=gen,
+                        device=dev)
+    S = bs.pick_sparse_s(n_draws, nt)
+    spix, _, _, ov = bs.spix_from_idx(idx, width, height, 16, S)
+    check(not bool(ov), f"{label}: {n_draws} draws overflow S = {S}")
+    args = (flat, b.sorted_gid, b.tile_start, b.tile_end, spix, grid_x, E)
+    feat, aux = bs.blend_sparse_fwd(*args)
+    torch.cuda.synchronize()
+    (feat_r, aux_r, n_eval, n_hit), plain5 = timed(
+        lambda: bs.blend_sparse_fwd_reference(*args, count_work=True))
+    eT = float((aux[..., 0] - aux_r[..., 0]).abs().max())
+    eF = float((feat - feat_r).abs().max())
+    nc_eq = torch.equal(aux[..., 1], aux_r[..., 1])
+    t_i, s_i = torch.nonzero(spix >= 0, as_tuple=True)
+    p_i = spix[t_i, s_i].long()
+    d0 = torch.ones((nt, 1, 256), dtype=torch.int32, device=dev)
+    d0[t_i, 0, p_i] = 0
+    out, iout = bv.blend_fwd(flat, b.sorted_gid, b.tile_start, b.tile_end,
+                             grid_x, E, extras_only=True, done0=d0)
+    bit = (torch.equal(feat[t_i, s_i], out[t_i, 10:10 + E, p_i])
+           and torch.equal(aux[t_i, s_i, 0], out[t_i, 9, p_i])
+           and torch.equal(aux[t_i, s_i, 1], iout[t_i, 0, p_i].float()))
+    gout = torch.randn(feat.shape, generator=gen, device=dev)
+    runs = (b.gid_order, b.run_start)
+    n = flat.shape[0]
+    d1 = bs.blend_sparse_bwd(*args, gout, aux)
+    f1 = bv.reduce_per_gaussian(d1, b.sorted_gid, n, runs)
+    d2 = bs.blend_sparse_bwd(*args, gout, aux)
+    f2 = bv.reduce_per_gaussian(d2, b.sorted_gid, n, runs)
+    torch.cuda.synchronize()
+    same = torch.equal(d1, d2) and torch.equal(f1, f2)
+    (d_ref, (evals6, hits6, slots6)), plain6 = timed(
+        lambda: bs.blend_sparse_bwd_reference(*args, gout, aux,
+                                              count_work=True))
+    f_ref = bv.reduce_per_gaussian_reference(d_ref, b.sorted_gid, n)
+    torch.cuda.synchronize()
+    e6 = max(col_rel_err(d1, d_ref), col_rel_err(f1, f_ref))
+    print(f"[kernel] {label} K5/K6 E={E}: {n_draws} draws in {t_i.numel()} "
+          f"slots, S={S}, pairs={b.total_pairs}; K5 final T {eT:.3g}, "
+          f"features {eF:.3g} (tol {TOL['final_T']:g}, "
+          f"{TOL['features']:g}), n_contrib equal {nc_eq}; bit for bit K1 "
+          f"extras_only + done0 at the drawn pixels: {bit}; K6 rows and "
+          f"d_flat {e6:.3g} of each column's max |value| (tol {K2_TOL:g}), "
+          f"two runs bit for bit equal: {same}", flush=True)
+    check(nc_eq and eT <= TOL["final_T"] and eF <= TOL["features"],
+          f"{label} K5 differs from its plain version")
+    check(bit, f"{label} K5 differs from K1 extras_only at the drawn pixels")
+    check(e6 <= K2_TOL and same and hits6 > 0,
+          f"{label} K6: {e6}, repeatable {same}, {hits6} contributions")
+    res = {"k5": {"max_abs_err": max(eT, eF)},
+           "k6": {"max_abs_err": float((d1 - d_ref).abs().max())},
+           "S": S, "slots": t_i.numel()}
+    if timing:
+        P = b.sorted_gid.numel()
+        # both walk the frame's pairs: the splat (+ feature, K5) columns of
+        # the gaussians, the pair list and ranges, spix; K5 writes feat and
+        # aux, K6 reads gout and aux and writes d_sorted
+        common = P * 4 + 2 * nt * 4 + spix.numel() * 4
+        evals = int(n_eval.sum(dtype=torch.int64))
+        hits = int(n_hit.sum(dtype=torch.int64))
+        r5 = res["k5"]
+        r5["ms"] = time_ms(lambda: bs.blend_sparse_fwd(*args), 20)
+        r5["plain_ms"] = plain5         # one call, work counts included
+        r5.update(bound(n * (SPLAT_COLS + E) * 4 + common
+                        + feat.numel() * 4 + aux.numel() * 4,
+                        evals * OPS_EVAL + hits * (
+                            OPS_HIT + 2 * E + OPS_HIT_MODE["extras_only"])),
+                  evals=evals, hits=hits)
+        r6 = res["k6"]
+        r6["ms"] = time_ms(lambda: bs.blend_sparse_bwd(*args, gout, aux), 20)
+        r6["plain_ms"] = plain6
+        r6.update(bound(n * SPLAT_COLS * 4 + common + gout.numel() * 4
+                        + aux.numel() * 4 + P * E * 4,
+                        evals6 * OPS_EVAL
+                        + hits6 * (OPS_BWD_EXTRAS_HIT + E)
+                        + (hits6 - slots6) * E),
+                  evals=evals6, hits=hits6, slots=slots6)
+    return res
+
+
 def semantic_frame_kernels(p, make_cam):
     """The semantic step's kernels on camera 0 at 976x728 (300k gaussians,
     E=16): K1 extras_only with a 32k-pixel done0 and without, K2
@@ -974,7 +1192,51 @@ def semantic_frame_kernels(p, make_cam):
           f"({tr['bound_by']}: {tr['bytes']} bytes, {tr['ops']} FP32 ops)",
           flush=True)
     res["track"] = tr
+
+    # K5/K6 on the single-view draws of the plain step (32k, no anchors)
+    sp = compare_sparse("semantic-frame", flat, b, gx, W, H, SEM["batch"],
+                        timing=True)
+    del flat, b
+    # K3/K4 on bench.py's 128 tiles of each window view, K1/K2
+    # tiles_per_view over the whole window (views 1-5)
+    from instascene_tpu_torch.ops.binning import merge_binnings, select_tiles
+    sel = bench_tiles(W, H)
+    views, capped, sub = [], 0, None
+    for i, v in enumerate(range(1, 1 + SEM["n_mv"])):
+        flat, b, _ = frame_inputs(p, make_cam(v, W, H), W, H, True)
+        views.append((flat, b))
+        capped += int(select_tiles(sel[i], b).jax_capped_chunks)
+        r = compare_selected(f"semantic-frame view {v}", flat, b, gx,
+                             sel[i], timing=i == 0)
+        sub = sub or r
+    print(f"[kernel] semantic-frame tile subsets: the JAX package's mini "
+          f"bundles (8 chunks of 128 pairs per tile) would cut {capped} "
+          f"chunks over the {SEM['n_mv']} views' {SEM['mv_k']} tiles; K3/K4 "
+          f"walk them whole", flush=True)
+    fm, bm, T = merge_binnings(views)
+    mg = compare_selected("semantic-frame", fm, bm, gx, ("views", T, views),
+                          timing=True)
+    for name, r in (("K3 (view 1)", sub), ("K4 (view 1)", sub["k2"]),
+                    ("K1 tiles_per_view", mg),
+                    ("K2 tiles_per_view", mg["k2"]),
+                    ("K5", sp["k5"]), ("K6", sp["k6"])):
+        print(f"[kernel] semantic-frame {name} E=16: {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}: {r['bytes']} bytes, {r['ops']} FP32 ops)",
+              flush=True)
+    res.update(k3=sub, merged=mg, sparse=sp, jax_capped_chunks=capped)
     return res
+
+
+def bench_tiles(width, height):
+    """bench.py:258-263's tile subsets: SEM["mv_k"] sorted unique tiles per
+    window view from numpy's default_rng(7), as int32 on the card."""
+    import torch
+    nt = ((width + 15) // 16) * ((height + 15) // 16)
+    rng = np.random.default_rng(7)
+    return torch.as_tensor(np.stack([np.sort(rng.choice(
+        nt, SEM["mv_k"], replace=False)).astype(np.int32)
+        for _ in range(SEM["n_mv"])]), device=DEVICE)
 
 
 def semantic_inputs(st, make_cam, dev):
@@ -1018,73 +1280,131 @@ def semantic_inputs(st, make_cam, dev):
     return p, cams, hyp, scfg, [c.binning.total_pairs for c in cams]
 
 
+def sem_stages():
+    """The semantic step's stage functions for `wrapped`: preprocess and
+    pack (called from the rasterizer and from the multi-view losses), the
+    forward blend kernels (K1, K3; K5) and the backward ones (K2, K4; K6;
+    the segment sum)."""
+    from instascene_tpu_torch.ops import blend_sparse as bsp
+    from instascene_tpu_torch.ops import blend_visits as bv
+    from instascene_tpu_torch.ops import rasterize as rmod
+    from instascene_tpu_torch.pipelines import train_semantic as ts
+    return {(rmod, "preprocess_gaussians"): "preprocess",
+            (ts, "preprocess_gaussians"): "preprocess",
+            (rmod, "pack_flat_cols"): "pack",
+            (bv, "blend_fwd"): "fwd", (bsp, "blend_sparse_fwd"): "fwd",
+            (bv, "blend_bwd"): "bwd", (bsp, "blend_sparse_bwd"): "bwd",
+            (bv, "reduce_per_gaussian"): "bwd"}
+
+
+def run_steps(tag, state, cams, window, hyp, scfg, steps, gen):
+    """SEM["warm"] warm-up and `steps` timed semantic_train_step calls
+    (camera i mod 6, the window on every one when given), each with its
+    stage split (inside `wrapped(sem_stages())`). Returns the medians and
+    the losses."""
+    import torch
+    from instascene_tpu_torch.pipelines import train_semantic as ts
+    splits, losses = [], []
+    for i in range(SEM["warm"] + steps):
+        StageClock.current = clock = StageClock()
+        state[0], state[1], loss = ts.semantic_train_step(
+            state[0], state[1], cams[i % len(cams)], window, hyp, scfg,
+            generator=gen, on_stage=clock.mark)
+        torch.cuda.synchronize()
+        if i < SEM["warm"]:
+            continue
+        g = {k: clock.total(k) for k in ("preprocess", "pack", "fwd", "bwd")}
+        splits.append({
+            "step": clock.ms("start", "adam"),
+            "preprocess + SH": g["preprocess"], "pack": g["pack"],
+            "blend forward (K1/K3/K5)": g["fwd"],
+            "losses, draws and the rest of the forward":
+                clock.ms("start", "loss") - g["preprocess"] - g["pack"]
+                - g["fwd"],
+            "blend backward (K2/K4/K6) + segment sum": g["bwd"],
+            "rest of backward": clock.ms("loss", "backward") - g["bwd"],
+            "Adam": clock.ms("backward", "adam")})
+        losses.append(float(loss))
+    med = {k: float(np.median([x[k] for x in splits])) for k in splits[0]}
+    print(f"[semantic] {tag}: {steps} timed steps; losses {losses[0]:.6g} → "
+          f"{losses[-1]:.6g}", flush=True)
+    print(f"[semantic] {tag} median ms (CUDA events): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in med.items()), flush=True)
+    check(all(np.isfinite(losses)), f"semantic {tag}: non-finite loss")
+    check(bool(torch.isfinite(state[0].seg_feature).all()),
+          f"semantic {tag}: non-finite features")
+    return {"median_ms": med, "losses": losses}
+
+
 def semantic_phase(st, make_cam, dev):
     """semantic_train_step at the benchmark's size: 3 warm-up steps, 20
     timed plain steps, 3 more warm-up steps and 6 timed steps with the
     5-view window (views 1-5), each with its stage split, the launch
     counts reset just before the steps and read just after; the sustained
-    it/s by bench.py's formula; then the tracker view's s/view."""
+    it/s by bench.py's formula. Then each multi-view variant the same way,
+    with its own launch counts: the window tile-subsampled (bench.py's 128
+    tiles per view; K3/K4), merged (K1/K2 tiles_per_view), and with sparse
+    pixels (K5/K6; 20 plain sparse steps too). Then the tracker view's
+    s/view."""
+    import dataclasses
+
     import torch
     from instascene_tpu_torch.models.optimizer import init_adam_state
-    from instascene_tpu_torch.ops import blend_visits as bv
-    from instascene_tpu_torch.ops import rasterize as rmod
     from instascene_tpu_torch.pipelines import train_semantic as ts
     W, H = SEM["width"], SEM["height"]
     p, cams, hyp, scfg, pairs = semantic_inputs(st, make_cam, dev)
-    mv = ts.SemanticMVBlock(cams[1:1 + SEM["n_mv"]])
+    window = cams[1:1 + SEM["n_mv"]]
+    mv = ts.SemanticMVBlock(window)
     gen = torch.Generator(device=dev).manual_seed(0)
     state = [p, init_adam_state(p)]
     results = {}
+    print(f"[semantic] at {W}x{H}, {p.n_alive()} gaussians, E=16, pairs per "
+          f"view {pairs}", flush=True)
     reset_counts()
-    with wrapped({(rmod, "preprocess_gaussians"): "preprocess",
-                  (rmod, "pack_flat_cols"): "pack", (bv, "blend_fwd"): "K1",
-                  (bv, "blend_bwd"): "K2",
-                  (bv, "reduce_per_gaussian"): "segment sum"}):
-        for tag, window, steps in (("plain", None, SEM["steps"]),
-                                   ("mv", mv, SEM["mv_steps"])):
-            splits, losses = [], []
-            for i in range(SEM["warm"] + steps):
-                StageClock.current = clock = StageClock()
-                state[0], state[1], loss = ts.semantic_train_step(
-                    state[0], state[1], cams[i % len(cams)], window, hyp,
-                    scfg, generator=gen, on_stage=clock.mark)
-                torch.cuda.synchronize()
-                if i >= SEM["warm"]:
-                    g = {k: clock.total(k) for k in (
-                        "preprocess", "pack", "K1", "K2", "segment sum")}
-                    splits.append({
-                        "step": clock.ms("start", "adam"),
-                        "preprocess + SH": g["preprocess"],
-                        "pack": g["pack"], "K1": g["K1"],
-                        "losses, draws and the rest of the forward":
-                            clock.ms("start", "loss") - g["preprocess"]
-                            - g["pack"] - g["K1"],
-                        "K2 + segment sum": g["K2"] + g["segment sum"],
-                        "rest of backward": clock.ms("loss", "backward")
-                            - g["K2"] - g["segment sum"],
-                        "Adam": clock.ms("backward", "adam")})
-                    losses.append(float(loss))
-            med = {k: float(np.median([x[k] for x in splits]))
-                   for k in splits[0]}
-            print(f"[semantic] {tag} steps at {W}x{H}, {p.n_alive()} "
-                  f"gaussians, E=16: {steps} timed; losses {losses[0]:.6g} "
-                  f"→ {losses[-1]:.6g}", flush=True)
-            print(f"[semantic] {tag} median ms (CUDA events): " + ", ".join(
-                f"{k} {v:.3f}" for k, v in med.items()), flush=True)
-            check(all(np.isfinite(losses)), f"semantic {tag}: non-finite "
-                  f"loss")
-            results[tag] = {"median_ms": med, "losses": losses}
+    with wrapped(sem_stages()):
+        results["plain"] = run_steps("plain", state, cams, None, hyp, scfg,
+                                     SEM["steps"], gen)
+        results["mv"] = run_steps("mv", state, cams, mv, hyp, scfg,
+                                  SEM["mv_steps"], gen)
     torch.cuda.synchronize()
     results["counts"] = counts()
-    check(bool(torch.isfinite(state[0].seg_feature).all()),
-          "semantic: non-finite features")
     t_plain = results["plain"]["median_ms"]["step"]
-    t_mv = results["mv"]["median_ms"]["step"]
-    sustained = 1e3 / (0.9 * t_plain + 0.1 * t_mv)
-    print(f"[semantic] pairs per view {pairs}; plain {1e3 / t_plain:.2f} "
-          f"it/s, with the window {1e3 / t_mv:.2f} it/s, sustained (bench.py:"
-          f"325-329) {sustained:.2f} it/s", flush=True)
+    sustain = lambda tp, tw: 1e3 / (0.9 * tp + 0.1 * tw)
+    sustained = sustain(t_plain, results["mv"]["median_ms"]["step"])
+    print(f"[semantic] plain {1e3 / t_plain:.2f} it/s, with the window "
+          f"{1e3 / results['mv']['median_ms']['step']:.2f} it/s, sustained "
+          f"(bench.py:325-329) {sustained:.2f} it/s", flush=True)
     results.update(sustained_its=sustained, pairs=pairs)
+
+    variants = (
+        ("tiles", scfg, ts.SemanticMVBlock(window, bench_tiles(W, H)),
+         ("K3 extras_only", "K4 extras_only")),
+        ("merged", dataclasses.replace(scfg, mv_merged=True), mv,
+         ("K1 tiles_per_view", "K2 tiles_per_view")),
+        ("sparse", dataclasses.replace(scfg, sparse_px=True), mv,
+         ("K5", "K6")))
+    for tag, vcfg, vmv, must in variants:
+        reset_counts()
+        with wrapped(sem_stages()):
+            r = {}
+            if tag == "sparse":
+                r["plain"] = run_steps(f"{tag} plain", state, cams, None,
+                                       hyp, vcfg, SEM["steps"], gen)
+            r["mv"] = run_steps(f"{tag} window", state, cams, vmv, hyp, vcfg,
+                                SEM["mv_steps"], gen)
+        torch.cuda.synchronize()
+        r["counts"] = c = counts()
+        tp = r["plain"]["median_ms"]["step"] if "plain" in r else t_plain
+        r["sustained_its"] = sustain(tp, r["mv"]["median_ms"]["step"])
+        print(f"[semantic] {tag}: window step "
+              f"{r['mv']['median_ms']['step']:.3f} ms, plain step {tp:.3f} "
+              f"ms, sustained {r['sustained_its']:.2f} it/s; launches "
+              f"{ {k: v for k, v in c.items() if v} }", flush=True)
+        for k in must:
+            check(c[k] > 0, f"the {tag} steps never launched {k}")
+        check(c["sparse_fallback"] == 0, f"{tag}: {c['sparse_fallback']} "
+              f"steps fell back to the dense path")
+        results[tag] = r
 
     # the priors stage's tracker view (bench.py:478-511): full render with
     # fresh binning and contributor tracking, E=16
@@ -1208,7 +1528,48 @@ def semantic_cli_phase(st, make_cam, tmp):
           "the PLY's features do not load back finite")
     check(os.path.exists(labels_ply), "point_cloud_labels.ply missing")
     return {"instances": m3d.shape[1], "purity": purity,
-            "counts": cli_counts, **tm}
+            "counts": cli_counts, "root": root, **tm}
+
+
+def semantic_cli_variant(root, out, tag, flags, must):
+    """train_semantic.main again on the scene semantic_cli_phase wrote, with
+    multi-view flags, the launch counts reset just before and read just
+    after: every kernel of `must` launched, the PLY at the last iteration
+    holds segfeat_0..15 that load back finite, the HDBSCAN export ran."""
+    import torch
+    from instascene_tpu_torch import train_semantic
+    from instascene_tpu_torch.data.ply import read_ply
+    from instascene_tpu_torch.models.gaussians import load_ply
+    reset_counts()
+    t0 = time.perf_counter()
+    seg = train_semantic.main([
+        "-s", root, "-m", out, "--use_seg_feature", "--gram_feat_3d",
+        "--iterations", str(SEM_CLI_ITERS), "--device", DEVICE, *flags])
+    torch.cuda.synchronize()
+    c = counts()
+    t1 = time.perf_counter()
+    ply = os.path.join(out, "point_cloud", f"iteration_{SEM_CLI_ITERS}",
+                       "point_cloud.ply")
+    names = read_ply(ply)["vertex"].dtype.names
+    feats = load_ply(ply, seg_feat_dim=16, load_seg_feat=True,
+                     device="cpu").seg_feature
+    tm = seg.timings
+    print(f"[semantic-cli {tag}] {' '.join(flags)}: train_semantic.main in "
+          f"{t1 - t0:.1f} s host wall: training {tm['training']:.2f} s "
+          f"({SEM_CLI_ITERS} iterations, last loss {seg.last_loss:.6g}), "
+          f"HDBSCAN export {tm['hdbscan export']:.2f} s; "
+          f"{seg.seg3d_masks.shape[1]} instances; launches "
+          f"{ {k: v for k, v in c.items() if v} }", flush=True)
+    for k in must:
+        check(c[k] > 0, f"the semantic CLI ({tag}) never launched {k}")
+    check(all(f"segfeat_{i}" in names for i in range(16)),
+          f"{tag}: the PLY has no segfeat_0..15")
+    check(feats is not None and bool(np.isfinite(feats.numpy()).all()),
+          f"{tag}: the PLY's features do not load back finite")
+    check(os.path.exists(os.path.join(
+        out, "point_cloud", f"iteration_{SEM_CLI_ITERS}_hdbscan",
+        "point_cloud_labels.ply")), f"{tag}: point_cloud_labels.ply missing")
+    return {"counts": c, **tm}
 
 
 
@@ -1226,6 +1587,7 @@ def main() -> int:
     from instascene_tpu_torch import cuda_build
     from instascene_tpu_torch.data.synthetic import make_bench_scene
     from instascene_tpu_torch.models.gaussians import from_numpy
+    from instascene_tpu_torch.ops.binning import merge_binnings
 
     # ---- 1. device and build
     phase_s = {}
@@ -1234,7 +1596,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
-    print(smi[0] if smi else "nvidia-smi: no output", flush=True)
+    smi_line = smi[0] if smi else "nvidia-smi: no output"
+    print(smi_line, flush=True)
     kind = torch.cuda.get_device_name(0)
     print(f"[device] {kind} count={torch.cuda.device_count()} "
           f"torch={torch.__version__} cuda={torch.version.cuda}", flush=True)
@@ -1271,7 +1634,20 @@ def main() -> int:
         # extras_only on each (E=16, the last frame_inputs above)
         compare_extras("mid-size", flat, b, gx, MID["width"], MID["height"],
                        2000)
-        del p_mid, flat, b
+        # K3/K4 over 8 random tiles, K5/K6 on ~2,000 draws, K1/K2
+        # tiles_per_view over three views concatenated (E=16)
+        sel = torch.as_tensor(np.sort(np.random.default_rng(3).choice(
+            b.tile_start.numel(), 8, replace=False)).astype(np.int32),
+            device=dev)
+        compare_selected("mid-size", flat, b, gx, sel)
+        compare_sparse("mid-size", flat, b, gx, MID["width"], MID["height"],
+                       2000)
+        views = [frame_inputs(p_mid, make_cam(v, MID["width"], MID["height"]),
+                              MID["width"], MID["height"], True)[:2]
+                 for v in range(3)]
+        fm, bm, T = merge_binnings(views)
+        compare_selected("mid-size", fm, bm, gx, ("views", T, views))
+        del p_mid, flat, b, views, fm, bm
 
         st, make_cam = make_bench_scene(n=FULL["n"], seed=0,
                                         profile="trained")
@@ -1350,17 +1726,44 @@ def main() -> int:
           f"{sem['counts']}", flush=True)
     for k in ("K1 extras_only", "K2 extras_only", "segment_sum"):
         check(sem["counts"][k] > 0, f"the semantic steps never launched {k}")
+    phase_s["semantic steps"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         sem_cli = semantic_cli_phase(st, make_cam, tmp)
+        cli_tiles = semantic_cli_variant(
+            sem_cli["root"], os.path.join(tmp, "out_tiles_sparse"),
+            "tile subsample + sparse",
+            ["--mv_tile_subsample", str(SEM["mv_k"]), "--sparse_px", "1",
+             "--sample_batchsize", str(SEM_CLI_SPARSE_BATCH)],
+            ("K3 extras_only", "K4 extras_only", "K5", "K6"))
+        # the same flags at the reference batch, where the tracker masks'
+        # covered tiles overflow their slots and steps take the dense path
+        cli_ref = semantic_cli_variant(
+            sem_cli["root"], os.path.join(tmp, "out_tiles_sparse_ref"),
+            "tile subsample + sparse, reference batch",
+            ["--mv_tile_subsample", str(SEM["mv_k"]), "--sparse_px", "1"],
+            ("K3 extras_only", "K4 extras_only"))
+        cr, ct = cli_ref["counts"], cli_tiles["counts"]
+        print(f"[semantic-cli] K5/K6 launches with --sparse_px over "
+              f"{SEM_CLI_ITERS} iterations: at {SEM_CLI_SPARSE_BATCH} draws "
+              f"per set (a reduced batch) K5 {ct['K5']}, K6 {ct['K6']}, "
+              f"dense fallbacks {ct['sparse_fallback']}; at the reference's "
+              f"{SEM['batch']} K5 {cr['K5']}, K6 {cr['K6']}, dense "
+              f"fallbacks {cr['sparse_fallback']}", flush=True)
+        cli_merged = semantic_cli_variant(
+            sem_cli["root"], os.path.join(tmp, "out_merged"), "merged",
+            ["--mv_merged", "1"], ("K1 tiles_per_view", "K2 tiles_per_view"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     sem_counts = sem_cli["counts"]
-    phase_s["semantic (steps and CLI)"] = time.perf_counter() - t_phase
+    phase_s["semantic CLI (4 runs)"] = time.perf_counter() - t_phase
     print("[phases] seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_s.items()), flush=True)
 
-    # ---- 8. the kernels' line and the result
+    # ---- 8. the card again (the start of a long log may be cut), the
+    # kernels' line and the result
+    print(smi_line, flush=True)
     frame = (f"{TRAIN['width']}x{TRAIN['height']}, {len(st['xyz'])} "
              f"gaussians, E=0")
     full_err = max(v["max_abs_err"] for v in full.values())
@@ -1436,15 +1839,69 @@ def main() -> int:
         "max_abs_err": sg16["max_abs_err"], "ms": sg16["ms"],
         "plain_ms": sg16["plain_ms"], "bound_ms": sg16["bound_ms"],
         "bound_by": sg16["bound_by"], "library_ms": sg16["library_ms"]})
+    cm = cli_merged["counts"]
+
+    def entry(name, source, replaces, mode, launches, r, **more):
+        return {"name": name, "route": "cuda",
+                "source": f"instascene_tpu_torch/csrc/{source}",
+                "replaces": replaces, "mode": mode, "launches": launches,
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None, **more}
+
+    def ref_batch(k):
+        # K5/K6's launches come from the CLI at a reduced batch; these are
+        # the run at the reference batch
+        return {"launches_batch": SEM_CLI_SPARSE_BATCH,
+                "launches_at_reference_batch": cr[k],
+                "dense_fallbacks_at_reference_batch": cr["sparse_fallback"]}
+
+    tiles = (f"extras_only over bench.py's {SEM['mv_k']} tiles of view 1, "
+             f"{sframe}")
+    window = f"extras_only, the {SEM['n_mv']}-view window merged, {sframe}"
+    draws = f"{SEM['batch']} draws, S={sem_k['sparse']['S']}, {sframe}"
+    kernels += [
+        entry("blend_fwd (K3: tile list)", "blend_fwd.cu",
+              "instascene_tpu/ops/blend_pallas.py:546", tiles,
+              ct["K3 extras_only"], sem_k["k3"]),
+        entry("blend_bwd (K4: tile list)", "blend_bwd.cu",
+              "instascene_tpu/ops/blend_pallas.py:785", tiles,
+              ct["K4 extras_only"], sem_k["k3"]["k2"]),
+        entry("sparse_fwd (K5)", "blend_sparse.cu",
+              "instascene_tpu/ops/blend_sparse.py:146", draws, ct["K5"],
+              sem_k["sparse"]["k5"], **ref_batch("K5")),
+        entry("sparse_bwd (K6)", "blend_sparse.cu",
+              "instascene_tpu/ops/blend_sparse.py:251", draws, ct["K6"],
+              sem_k["sparse"]["k6"], **ref_batch("K6")),
+        entry("blend_fwd", "blend_fwd.cu",
+              "instascene_tpu/ops/blend_visits.py:62",
+              f"tiles_per_view ({window})", cm["K1 tiles_per_view"],
+              sem_k["merged"]),
+        entry("blend_bwd", "blend_bwd.cu",
+              "instascene_tpu/ops/blend_visits.py:395",
+              f"tiles_per_view ({window})", cm["K2 tiles_per_view"],
+              sem_k["merged"]["k2"])]
+    variants = {k: {"window_step_median_ms": sem[k]["mv"]["median_ms"],
+                    "plain_step_median_ms": (sem[k]["plain"]["median_ms"]
+                                             if "plain" in sem[k] else None),
+                    "sustained_its": sem[k]["sustained_its"]}
+                for k in ("tiles", "merged", "sparse")}
     print(json.dumps({"kernels": kernels, "train_step_median_ms": {
         k: v["median_ms"] for k, v in steps.items()},
         "semantic_step_median_ms": {k: sem[k]["median_ms"]
                                     for k in ("plain", "mv")},
         "semantic_sustained_its": sem["sustained_its"],
+        "semantic_variants": variants,
+        "jax_capped_chunks": sem_k["jax_capped_chunks"],
         "tracker_s_per_view": sem["tracker_s"],
         "semantic_cli_s": {k: sem_cli[k] for k in (
             "tracker renders", "spatial track", "training",
-            "hdbscan export")}}), flush=True)
+            "hdbscan export")},
+        "semantic_cli_variant_s": {
+            tag: {k: r[k] for k in ("training", "hdbscan export")}
+            for tag, r in (("tiles+sparse", cli_tiles),
+                           ("tiles+sparse, reference batch", cli_ref),
+                           ("merged", cli_merged))}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

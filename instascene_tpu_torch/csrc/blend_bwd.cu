@@ -2,9 +2,10 @@
 // deterministic per-gaussian segment sum that follows it.
 //
 // Replaces the TPU kernel instascene_tpu/ops/blend_visits.py::_bwd_kernel_visits
-// (K2) in its `full`, `no_dist` and `extras_only` modes, and the scatter-add
-// of its custom
-// VJP (:729-736). Inputs: the packed table flat [N, 21+E], the depth-sorted
+// (K2) in its `full`, `no_dist`, `extras_only` and `tiles_per_view` modes,
+// instascene_tpu/ops/blend_pallas.py::_bwd_kernel_aligned (K4) over a
+// tile-subset mini bundle, and the scatter-add of K2's custom VJP
+// (:729-736). Inputs: the packed table flat [N, 21+E], the depth-sorted
 // pair list and tile ranges K1 blended, gout [T, 12+E, 256] (the cotangent
 // of K1's out), saved [T, 3, 256] (out's final T, m1 and m2 rows) and K1's
 // iout [T, 2, 256] (n_contrib, med_slot). Output d_sorted [pairs, 21+E]: per
@@ -18,6 +19,16 @@
 // w · gout[10+e] over the tile's pixels. It needs no suffix sum, no dL/dalpha
 // and no geometry column; pixels a done0 mask latched have n_contrib 0 and
 // take no part.
+//
+// tile_ids [K] and tiles_per_view select tiles and pixel coordinates as in
+// blend_fwd.cu: block b walks tile tile_ids[b] and reads row b of gout,
+// saved and iout (K4; the JAX package's mini bundle caps a tile at 8 chunks
+// of 128 pairs, this walks the whole range); merged views take their pixel
+// coordinates from t % tiles_per_view. Each block writes only its own
+// tile's d_sorted rows, so with a tile list the caller zeroes d_sorted and
+// the rows of unlisted tiles stay 0: the segment sum over the cached runs
+// then adds exact zeros for them, and the result is as deterministic as
+// the whole frame's.
 //
 // Design. The TPU kernel re-walks its (chunk, tile) visits in reverse on a
 // sequential grid, recovers T per 128-slot visit as T_exit / P_in (a
@@ -83,6 +94,7 @@ blend_bwd_kernel(const float* __restrict__ flat,
                  const int* __restrict__ sorted_gid,
                  const int* __restrict__ tile_start,
                  const int* __restrict__ tile_end, int grid_x,
+                 const int* __restrict__ tile_ids, int tiles_per_view,
                  const float* __restrict__ gout,
                  const float* __restrict__ saved,
                  const int* __restrict__ iout, float* __restrict__ d_sorted) {
@@ -95,16 +107,18 @@ blend_bwd_kernel(const float* __restrict__ flat,
   __shared__ float part[2][NW][DO];
   __shared__ int max_nc;
 
-  const int t = blockIdx.x;
+  const int row = blockIdx.x;          // row of gout, saved and iout
+  const int t = tile_ids != nullptr ? tile_ids[row] : row;
+  const int tl = tiles_per_view > 0 ? t % tiles_per_view : t;
   const int p = threadIdx.x;
   const int lane = p & 31;
   const int warp = p >> 5;
-  const float pxf = (float)((t % grid_x) * TILE + p % TILE);
-  const float pyf = (float)((t / grid_x) * TILE + p / TILE);
+  const float pxf = (float)((tl % grid_x) * TILE + p % TILE);
+  const float pyf = (float)((tl / grid_x) * TILE + p / TILE);
   const int s = tile_start[t];
   const int e = tile_end[t];
 
-  const float* go = gout + (size_t)t * OC * P2 + p;
+  const float* go = gout + (size_t)row * OC * P2 + p;
   const float gc0 = go[0], gc1 = go[P2], gc2 = go[2 * P2];
   const float gD = go[3 * P2];
   const float gn0 = go[4 * P2], gn1 = go[5 * P2], gn2 = go[6 * P2];
@@ -112,10 +126,10 @@ blend_bwd_kernel(const float* __restrict__ flat,
   float gext[NF];
 #pragma unroll
   for (int k = 0; k < E; ++k) gext[k] = go[(10 + k) * P2];
-  const float* sv = saved + (size_t)t * 3 * P2 + p;
+  const float* sv = saved + (size_t)row * 3 * P2 + p;
   const float T_fin = sv[0], m1tot = sv[P2], m2tot = sv[2 * P2];
-  const int nc = iout[(size_t)t * 2 * P2 + p];
-  const int med_slot = iout[(size_t)t * 2 * P2 + P2 + p];
+  const int nc = iout[(size_t)row * 2 * P2 + p];
+  const int med_slot = iout[(size_t)row * 2 * P2 + P2 + p];
   const float a_fin = 1.0f - T_fin;
   const float Tfin_g = gTfin * T_fin;
 
@@ -267,23 +281,36 @@ __global__ void segment_sum_kernel(const float* __restrict__ d_sorted,
   d_flat[i] = acc;
 }
 
+struct Args {
+  const float* flat;
+  const int* sorted_gid;
+  const int* tile_start;
+  const int* tile_end;
+  int grid_x;
+  const int* tile_ids;
+  int tiles_per_view;
+  const float* gout;
+  const float* saved;
+  const int* iout;
+  float* d_sorted;
+};
+
+template <int E, int MODE>
+void launch_mode(const Args& a, int num_rows, cudaStream_t stream) {
+  blend_bwd_kernel<E, MODE><<<num_rows, P2, 0, stream>>>(
+      a.flat, a.sorted_gid, a.tile_start, a.tile_end, a.grid_x, a.tile_ids,
+      a.tiles_per_view, a.gout, a.saved, a.iout, a.d_sorted);
+}
+
 template <int E>
-cudaError_t launch(int mode, const float* flat, const int* sorted_gid,
-                   const int* tile_start, const int* tile_end, int num_tiles,
-                   int grid_x, const float* gout, const float* saved,
-                   const int* iout, float* d_sorted, cudaStream_t stream) {
+cudaError_t launch(int mode, const Args& a, int num_rows,
+                   cudaStream_t stream) {
   if (mode == FULL)
-    blend_bwd_kernel<E, FULL><<<num_tiles, P2, 0, stream>>>(
-        flat, sorted_gid, tile_start, tile_end, grid_x, gout, saved, iout,
-        d_sorted);
+    launch_mode<E, FULL>(a, num_rows, stream);
   else if (mode == NO_DIST)
-    blend_bwd_kernel<E, NO_DIST><<<num_tiles, P2, 0, stream>>>(
-        flat, sorted_gid, tile_start, tile_end, grid_x, gout, saved, iout,
-        d_sorted);
+    launch_mode<E, NO_DIST>(a, num_rows, stream);
   else if (mode == EXTRAS && E > 0)
-    blend_bwd_kernel<E, EXTRAS><<<num_tiles, P2, 0, stream>>>(
-        flat, sorted_gid, tile_start, tile_end, grid_x, gout, saved, iout,
-        d_sorted);
+    launch_mode<E, EXTRAS>(a, num_rows, stream);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();
@@ -292,20 +319,21 @@ cudaError_t launch(int mode, const float* flat, const int* sorted_gid,
 }  // namespace
 
 // Plain C entry points for ctypes. Each returns a cudaError_t (0 = launched).
+// blend_bwd_launch: num_rows blocks, as blend_fwd_launch.
 extern "C" int blend_bwd_launch(const float* flat, const int* sorted_gid,
                                 const int* tile_start, const int* tile_end,
-                                int num_tiles, int grid_x, int n_extra,
-                                int mode, const float* gout,
+                                int num_rows, int grid_x, int n_extra,
+                                int mode, const int* tile_ids,
+                                int tiles_per_view, const float* gout,
                                 const float* saved, const int* iout,
                                 float* d_sorted, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (num_tiles <= 0) return (int)cudaSuccess;
-  if (n_extra == 16)
-    return (int)launch<16>(mode, flat, sorted_gid, tile_start, tile_end,
-                           num_tiles, grid_x, gout, saved, iout, d_sorted, st);
-  if (n_extra == 0)
-    return (int)launch<0>(mode, flat, sorted_gid, tile_start, tile_end,
-                          num_tiles, grid_x, gout, saved, iout, d_sorted, st);
+  if (num_rows <= 0) return (int)cudaSuccess;
+  const Args a{flat,   sorted_gid, tile_start,     tile_end,
+               grid_x, tile_ids,   tiles_per_view, gout,
+               saved,  iout,       d_sorted};
+  if (n_extra == 16) return (int)launch<16>(mode, a, num_rows, st);
+  if (n_extra == 0) return (int)launch<0>(mode, a, num_rows, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -2,8 +2,9 @@
 //
 // Replaces the TPU kernel instascene_tpu/ops/blend_visits.py::_fwd_kernel_visits
 // (K1) in its `full`, `viewer`, `no_dist`, `extras_only` (with the optional
-// sampled-pixel done0 mask) and `track` modes. Same function, same public
-// layout:
+// sampled-pixel done0 mask), `track` and `tiles_per_view` modes, and
+// instascene_tpu/ops/blend_pallas.py::_fwd_kernel_aligned (K3) over a
+// tile-subset mini bundle. Same function, same public layout:
 //   out  [num_tiles, 12+E, 256] f32: 0:3 color (no background), 3 expected
 //        depth sum, 4:7 view normal, 7 median depth, 8 distortion, 9 final T,
 //        10:10+E features, 10+E / 11+E the m1 / m2 totals
@@ -23,6 +24,25 @@
 // buffer: each contribution with w > 0.1 writes its gaussian id
 // (sorted_gid) and w into the pixel's next of TRACK_K = 10 slots, in blend
 // order; empty slots are -1 and 0 (ids, w [T, 10, 256]).
+//
+// Two arguments select the tiles and their pixels, in every mode:
+//   * tile_ids [K] (K3; null: every tile): block b renders tile tile_ids[b]
+//     over that tile's cached range and writes row b of out/iout (and of the
+//     track buffers), so out is [K, 12+E, 256]; done0 stays indexed by tile.
+//     A listed tile's values are bit for bit those of the whole frame's
+//     (a tile's blend does not depend on other tiles). The JAX package's
+//     mini bundle caps each selected tile at 8 chunks of 128 pairs; here a
+//     block walks its tile's whole range, so nothing is truncated.
+//   * tiles_per_view (K1 merged multi-view; 0: off): the tile space is
+//     several views' grids concatenated (their pair lists and ranges offset
+//     by the caller), and the pixel coordinates come from the view-local
+//     tile t % tiles_per_view, so every view's values are bit for bit its
+//     own render's. sorted_gid then indexes the concatenated tables
+//     (V·N rows): the row offset is taken in size_t.
+// K3 and merged rendering serve the semantic step's multi-view loss: on
+// the 976x728 frame K3 renders 128 tiles of each of 5 views (extras_only),
+// the merged launch all 5 · 2,806 tiles. Their bounds are K1's for the
+// tiles they walk.
 //
 // Design. The TPU kernel walks a sequential grid of (chunk, tile) visits,
 // carries T/m1/m2/done in VMEM scratch and turns the per-slot recurrence
@@ -81,6 +101,7 @@ blend_fwd_kernel(const float* __restrict__ flat,
                  const int* __restrict__ sorted_gid,
                  const int* __restrict__ tile_start,
                  const int* __restrict__ tile_end, int grid_x,
+                 const int* __restrict__ tile_ids, int tiles_per_view,
                  const int* __restrict__ done0, float* __restrict__ out,
                  int* __restrict__ iout, int* __restrict__ track_ids,
                  float* __restrict__ track_w) {
@@ -93,19 +114,24 @@ blend_fwd_kernel(const float* __restrict__ flat,
   __shared__ float rows[BATCH * D];
   __shared__ int gids[MODE == TRACK ? BATCH : 1];
 
-  const int t = blockIdx.x;
+  const int row = blockIdx.x;                      // output row
+  const int t = tile_ids != nullptr ? tile_ids[row] : row;
+  const int tl = tiles_per_view > 0 ? t % tiles_per_view : t;
   const int p = threadIdx.x;
-  const float pxf = (float)((t % grid_x) * TILE + p % TILE);
-  const float pyf = (float)((t / grid_x) * TILE + p / TILE);
+  const float pxf = (float)((tl % grid_x) * TILE + p % TILE);
+  const float pyf = (float)((tl / grid_x) * TILE + p / TILE);
   const int s = tile_start[t];
   const int e = tile_end[t];
 
   float T = 1.0f;
   // done0 (extras_only only): pixels the caller will not read start latched
-  bool done = MODE == EXTRAS && done0 != nullptr && done0[t * P2 + p] != 0;
+  bool done = MODE == EXTRAS && done0 != nullptr &&
+              done0[(size_t)t * P2 + p] != 0;
   int n_track = 0;
-  int* tid = MODE == TRACK ? track_ids + (size_t)t * TRACK_K * P2 + p : nullptr;
-  float* tw = MODE == TRACK ? track_w + (size_t)t * TRACK_K * P2 + p : nullptr;
+  int* tid =
+      MODE == TRACK ? track_ids + (size_t)row * TRACK_K * P2 + p : nullptr;
+  float* tw =
+      MODE == TRACK ? track_w + (size_t)row * TRACK_K * P2 + p : nullptr;
   float col0 = 0.f, col1 = 0.f, col2 = 0.f;
   float feat[NF];
 #pragma unroll
@@ -180,8 +206,8 @@ blend_fwd_kernel(const float* __restrict__ flat,
     }
   }
 
-  float* o = out + (size_t)t * OC * P2 + p;
-  int* io = iout + (size_t)t * 2 * P2 + p;
+  float* o = out + (size_t)row * OC * P2 + p;
+  int* io = iout + (size_t)row * 2 * P2 + p;
   o[0 * P2] = col0;
   o[1 * P2] = col1;
   o[2 * P2] = col2;
@@ -200,26 +226,35 @@ blend_fwd_kernel(const float* __restrict__ flat,
   io[P2] = med_slot;
 }
 
+struct Args {
+  const float* flat;
+  const int* sorted_gid;
+  const int* tile_start;
+  const int* tile_end;
+  int grid_x;
+  const int* tile_ids;
+  int tiles_per_view;
+  const int* done0;
+  float* out;
+  int* iout;
+  int* track_ids;
+  float* track_w;
+};
+
 template <int E, int MODE>
-void launch_mode(const float* flat, const int* sorted_gid,
-                 const int* tile_start, const int* tile_end, int num_tiles,
-                 int grid_x, const int* done0, float* out, int* iout,
-                 int* track_ids, float* track_w, cudaStream_t stream) {
-  blend_fwd_kernel<E, MODE><<<num_tiles, P2, 0, stream>>>(
-      flat, sorted_gid, tile_start, tile_end, grid_x, done0, out, iout,
-      track_ids, track_w);
+void launch_mode(const Args& a, int num_rows, cudaStream_t stream) {
+  blend_fwd_kernel<E, MODE><<<num_rows, P2, 0, stream>>>(
+      a.flat, a.sorted_gid, a.tile_start, a.tile_end, a.grid_x, a.tile_ids,
+      a.tiles_per_view, a.done0, a.out, a.iout, a.track_ids, a.track_w);
 }
 
 template <int E>
-cudaError_t launch(int mode, const float* flat, const int* sorted_gid,
-                   const int* tile_start, const int* tile_end, int num_tiles,
-                   int grid_x, const int* done0, float* out, int* iout,
-                   int* track_ids, float* track_w, cudaStream_t stream) {
-  if (done0 != nullptr && mode != EXTRAS) return cudaErrorInvalidValue;
-  if (mode == TRACK && (track_ids == nullptr || track_w == nullptr))
+cudaError_t launch(int mode, const Args& a, int num_rows,
+                   cudaStream_t stream) {
+  if (a.done0 != nullptr && mode != EXTRAS) return cudaErrorInvalidValue;
+  if (mode == TRACK && (a.track_ids == nullptr || a.track_w == nullptr))
     return cudaErrorInvalidValue;
-  void (*fn)(const float*, const int*, const int*, const int*, int, int,
-             const int*, float*, int*, int*, float*, cudaStream_t) =
+  void (*fn)(const Args&, int, cudaStream_t) =
       mode == FULL      ? launch_mode<E, FULL>
       : mode == VIEWER  ? launch_mode<E, VIEWER>
       : mode == NO_DIST ? launch_mode<E, NO_DIST>
@@ -227,31 +262,30 @@ cudaError_t launch(int mode, const float* flat, const int* sorted_gid,
       : mode == TRACK   ? launch_mode<E, TRACK>
                         : nullptr;
   if (fn == nullptr) return cudaErrorInvalidValue;
-  fn(flat, sorted_gid, tile_start, tile_end, num_tiles, grid_x, done0, out,
-     iout, track_ids, track_w, stream);
+  fn(a, num_rows, stream);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point for ctypes. Returns a cudaError_t (0 = launched).
-// done0 may be null (required null outside extras_only); track_ids and
-// track_w are read only in track mode.
+// num_rows blocks: the length of tile_ids, or the number of tiles when
+// tile_ids is null. tiles_per_view 0 is off. done0 may be null (required
+// null outside extras_only); track_ids and track_w are read only in track
+// mode.
 extern "C" int blend_fwd_launch(const float* flat, const int* sorted_gid,
                                 const int* tile_start, const int* tile_end,
-                                int num_tiles, int grid_x, int n_extra,
-                                int mode, const int* done0, float* out,
-                                int* iout, int* track_ids, float* track_w,
-                                void* stream) {
+                                int num_rows, int grid_x, int n_extra,
+                                int mode, const int* tile_ids,
+                                int tiles_per_view, const int* done0,
+                                float* out, int* iout, int* track_ids,
+                                float* track_w, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (num_tiles <= 0) return (int)cudaSuccess;
-  if (n_extra == 16)
-    return (int)launch<16>(mode, flat, sorted_gid, tile_start, tile_end,
-                           num_tiles, grid_x, done0, out, iout, track_ids,
-                           track_w, st);
-  if (n_extra == 0)
-    return (int)launch<0>(mode, flat, sorted_gid, tile_start, tile_end,
-                          num_tiles, grid_x, done0, out, iout, track_ids,
-                          track_w, st);
+  if (num_rows <= 0) return (int)cudaSuccess;
+  const Args a{flat,   sorted_gid, tile_start, tile_end,
+               grid_x, tile_ids,   tiles_per_view,
+               done0,  out,        iout,       track_ids, track_w};
+  if (n_extra == 16) return (int)launch<16>(mode, a, num_rows, st);
+  if (n_extra == 0) return (int)launch<0>(mode, a, num_rows, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,0 +1,270 @@
+// Sparse-pixel extras blend: the features, final T and n_contrib of S
+// sampled pixels per tile (K5), and its backward, the per-slot feature
+// gradients of those pixels (K6).
+//
+// Replaces the TPU kernels instascene_tpu/ops/blend_sparse.py::
+// _sparse_fwd_kernel (K5) and ::_sparse_bwd_kernel (K6). Inputs: the packed
+// table flat [N, 21+E], the depth-sorted pair list and tile ranges of the
+// camera's binning, and spix [T, S] int32, the within-tile pixel index of
+// each sampled slot (-1: empty; a pixel drawn twice takes two slots).
+// K5 writes feat [T, S, E] and aux [T, S, 2] f32 (final T, n_contrib); an
+// empty slot gets T = 1, zero features and n_contrib 0. K6 takes gout
+// [T, S, E] (the cotangent of feat) and K5's aux and writes d_sorted
+// [pairs, E]: per slot, Σ over the tile's sampled pixels of w · gout.
+//
+// Design. The TPU kernels put the S pixels on sublanes and a 128-slot chunk
+// on lanes, so every elementwise op touches S x 128 values, and turn the
+// per-slot recurrence into cumprods; they group 8 visits per grid step to
+// amortise the step's bookkeeping. Here each block owns one tile and each
+// thread one sampled slot (S rounded up to a warp; the padding threads hold
+// empty slots), and a thread's recurrence is a plain sequential loop, K1's
+// (csrc/blend_fwd.cu) own: the block stages its tile's pair rows in shared
+// memory per batch of 128 (the flat[sorted_gid[j]] gather fused), every
+// thread evaluates splat.cuh's terms, drops the contribution that would take
+// T below 1e-4 and latches, and the block leaves when all its threads have
+// latched (a block whose slots are all empty leaves at once). So a slot's
+// values are bit for bit those of K1 `extras_only` at its pixel (with or
+// without a done0 mask: a pixel's blend does not depend on its neighbours).
+// K6 walks its tile back to front from the largest n_contrib among its
+// slots, recovers T before each pair as T_after / (1 - alpha) from the
+// saved final T (as K2 does), and reduces w · gout over the slots per pair
+// with warp shuffles and then a fixed cross-warp order in shared memory:
+// no atomics, the same bits on every run. Pairs past every slot's
+// n_contrib get zero rows without a walk (the JAX kernel's `beyond` test).
+// The per-gaussian sum is the segment sum of csrc/blend_bwd.cu at D = E.
+//
+// What bounds them on the H100: the bytes. On the semantic step's 976x728
+// frame a tile holds ~12 (up to S = 48) of its 256 pixels, so the FP32 work
+// is ~S/256 of K1's (41 operations per evaluation, 4 + 2E per
+// contribution), while every block still gathers the rows of the pairs it
+// walks: the flat columns of those pairs and the pair list dominate (the
+// 15 splat columns + E features per walked row, then spix, feat and aux).
+// The design keeps the gather fused (no packed copy), stops each block at
+// its last slot's latch (K5) or at its largest n_contrib (K6), and runs
+// blocks of 32-128 threads so that many of them fit an SM. K6's per-pair
+// reduction (E shuffle rounds per warp and one barrier) is paid per walked
+// pair, as in K2.
+//
+// Rounding: see splat.cuh. The plain PyTorch versions
+// (ops/blend_sparse.py::blend_sparse_fwd_reference, _bwd_reference) are
+// K1's and K2's plain versions evaluated at the sampled pixels.
+
+#include <cuda_runtime.h>
+
+#include "splat.cuh"
+
+namespace {
+
+using namespace splat;
+
+constexpr int BATCH = 128;          // pair rows staged in shared memory
+constexpr int MAX_THREADS = 128;    // S <= 128, as the JAX kernels take
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+template <int E>
+__global__ void __launch_bounds__(MAX_THREADS)
+sparse_fwd_kernel(const float* __restrict__ flat,
+                  const int* __restrict__ sorted_gid,
+                  const int* __restrict__ tile_start,
+                  const int* __restrict__ tile_end,
+                  const int* __restrict__ spix, int S, int grid_x,
+                  float* __restrict__ feat_out, float* __restrict__ aux_out) {
+  constexpr int D = 21 + E;
+  __shared__ float rows[BATCH * D];
+
+  const int t = blockIdx.x;
+  const int i = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int sp = i < S ? spix[(size_t)t * S + i] : -1;
+  const int spc = sp >= 0 ? sp : 0;
+  const float pxf = (float)((t % grid_x) * TILE + spc % TILE);
+  const float pyf = (float)((t / grid_x) * TILE + spc / TILE);
+  const int s = tile_start[t];
+  const int e = tile_end[t];
+
+  float T = 1.0f;
+  bool done = sp < 0;          // empty slots start latched
+  float feat[E];
+#pragma unroll
+  for (int k = 0; k < E; ++k) feat[k] = 0.f;
+  int last = 0;
+
+  for (int base = s; base < e; base += BATCH) {
+    // every slot latched: nothing later in the tile can change one; also
+    // the barrier that keeps the previous batch's rows until all read them
+    if (__syncthreads_count(done) == nthr) break;
+    const int nb = min(BATCH, e - base);
+    for (int k = i; k < nb * D; k += nthr) {
+      const int r = k / D;
+      const int c = k - r * D;
+      rows[k] = flat[(size_t)sorted_gid[base + r] * D + c];
+    }
+    __syncthreads();
+    if (done) continue;
+    for (int j = 0; j < nb; ++j) {
+      const float* g = rows + j * D;
+      const Terms q = eval(g, pxf, pyf);
+      if (!q.m) continue;
+      const float test_T = T * (1.0f - q.alpha);
+      if (test_T < T_DONE) {
+        done = true;
+        break;
+      }
+      const float w = q.alpha * T;
+#pragma unroll
+      for (int k = 0; k < E; ++k) feat[k] = feat[k] + w * g[EXT + k];
+      last = base - s + j + 1;
+      T = test_T;
+    }
+  }
+  if (i < S) {
+    float* fo = feat_out + ((size_t)t * S + i) * E;
+#pragma unroll
+    for (int k = 0; k < E; ++k) fo[k] = feat[k];
+    float* ao = aux_out + ((size_t)t * S + i) * 2;
+    ao[0] = T;
+    ao[1] = (float)last;
+  }
+}
+
+template <int E>
+__global__ void __launch_bounds__(MAX_THREADS)
+sparse_bwd_kernel(const float* __restrict__ flat,
+                  const int* __restrict__ sorted_gid,
+                  const int* __restrict__ tile_start,
+                  const int* __restrict__ tile_end,
+                  const int* __restrict__ spix, int S, int grid_x,
+                  const float* __restrict__ gout,
+                  const float* __restrict__ aux, float* __restrict__ d_sorted) {
+  constexpr int D = 21 + E;
+  constexpr int MAX_WARPS = MAX_THREADS / 32;
+  __shared__ float rows[BATCH * D];
+  __shared__ float part[2][MAX_WARPS][E];
+  __shared__ int max_nc;
+
+  const int t = blockIdx.x;
+  const int i = threadIdx.x;
+  const int lane = i & 31;
+  const int warp = i >> 5;
+  const int nw = blockDim.x >> 5;
+  const int sp = i < S ? spix[(size_t)t * S + i] : -1;
+  const int spc = sp >= 0 ? sp : 0;
+  const float pxf = (float)((t % grid_x) * TILE + spc % TILE);
+  const float pyf = (float)((t / grid_x) * TILE + spc / TILE);
+  const int s = tile_start[t];
+  const int e = tile_end[t];
+
+  float gext[E];
+#pragma unroll
+  for (int k = 0; k < E; ++k)
+    gext[k] = i < S ? gout[((size_t)t * S + i) * E + k] : 0.f;
+  const float T_fin = i < S ? aux[((size_t)t * S + i) * 2] : 1.f;
+  // empty slots contribute nowhere
+  const int nc = sp >= 0 ? (int)aux[((size_t)t * S + i) * 2 + 1] : 0;
+
+  // the tile's largest n_contrib: no pair after it has a contribution
+  if (i == 0) max_nc = 0;
+  __syncthreads();
+  int wmax = nc;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    wmax = max(wmax, __shfl_xor_sync(FULL_MASK, wmax, off));
+  if (lane == 0) atomicMax(&max_nc, wmax);
+  __syncthreads();
+  const int hi = s + min(max_nc, e - s);
+  for (int k = i; k < (e - hi) * E; k += blockDim.x)
+    d_sorted[(size_t)hi * E + k] = 0.f;
+
+  float T = T_fin;   // transmittance after the current pair
+  int buf = 0;
+  for (int top = hi; top > s; top -= BATCH) {
+    const int base = max(s, top - BATCH);
+    const int nb = top - base;
+    __syncthreads();   // the previous batch's rows are no longer read
+    for (int k = i; k < nb * D; k += blockDim.x) {
+      const int r = k / D;
+      const int c = k - r * D;
+      rows[k] = flat[(size_t)sorted_gid[base + r] * D + c];
+    }
+    __syncthreads();
+    for (int j = nb - 1; j >= 0; --j) {
+      const float* g = rows + j * D;
+      const int slot = base - s + j + 1;
+      const Terms q = eval(g, pxf, pyf);
+      const bool cm = q.m && slot <= nc;
+      float c[E];
+#pragma unroll
+      for (int k = 0; k < E; ++k) c[k] = 0.f;
+      if (cm) {
+        const float Ti = T / (1.0f - q.alpha);
+        const float w = q.alpha * Ti;
+        T = Ti;
+#pragma unroll
+        for (int k = 0; k < E; ++k) c[k] = w * gext[k];
+      }
+      float* pw = part[buf][warp];
+      if (__any_sync(FULL_MASK, cm)) {
+#pragma unroll
+        for (int k = 0; k < E; ++k) {
+          float v = c[k];
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            v += __shfl_xor_sync(FULL_MASK, v, off);
+          c[k] = v;
+        }
+        if (lane == 0) {
+#pragma unroll
+          for (int k = 0; k < E; ++k) pw[k] = c[k];
+        }
+      } else if (lane == 0) {
+#pragma unroll
+        for (int k = 0; k < E; ++k) pw[k] = 0.f;
+      }
+      // one barrier per pair: the partials are double-buffered, so the next
+      // pair's writes go to the other buffer while these are read
+      __syncthreads();
+      if (i < E) {
+        float sum = part[buf][0][i];
+        for (int w8 = 1; w8 < nw; ++w8) sum = sum + part[buf][w8][i];
+        d_sorted[(size_t)(base + j) * E + i] = sum;
+      }
+      buf ^= 1;
+    }
+  }
+}
+
+int threads_for(int S) { return (S + 31) / 32 * 32; }
+
+}  // namespace
+
+// Plain C entry points for ctypes. Each returns a cudaError_t (0 = launched).
+// One block per tile (num_tiles = spix's rows), threads_for(S) threads.
+extern "C" int sparse_fwd_launch(const float* flat, const int* sorted_gid,
+                                 const int* tile_start, const int* tile_end,
+                                 int num_tiles, int grid_x, int n_extra,
+                                 const int* spix, int S, float* feat,
+                                 float* aux, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (num_tiles <= 0) return (int)cudaSuccess;
+  if (S <= 0 || S > MAX_THREADS) return (int)cudaErrorInvalidValue;
+  if (n_extra != 16) return (int)cudaErrorInvalidValue;
+  sparse_fwd_kernel<16><<<num_tiles, threads_for(S), 0, st>>>(
+      flat, sorted_gid, tile_start, tile_end, spix, S, grid_x, feat, aux);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sparse_bwd_launch(const float* flat, const int* sorted_gid,
+                                 const int* tile_start, const int* tile_end,
+                                 int num_tiles, int grid_x, int n_extra,
+                                 const int* spix, int S, const float* gout,
+                                 const float* aux, float* d_sorted,
+                                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (num_tiles <= 0) return (int)cudaSuccess;
+  if (S <= 0 || S > MAX_THREADS) return (int)cudaErrorInvalidValue;
+  if (n_extra != 16) return (int)cudaErrorInvalidValue;
+  sparse_bwd_kernel<16><<<num_tiles, threads_for(S), 0, st>>>(
+      flat, sorted_gid, tile_start, tile_end, spix, S, grid_x, gout, aux,
+      d_sorted);
+  return (int)cudaGetLastError();
+}

@@ -19,6 +19,16 @@ per-gaussian sum, without a second sort: the pairs expand gid-ascending and
 a gaussian's tiles ascend in its rect's row-major order, so within a
 gaussian the sort keeps its pairs in slot order, and the inverse of the
 sort's permutation lists every gaussian's slots contiguously in slot order.
+
+`select_tiles` (port of instascene_tpu/ops/binning.py:69-151,
+`select_tiles_bundle`) lists a tile subset's slot ranges: K3/K4 take the
+tile ids alone and walk each listed tile's whole cached range, so no mini
+bundle is built and nothing is truncated; it reports what the JAX
+package's capped bundle would have cut.
+
+`merge_binnings` concatenates a window's views along the tile axis for
+K1/K2's tiles_per_view mode (the layout of the JAX package's
+pipelines/train_semantic.py:309-406, `_mv_full_loss_merged`).
 """
 
 from __future__ import annotations
@@ -106,3 +116,55 @@ def bin_gaussians(pre: PreprocessOut, width: int, height: int) -> BinningOut:
                       tile_end=bounds[1:].contiguous(), total_pairs=total,
                       gid_order=gid_order,
                       run_start=run_start.to(torch.int32))
+
+
+class TileSelection(NamedTuple):
+    tile_ids: torch.Tensor       # [K] int32, ascending, unique
+    tile_start: torch.Tensor     # [K] int32 their slot ranges
+    tile_end: torch.Tensor
+    # chunks the JAX package's mini bundle would truncate (a 0-d tensor)
+    jax_capped_chunks: torch.Tensor
+
+
+def select_tiles(sel_tiles: torch.Tensor, binning: BinningOut,
+                 chunk: int = 128, chunks_per_tile: int = 8
+                 ) -> TileSelection:
+    """The tiles sel_tiles [K] (ascending, unique) of `binning`, as K3/K4
+    walk them (ops/blend_visits.blend with tile_ids=, which takes the ids
+    alone): their ids as a contiguous int32 vector, their slot ranges, and
+    the number of `chunk`-pair chunks that the JAX package's
+    select_tiles_bundle would cut: it gives each selected tile at most
+    chunk_cap // K chunks (chunk_cap = 8·K in its trainer,
+    pipelines/train_semantic.py:279-281) and drops the deepest beyond
+    them. Here nothing is cut; the ranges and the count are for
+    measurement and the record."""
+    ids = sel_tiles.to(device=binning.tile_start.device,
+                       dtype=torch.int32).contiguous()
+    start = binning.tile_start[ids.long()]
+    end = binning.tile_end[ids.long()]
+    full = (end - start + chunk - 1) // chunk
+    capped = (full - full.clamp(max=chunks_per_tile)).sum()
+    return TileSelection(ids, start, end, capped)
+
+
+def merge_binnings(views) -> tuple:
+    """A window's views [(flat [N, D], BinningOut)] (one scene, one frame
+    size) as one frame of V·T tiles for K1/K2's tiles_per_view mode →
+    (flat [V·N, D], BinningOut, T): view v's pair list offset by v·N, its
+    tile ranges and per-gaussian runs by the pairs of the views before it,
+    run_start closed by the total. Autograd reaches the flats."""
+    n = views[0][0].shape[0]
+    gid, start, end, order, run = [], [], [], [], []
+    off = 0
+    for v, (_, b) in enumerate(views):
+        gid.append(b.sorted_gid + v * n)
+        start.append(b.tile_start + off)
+        end.append(b.tile_end + off)
+        order.append(b.gid_order + off)
+        run.append(b.run_start[:-1] + off)
+        off += b.total_pairs
+    run.append(run[0].new_tensor([off]))
+    merged = BinningOut(torch.cat(gid), torch.cat(start), torch.cat(end),
+                        off, torch.cat(order), torch.cat(run))
+    return (torch.cat([f for f, _ in views]), merged,
+            views[0][1].tile_start.shape[0])

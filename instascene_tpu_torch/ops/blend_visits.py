@@ -5,12 +5,17 @@ Function that joins them.
 Port of instascene_tpu/ops/blend_pallas.py:51-89 (`pack_flat_cols`),
 :150-182 (`_splat_terms`) and instascene_tpu/ops/blend_visits.py:62-392
 (`_fwd_kernel_visits`, the TPU kernel K1, in its `full`, `viewer`,
-`no_dist`, `extras_only` (with the sampled-pixel done0 mask) and `track`
-modes), :395-607 (`_bwd_kernel_visits`, the TPU kernel K2, in its `full`,
-`no_dist` and `extras_only` modes) and :612-751 (`blend_visits_track` and
-the custom VJP with its per-gaussian scatter-add). The kernels are
-csrc/blend_fwd.cu and csrc/blend_bwd.cu (CUDA C++ for sm_90a); their
-headers say what bounds them on the H100 and how the design answers that.
+`no_dist`, `extras_only` (with the sampled-pixel done0 mask), `track` and
+`tiles_per_view` modes), :395-607 (`_bwd_kernel_visits`, the TPU kernel K2,
+in its `full`, `no_dist`, `extras_only` and `tiles_per_view` modes),
+:612-751 (`blend_visits_track` and the custom VJP with its per-gaussian
+scatter-add), and instascene_tpu/ops/blend_pallas.py:546-1083
+(`_fwd_kernel_aligned` and `_bwd_kernel_aligned`, the TPU kernels K3 and
+K4, with `blend_aligned_diff`, over a tile-subset mini bundle in the
+extras_only mode). The kernels are csrc/blend_fwd.cu and csrc/blend_bwd.cu
+(CUDA C++ for sm_90a): K3 and K4 are K1 and K2 given an explicit tile
+list. Their headers say what bounds them on the H100 and how the design
+answers that.
 
 The TPU layout machinery (pair caps, the (chunk, tile) visit list and its
 SMEM budget) is gone: the inputs are the per-gaussian packed table `flat`
@@ -23,7 +28,8 @@ out [num_tiles, 12+E, 256] f32 and iout [num_tiles, 2, 256] i32
 CUDA tensors (or raise) and run the plain versions for CPU tensors; each
 adds one to its entry of `LAUNCHES` (by kernel and mode) where it launches.
 `blend` is the differentiable entry (`BlendFunction`). K1's and K2's
-clip_rect and tiles_per_view modes come in a later slice.
+clip_rect mode, and the tile list outside extras_only, come in a later
+slice (ROADMAP B).
 """
 
 from __future__ import annotations
@@ -48,10 +54,14 @@ MODES = ("full", "viewer", "no_dist", "extras_only", "track")
 BWD_MODES = ("full", "no_dist", "extras_only")
 TRACK_K = 10        # contributor slots per pixel (track mode)
 TRACK_W = 0.1       # a contribution is tracked when its weight exceeds this
-# kernel launches, by kernel and mode (the plain versions launch nothing)
+# kernel launches, by kernel and mode (the plain versions launch nothing);
+# "K3 extras_only"/"K4 extras_only" are K1/K2 over a tile list, K5/K6 the
+# sparse-pixel kernels (ops/blend_sparse.py), and "sparse_fallback" counts
+# the semantic steps that took the dense path on a slot overflow
 LAUNCHES = dict.fromkeys(
     [f"K1 {m}" for m in MODES] + [f"K2 {m}" for m in BWD_MODES]
-    + ["segment_sum"], 0)
+    + ["K1 tiles_per_view", "K2 tiles_per_view", "K3 extras_only",
+       "K4 extras_only", "K5", "K6", "segment_sum", "sparse_fallback"], 0)
 
 
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -107,32 +117,45 @@ def _splat(g, X, Y):
                 sy=sy, inv_pz=inv_pz, G=G, dx=dx, dy=dy)
 
 
-def _walk_order(tile_start, tile_end, grid_x):
-    """Tiles longest-first (so step k touches only the first `na` tiles,
-    those with a slot k) and their pixel coordinates [T, 256]."""
+def _walk_order(tile_start, tile_end, grid_x, tile_ids=None,
+                tiles_per_view=0, pixels=None):
+    """The rows the plain versions walk — one per tile, or per listed tile
+    (tile_ids) — longest-first, so step k touches only the first `na`
+    rows, those with a slot k. Returns (order, their tiles, their first
+    slots, the longest range, n_at(k), pixel x and y [rows, P]): the
+    pixels are a tile's 256, or per row the within-tile indices `pixels`
+    [rows, P]; with tiles_per_view the coordinates come from the view-local
+    tile t % tiles_per_view."""
     dev = tile_start.device
-    counts = (tile_end - tile_start).to(torch.int64)
+    tiles = (torch.arange(tile_start.shape[0], device=dev)
+             if tile_ids is None else tile_ids.to(torch.int64))
+    counts = (tile_end - tile_start).to(torch.int64)[tiles]
     order = torch.argsort(counts, descending=True, stable=True)
-    start = tile_start.to(torch.int64)[order]
+    tiles = tiles[order]
+    start = tile_start.to(torch.int64)[tiles]
     asc = counts[order].cpu().numpy()[::-1]
-    pix = torch.arange(P2, device=dev)
-    pxf = ((order % grid_x) * TILE)[:, None].to(torch.float32) \
+    tl = tiles % tiles_per_view if tiles_per_view else tiles
+    pix = (torch.arange(P2, device=dev)[None] if pixels is None
+           else pixels.to(torch.int64)[order])
+    pxf = ((tl % grid_x) * TILE)[:, None].to(torch.float32) \
         + (pix % TILE).to(torch.float32)
-    pyf = ((order // grid_x) * TILE)[:, None].to(torch.float32) \
+    pyf = ((tl // grid_x) * TILE)[:, None].to(torch.float32) \
         + (pix // TILE).to(torch.float32)
     n_at = lambda k: order.shape[0] - int(np.searchsorted(asc, k,
                                                            side="right"))
-    return order, start, int(asc[-1]) if len(asc) else 0, n_at, pxf, pyf
+    return (order, tiles, start, int(asc[-1]) if len(asc) else 0, n_at,
+            pxf, pyf)
 
 
 def blend_fwd_reference(flat, sorted_gid, tile_start, tile_end, grid_x: int,
                         n_extra: int, viewer: bool = False,
                         count_work: bool = False, no_dist: bool = False,
                         extras_only: bool = False, done0=None,
-                        track: bool = False):
-    """The plain PyTorch version of K1: vectorised over tiles × pixels,
-    looping over the within-tile slot index in the kernel's order with the
-    kernel's arithmetic (see _splat).
+                        track: bool = False, tile_ids=None,
+                        tiles_per_view: int = 0, pixels=None):
+    """The plain PyTorch version of K1 (and K3): vectorised over tiles ×
+    pixels, looping over the within-tile slot index in the kernel's order
+    with the kernel's arithmetic (see _splat).
 
     no_dist: the depth sum, the distortion and the m1/m2 totals are skipped
     and their rows (3, 8, 10+E, 11+E) are exact zeros; every other row and
@@ -145,6 +168,14 @@ def blend_fwd_reference(flat, sorted_gid, tile_start, tile_end, grid_x: int,
     f32 (0 empty): each contribution with w > TRACK_W, in blend order, while
     slots are free.
 
+    tile_ids [K] int (K3): only the listed tiles are walked, and out/iout
+    (and the other per-tile results) have one row per listed tile, in list
+    order; done0 stays indexed by tile. tiles_per_view: the merged
+    multi-view mode, pixel coordinates from t % tiles_per_view (see
+    csrc/blend_fwd.cu). pixels [rows, P] int (extras_only; the sparse plain
+    version): each row evaluates only these within-tile pixels (done0 is
+    then [rows, P]), and the per-pixel axis has P entries.
+
     count_work=True also returns the work these inputs need, per pixel
     [T, 256] int32: the slots it must evaluate (up to and including the one
     that latches it done, else its tile's whole range) and its
@@ -152,31 +183,33 @@ def blend_fwd_reference(flat, sorted_gid, tile_start, tile_end, grid_x: int,
     dev = flat.device
     E = n_extra
     OC = 12 + E
-    nt = tile_start.shape[0]
     f32 = torch.float32
     if done0 is not None and not extras_only:
         raise ValueError("done0 masks serve the extras_only mode only")
     color = not extras_only
     aux = not (viewer or extras_only)
     dist = aux and not no_dist
-    order, start, max_count, n_at, pxf, pyf = _walk_order(
-        tile_start, tile_end, grid_x)
+    order, tiles, start, max_count, n_at, pxf, pyf = _walk_order(
+        tile_start, tile_end, grid_x, tile_ids, tiles_per_view, pixels)
+    nt, npx = pxf.shape
 
-    T = torch.ones((nt, P2), dtype=f32, device=dev)
+    T = torch.ones((nt, npx), dtype=f32, device=dev)
     if done0 is None:
-        done = torch.zeros((nt, P2), dtype=torch.bool, device=dev)
+        done = torch.zeros((nt, npx), dtype=torch.bool, device=dev)
+    elif pixels is None:
+        done = done0.reshape(tile_start.shape[0], npx)[tiles] != 0
     else:
-        done = done0.reshape(nt, P2)[order] != 0
-    acc = torch.zeros((nt, OC, P2), dtype=f32, device=dev)
-    last = torch.zeros((nt, P2), dtype=torch.int32, device=dev)
-    med_slot = torch.zeros((nt, P2), dtype=torch.int32, device=dev)
-    n_eval = torch.zeros((nt, P2), dtype=torch.int32, device=dev)
-    n_hit = torch.zeros((nt, P2), dtype=torch.int32, device=dev)
+        done = done0.reshape(nt, npx)[order] != 0
+    acc = torch.zeros((nt, OC, npx), dtype=f32, device=dev)
+    last = torch.zeros((nt, npx), dtype=torch.int32, device=dev)
+    med_slot = torch.zeros((nt, npx), dtype=torch.int32, device=dev)
+    n_eval = torch.zeros((nt, npx), dtype=torch.int32, device=dev)
+    n_hit = torch.zeros((nt, npx), dtype=torch.int32, device=dev)
     if track:
-        ids = torch.full((nt, TRACK_K, P2), -1, dtype=torch.int32,
+        ids = torch.full((nt, TRACK_K, npx), -1, dtype=torch.int32,
                          device=dev)
-        tw = torch.zeros((nt, TRACK_K, P2), dtype=f32, device=dev)
-        n_track = torch.zeros((nt, P2), dtype=torch.int32, device=dev)
+        tw = torch.zeros((nt, TRACK_K, npx), dtype=f32, device=dev)
+        n_track = torch.zeros((nt, npx), dtype=torch.int32, device=dev)
     gid_l = sorted_gid.to(torch.int64)
 
     for k in range(max_count):
@@ -233,7 +266,7 @@ def blend_fwd_reference(flat, sorted_gid, tile_start, tile_end, grid_x: int,
     acc[:, 9] = T
     out = torch.empty_like(acc)
     out[order] = acc
-    iout = torch.empty((nt, 2, P2), dtype=torch.int32, device=dev)
+    iout = torch.empty((nt, 2, npx), dtype=torch.int32, device=dev)
     iout[order] = torch.stack([last, med_slot], dim=1)
     res = (out, iout)
     if track:
@@ -244,7 +277,7 @@ def blend_fwd_reference(flat, sorted_gid, tile_start, tile_end, grid_x: int,
         res += (ids_out, tw_out)
     if not count_work:
         return res
-    work = torch.empty((nt, 2, P2), dtype=torch.int32, device=dev)
+    work = torch.empty((nt, 2, npx), dtype=torch.int32, device=dev)
     work[order] = torch.stack([n_eval, n_hit], dim=1)
     return res + (work[:, 0], work[:, 1])
 
@@ -252,8 +285,9 @@ def blend_fwd_reference(flat, sorted_gid, tile_start, tile_end, grid_x: int,
 def blend_bwd_reference(flat, sorted_gid, tile_start, tile_end, grid_x: int,
                         n_extra: int, gout, saved, iout,
                         no_dist: bool = False, count_work: bool = False,
-                        extras_only: bool = False):
-    """The plain PyTorch version of K2: per-slot gradients d_sorted
+                        extras_only: bool = False, tile_ids=None,
+                        tiles_per_view: int = 0, pixels=None):
+    """The plain PyTorch version of K2 (and K4): per-slot gradients d_sorted
     [pairs, 21+E] of Σ gout·out with respect to each slot's packed row
     (extras_only: [pairs, E], the feature columns alone, w · gout[10+e]
     summed over the tile's pixels).
@@ -266,7 +300,10 @@ def blend_bwd_reference(flat, sorted_gid, tile_start, tile_end, grid_x: int,
     the pixel's n_contrib; T before it is recovered as T_after / (1 − α);
     the suffix sum S of dL/dw·w over later slots carries the transmittance
     chain. A slot's row is its contributions summed over its tile's 256
-    pixels (each slot belongs to one tile).
+    pixels (each slot belongs to one tile). tile_ids, tiles_per_view and
+    pixels as in blend_fwd_reference: gout, saved and iout then have one
+    row per listed tile (and P pixels), and the rows of the slots of
+    unlisted tiles are zero.
 
     count_work=True also returns (evaluations, contributions, slots reduced)
     these inputs need: each pixel evaluates its slots 1..n_contrib, and a
@@ -276,8 +313,8 @@ def blend_bwd_reference(flat, sorted_gid, tile_start, tile_end, grid_x: int,
     E = n_extra
     D = E if extras_only else 21 + E
     f32 = torch.float32
-    order, start, max_count, n_at, pxf, pyf = _walk_order(
-        tile_start, tile_end, grid_x)
+    order, _, start, max_count, n_at, pxf, pyf = _walk_order(
+        tile_start, tile_end, grid_x, tile_ids, tiles_per_view, pixels)
     go = gout[order]
     sv = saved[order]
     T_fin, m1tot, m2tot = sv[:, 0], sv[:, 1], sv[:, 2]
@@ -417,6 +454,23 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _ptr(a):
+    return a.data_ptr() if a is not None else None
+
+
+def _check_tile_ids(tile_ids, nt: int, dev) -> int:
+    """The kernel's row count: the tile list's length (a contiguous int32
+    vector on dev; _tile_key has checked its range), or nt without a
+    list."""
+    if tile_ids is None:
+        return nt
+    if tile_ids.dtype != torch.int32 or tile_ids.device != dev \
+            or not tile_ids.is_contiguous() or tile_ids.dim() != 1:
+        raise ValueError(f"tile_ids must be a contiguous int32 vector on "
+                         f"{dev}")
+    return tile_ids.shape[0]
+
+
 def _mode(viewer: bool, no_dist: bool, extras_only: bool,
           track: bool) -> str:
     chosen = [m for m, on in (("viewer", viewer), ("no_dist", no_dist),
@@ -427,13 +481,43 @@ def _mode(viewer: bool, no_dist: bool, extras_only: bool,
     return chosen[0] if chosen else "full"
 
 
+def _tile_key(kernel: str, mode: str, tile_ids, tiles_per_view: int,
+              nt: int) -> str:
+    """The LAUNCHES key of a K1/K2 launch ("K1"/"K2"), which also checks
+    the tile selection: a tile list (K3/K4) or merged views serve the
+    extras_only mode alone so far, one at a time, and every listed id is
+    a tile (asserted on the list's device without a host read: on the card
+    a bad id stops the stream before the kernel reads out of bounds)."""
+    if tile_ids is None and not tiles_per_view:
+        return f"{kernel} {mode}"
+    if tile_ids is not None:
+        torch._assert_async(((tile_ids >= 0) & (tile_ids < nt)).all(),
+                            f"tile_ids must lie in [0, {nt})")
+    if mode != "extras_only":
+        raise ValueError("a tile list and tiles_per_view serve the "
+                         "extras_only mode only (the other modes' are not "
+                         "held yet: ROADMAP B)")
+    if tile_ids is not None and tiles_per_view:
+        raise ValueError("tile_ids and tiles_per_view are separate modes")
+    if tiles_per_view:
+        if nt % tiles_per_view:
+            raise ValueError(f"{nt} tiles are not whole views of "
+                             f"{tiles_per_view}")
+        return f"{kernel} tiles_per_view"
+    return {"K1": "K3", "K2": "K4"}[kernel] + " extras_only"
+
+
 def blend_fwd(flat, sorted_gid, tile_start, tile_end, grid_x: int,
               n_extra: int, viewer: bool = False, no_dist: bool = False,
-              extras_only: bool = False, done0=None, track: bool = False):
+              extras_only: bool = False, done0=None, track: bool = False,
+              tile_ids=None, tiles_per_view: int = 0):
     """K1 forward blend → (out [T, 12+E, 256] f32, iout [T, 2, 256] i32),
     and with track the contributor buffer (ids [T, TRACK_K, 256] i32, w
     [T, TRACK_K, 256] f32) after them. done0 [T, 1, 256] int32 (extras_only
-    only): the sampled-pixel mask (see blend_fwd_reference).
+    only): the sampled-pixel mask (see blend_fwd_reference). tile_ids [K]
+    int32 (K3, extras_only): render only these tiles, out/iout [K, ...] in
+    list order. tiles_per_view (extras_only): merged views, pixel
+    coordinates from t % tiles_per_view.
 
     CUDA tensors launch csrc/blend_fwd.cu (and raise on anything it does
     not take); CPU tensors run blend_fwd_reference. Forward only: for
@@ -441,6 +525,8 @@ def blend_fwd(flat, sorted_gid, tile_start, tile_end, grid_x: int,
     mode = _mode(viewer, no_dist, extras_only, track)
     if done0 is not None and mode != "extras_only":
         raise ValueError("done0 masks serve K1's extras_only mode only")
+    key = _tile_key("K1", mode, tile_ids, tiles_per_view,
+                    tile_start.shape[0])
     if torch.is_grad_enabled() and flat.requires_grad:
         raise ValueError("blend_fwd is the forward kernel alone; call "
                          "blend() (BlendFunction) for gradients, or "
@@ -449,50 +535,60 @@ def blend_fwd(flat, sorted_gid, tile_start, tile_end, grid_x: int,
         return blend_fwd_reference(flat, sorted_gid, tile_start, tile_end,
                                    grid_x, n_extra, viewer, no_dist=no_dist,
                                    extras_only=extras_only, done0=done0,
-                                   track=track)
+                                   track=track, tile_ids=tile_ids,
+                                   tiles_per_view=tiles_per_view)
     if flat.device.type != "cuda":
         raise ValueError(f"blend_fwd: unsupported device {flat.device}")
     _check_common("blend_fwd", flat, sorted_gid, tile_start, tile_end,
                   n_extra)
     nt = tile_start.shape[0]
     dev = flat.device
+    rows = _check_tile_ids(tile_ids, nt, dev)
     if done0 is not None:
         _check_tiles("done0", done0, torch.int32, (nt, 1, P2), dev)
-    out = torch.empty((nt, 12 + n_extra, P2), dtype=torch.float32,
+    out = torch.empty((rows, 12 + n_extra, P2), dtype=torch.float32,
                       device=dev)
-    iout = torch.empty((nt, 2, P2), dtype=torch.int32, device=dev)
+    iout = torch.empty((rows, 2, P2), dtype=torch.int32, device=dev)
     ids = tw = None
     if track:
-        ids = torch.empty((nt, TRACK_K, P2), dtype=torch.int32, device=dev)
-        tw = torch.empty((nt, TRACK_K, P2), dtype=torch.float32, device=dev)
-    ptr = lambda a: a.data_ptr() if a is not None else None
+        ids = torch.empty((rows, TRACK_K, P2), dtype=torch.int32, device=dev)
+        tw = torch.empty((rows, TRACK_K, P2), dtype=torch.float32, device=dev)
     fn = _lib_fn("blend_fwd.cu", "blend_fwd_launch",
-                 [_P] * 4 + [_I] * 4 + [_P] * 6)
+                 [_P] * 4 + [_I] * 4 + [_P, _I] + [_P] * 6)
     with torch.cuda.device(dev):
         err = fn(flat.data_ptr(), sorted_gid.data_ptr(),
-                 tile_start.data_ptr(), tile_end.data_ptr(), nt, grid_x,
-                 n_extra, MODES.index(mode), ptr(done0), out.data_ptr(),
-                 iout.data_ptr(), ptr(ids), ptr(tw), _stream(dev))
+                 tile_start.data_ptr(), tile_end.data_ptr(), rows, grid_x,
+                 n_extra, MODES.index(mode), _ptr(tile_ids), tiles_per_view,
+                 _ptr(done0), out.data_ptr(), iout.data_ptr(), _ptr(ids),
+                 _ptr(tw), _stream(dev))
     if err != 0:
         raise RuntimeError(f"blend_fwd kernel launch failed: cudaError {err}")
-    LAUNCHES[f"K1 {mode}"] += 1
+    LAUNCHES[key] += 1
     return (out, iout, ids, tw) if track else (out, iout)
 
 
 def blend_bwd(flat, sorted_gid, tile_start, tile_end, grid_x: int,
               n_extra: int, gout, saved, iout, no_dist: bool = False,
-              extras_only: bool = False):
+              extras_only: bool = False, tile_ids=None,
+              tiles_per_view: int = 0):
     """K2 backward blend → d_sorted [pairs, 21+E] f32 ([pairs, E] with
-    extras_only; see blend_bwd_reference for what it computes).
+    extras_only; see blend_bwd_reference for what it computes). tile_ids
+    (K4) and tiles_per_view as in blend_fwd: gout, saved and iout have
+    K1's rows, and the slots of unlisted tiles get zero rows.
 
     CUDA tensors launch csrc/blend_bwd.cu (and raise on anything it does
     not take); CPU tensors run blend_bwd_reference."""
     if no_dist and extras_only:
         raise ValueError("no_dist and extras_only are separate modes of K2")
+    mode = "extras_only" if extras_only else "no_dist" if no_dist else "full"
+    key = _tile_key("K2", mode, tile_ids, tiles_per_view,
+                    tile_start.shape[0])
     if flat.device.type == "cpu":
         return blend_bwd_reference(flat, sorted_gid, tile_start, tile_end,
                                    grid_x, n_extra, gout, saved, iout,
-                                   no_dist=no_dist, extras_only=extras_only)
+                                   no_dist=no_dist, extras_only=extras_only,
+                                   tile_ids=tile_ids,
+                                   tiles_per_view=tiles_per_view)
     if flat.device.type != "cuda":
         raise ValueError(f"blend_bwd: unsupported device {flat.device}")
     _check_common("blend_bwd", flat, sorted_gid, tile_start, tile_end,
@@ -501,24 +597,25 @@ def blend_bwd(flat, sorted_gid, tile_start, tile_end, grid_x: int,
         raise ValueError("K2 extras_only needs feature channels (E > 0)")
     nt = tile_start.shape[0]
     dev = flat.device
-    _check_tiles("gout", gout, torch.float32, (nt, 12 + n_extra, P2), dev)
-    _check_tiles("saved", saved, torch.float32, (nt, 3, P2), dev)
-    _check_tiles("iout", iout, torch.int32, (nt, 2, P2), dev)
-    mode = "extras_only" if extras_only else "no_dist" if no_dist else "full"
-    d_sorted = torch.empty((sorted_gid.shape[0],
-                            n_extra if extras_only else 21 + n_extra),
-                           dtype=torch.float32, device=dev)
+    rows = _check_tile_ids(tile_ids, nt, dev)
+    _check_tiles("gout", gout, torch.float32, (rows, 12 + n_extra, P2), dev)
+    _check_tiles("saved", saved, torch.float32, (rows, 3, P2), dev)
+    _check_tiles("iout", iout, torch.int32, (rows, 2, P2), dev)
+    # with a tile list the kernel writes only the listed tiles' slots
+    d_sorted = (torch.empty if tile_ids is None else torch.zeros)(
+        (sorted_gid.shape[0], n_extra if extras_only else 21 + n_extra),
+        dtype=torch.float32, device=dev)
     fn = _lib_fn("blend_bwd.cu", "blend_bwd_launch",
-                 [_P] * 4 + [_I] * 4 + [_P] * 5)
+                 [_P] * 4 + [_I] * 4 + [_P, _I] + [_P] * 5)
     with torch.cuda.device(dev):
         err = fn(flat.data_ptr(), sorted_gid.data_ptr(),
-                 tile_start.data_ptr(), tile_end.data_ptr(), nt, grid_x,
-                 n_extra, BWD_MODES.index(mode), gout.data_ptr(),
-                 saved.data_ptr(), iout.data_ptr(), d_sorted.data_ptr(),
-                 _stream(dev))
+                 tile_start.data_ptr(), tile_end.data_ptr(), rows, grid_x,
+                 n_extra, BWD_MODES.index(mode), _ptr(tile_ids),
+                 tiles_per_view, gout.data_ptr(), saved.data_ptr(),
+                 iout.data_ptr(), d_sorted.data_ptr(), _stream(dev))
     if err != 0:
         raise RuntimeError(f"blend_bwd kernel launch failed: cudaError {err}")
-    LAUNCHES[f"K2 {mode}"] += 1
+    LAUNCHES[key] += 1
     return d_sorted
 
 
@@ -567,50 +664,57 @@ def reduce_per_gaussian(d_sorted, sorted_gid, n: int, runs):
 
 class BlendFunction(torch.autograd.Function):
     """Differentiable K1 (`full`, `no_dist` or `extras_only`, the last
-    with an optional done0 mask): forward runs blend_fwd; backward runs
-    blend_bwd (K2) and reduce_per_gaussian and returns d_flat (extras_only:
-    zero in the 21 geometry columns, as the JAX VJP pads it). Saved for the
-    backward: flat, the pair list, tile ranges and per-gaussian runs, iout
+    with an optional done0 mask, a tile list (K3) or merged views): forward
+    runs blend_fwd; backward runs blend_bwd (K2, K4 with a tile list) and
+    reduce_per_gaussian and returns d_flat (extras_only: zero in the 21
+    geometry columns, as the JAX VJP pads it). Saved for the backward:
+    flat, the pair list, tile ranges, tile list and per-gaussian runs, iout
     and out's final T, m1 and m2 rows."""
 
     @staticmethod
     def forward(ctx, flat, sorted_gid, tile_start, tile_end, gid_order,
-                run_start, grid_x, n_extra, no_dist, extras_only, done0):
+                run_start, grid_x, n_extra, no_dist, extras_only, done0,
+                tile_ids, tiles_per_view):
         out, iout = blend_fwd(flat, sorted_gid, tile_start, tile_end, grid_x,
                               n_extra, no_dist=no_dist,
-                              extras_only=extras_only, done0=done0)
+                              extras_only=extras_only, done0=done0,
+                              tile_ids=tile_ids,
+                              tiles_per_view=tiles_per_view)
         E = n_extra
         saved = torch.stack([out[:, 9], out[:, 10 + E], out[:, 11 + E]],
                             dim=1).contiguous()
         ctx.save_for_backward(flat, sorted_gid, tile_start, tile_end,
-                              gid_order, run_start, iout, saved)
+                              gid_order, run_start, iout, saved, tile_ids)
         ctx.grid_x, ctx.n_extra = grid_x, n_extra
         ctx.no_dist, ctx.extras_only = no_dist, extras_only
+        ctx.tiles_per_view = tiles_per_view
         ctx.mark_non_differentiable(iout)
         return out, iout
 
     @staticmethod
     def backward(ctx, gout, _giout):
         (flat, sorted_gid, tile_start, tile_end, gid_order, run_start, iout,
-         saved) = ctx.saved_tensors
+         saved, tile_ids) = ctx.saved_tensors
         d_sorted = blend_bwd(flat, sorted_gid, tile_start, tile_end,
                              ctx.grid_x, ctx.n_extra, gout.contiguous(),
                              saved, iout, no_dist=ctx.no_dist,
-                             extras_only=ctx.extras_only)
+                             extras_only=ctx.extras_only, tile_ids=tile_ids,
+                             tiles_per_view=ctx.tiles_per_view)
         d_flat = reduce_per_gaussian(d_sorted, sorted_gid, flat.shape[0],
                                      (gid_order, run_start))
         if ctx.extras_only:
             # pixels done0 latched have n_contrib 0: no mask input needed
             d_flat = torch.cat([d_flat.new_zeros((flat.shape[0], _EXT)),
                                 d_flat], dim=1)
-        return (d_flat,) + (None,) * 10
+        return (d_flat,) + (None,) * 12
 
 
 def blend(flat, sorted_gid, tile_start, tile_end, grid_x: int, n_extra: int,
           runs, no_dist: bool = False, extras_only: bool = False,
-          done0=None):
+          done0=None, tile_ids=None, tiles_per_view: int = 0):
     """Differentiable K1 → (out, iout); gradients reach `flat` through K2.
-    runs = (gid_order, run_start) of the same binning (BinningOut)."""
+    runs = (gid_order, run_start) of the same binning (BinningOut).
+    tile_ids (K3/K4) and tiles_per_view: see blend_fwd."""
     return BlendFunction.apply(flat, sorted_gid, tile_start, tile_end,
                                *runs, grid_x, n_extra, no_dist, extras_only,
-                               done0)
+                               done0, tile_ids, tiles_per_view)

@@ -4,8 +4,9 @@ Port of instascene_tpu/ops/rasterize.py:35-143 (`RasterizeConfig`, reduced
 to what the port serves so far), :146-230 (`_blend_via_pallas`: the
 extras-only mode with its sampled-pixel done0 mask, contributor tracking,
 `extra_tiles`), :242-364 (`_rasterize_impl`, `rasterize`, with the t_offset
-densification tap and `cached_binning`), :488-495 (`densify_screen_grad`),
-:498-587 (`compute_binning_cache`) and
+densification tap and `cached_binning`), :457-485
+(`rasterize_extras_tiles`, the tile-subset feature render through K3/K4),
+:488-495 (`densify_screen_grad`), :498-587 (`compute_binning_cache`) and
 instascene_tpu/ops/rasterize_pallas.py:30-57 (`pallas_tiles_to_map`,
 `maps_from_pallas`). Buffers follow the exact pair total, so the TPU's pair
 and tile caps, their grow-and-retry loop, slab plans and gather tuning are
@@ -58,16 +59,13 @@ class RasterizeConfig:
     # and the gradient reaches the feature columns alone
     bwd_extras_only: bool = False
     # later slices
-    clip_rect: bool = False          # K1 clip_rect (slice 4)
-    conic_cull: bool = False         # preprocess.conic_cull_masks (slice 4)
-    tiles_per_view: int = 0          # K1 merged multi-view (slice 4)
+    clip_rect: bool = False          # K1 clip_rect (slice 5)
+    conic_cull: bool = False         # preprocess.conic_cull_masks (slice 5)
 
     def check(self) -> None:
-        later = {"clip_rect": "slice 4 (cached-superset binning, K1 "
-                              "clip_rect)",
-                 "conic_cull": "slice 4 (exact conic pair culling)",
-                 "tiles_per_view": "slice 4 (merged multi-view, K1 "
-                                   "tiles_per_view)"}
+        later = {"clip_rect": "slice 5 (cached-superset binning with "
+                              "dilate_tiles, K1/K2 clip_rect)",
+                 "conic_cull": "slice 5 (exact conic pair culling)"}
         for name, when in later.items():
             if getattr(self, name):
                 raise NotImplementedError(
@@ -219,3 +217,35 @@ def compute_binning_cache(params, cam: CameraMats, width: int,
             cam.campos, width, height, params.opacity_activated()[:, 0],
             color=torch.zeros_like(params.xyz), alive=params.alive)
         return bin_gaussians(pre, width, height)
+
+
+def pack_extras(means3d, scales, rotations, opacities, cam: CameraMats,
+                width: int, height: int, extras, alive=None):
+    """The packed table [N, 21+E] of one view with `extras` as its feature
+    columns, for the extras_only kernels (K1/K2 extras_only, K3/K4, K5/K6):
+    preprocess with zero color (they read none), then pack."""
+    opac = torch.reshape(opacities, (means3d.shape[0],))
+    pre = preprocess_gaussians(
+        means3d, scales, rotations, cam.w2v, cam.full_proj, cam.campos,
+        width, height, opac, color=torch.zeros_like(means3d), alive=alive)
+    return pack_flat_cols(pre.T, pre.xy, pre.normal_view, opac, pre.color,
+                          extras)
+
+
+def rasterize_extras_tiles(means3d, scales, rotations, opacities,
+                           cam: CameraMats, cfg: RasterizeConfig, extras,
+                           binning: BinningOut, sel_tiles, alive=None):
+    """The features of the tiles sel_tiles [K] (ascending, unique) alone:
+    preprocess, pack and K1 extras_only over the tile list (K3) on the
+    camera's cached binning → [K, 256, E] (row-major pixels within each
+    tile). Differentiable in `extras` (K4 for the blend); pass the geometry
+    detached."""
+    E = extras.shape[1]
+    flat = pack_extras(means3d, scales, rotations, opacities, cam,
+                       cfg.width, cfg.height, extras, alive)
+    ids = sel_tiles.to(device=flat.device, dtype=torch.int32).contiguous()
+    out, _ = bv.blend(flat, binning.sorted_gid, binning.tile_start,
+                      binning.tile_end, (cfg.width + TILE - 1) // TILE, E,
+                      (binning.gid_order, binning.run_start),
+                      extras_only=True, tile_ids=ids)
+    return out[:, 10:10 + E].transpose(1, 2)

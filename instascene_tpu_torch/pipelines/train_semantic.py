@@ -4,11 +4,14 @@ and the trainer that drives them.
 Port of instascene_tpu/pipelines/train_semantic.py:37-185 (`render_features`,
 `_pix_to_tile`, `_done0_from_idx`, `_draw_sv_pixel_idx`,
 `single_view_and_3d_losses` with the tile-major fetch from `extra_tiles`),
-:188-243 (the step's dataclasses), :460-514 (`_mv_full_loss` with the
-sampled-pixel done masks), :517-691 (`semantic_train_step`), :694-907 and
-:990-1103 (`SegSplatting`: `robust_semantic_priors`, `_precompute_binning`,
-`_precompute_sampling`, `_camera_bundles`, `_max_labels`, `train_segfeat`,
-`save`) and :1163-1177 (`export_segment_results`).
+:188-243 (the step's dataclasses), :245-306 (`_mv_tile_subsample_loss`),
+:309-406 (`_mv_full_loss_merged`), :409-457 (`_sparse_view_feats`,
+`_mv_full_loss_sparse`), :460-514 (`_mv_full_loss` with the sampled-pixel
+done masks), :517-691 (`semantic_train_step`, with the sparse-pixel branch
+and its dense fallback), :694-907 and :990-1103 (`SegSplatting`:
+`robust_semantic_priors`, `_precompute_binning`, `_precompute_sampling`,
+`_camera_bundles`, `_max_labels`, `train_segfeat`, `save`) and
+:1163-1177 (`export_segment_results`).
 
 Stage 1 renders every training view with contributor tracking (K1 track)
 and runs the spatial-track mask clustering on the host (output_dict.npy,
@@ -16,7 +19,14 @@ sam/mask_sorted, sam/mask_filtered); stage 2 trains the 16-channel features
 with frozen geometry: single-view ProtoNCE on two segmap types and 3D
 ProtoNCE every step, multi-view ProtoNCE over a window of views every 10th
 step, through K1 and K2 in their extras_only modes with sampled-pixel done
-masks; then the HDBSCAN instance export.
+masks; then the HDBSCAN instance export. Three opt-in variants:
+  * --mv_tile_subsample K: the window's loss reads K random tiles per view,
+    rendered alone through K1/K2 over a tile list (K3/K4);
+  * --mv_merged 1: the window's views blend in one K1 launch and one K2
+    launch over their concatenated tables (tiles_per_view);
+  * --sparse_px 1: only the drawn pixels blend (K5/K6); when a tile draws
+    more than the S slots, the step takes the dense path instead (counted
+    in blend_visits.LAUNCHES["sparse_fallback"]).
 
 What differs from the JAX package:
   * the binning cache is each camera's BinningOut, computed once (no probe
@@ -27,11 +37,16 @@ What differs from the JAX package:
     segmaps, the samplers and the frozen visibility;
   * autograd reaches the features alone: the packed table is built from
     detached geometry, as JAX differentiates with respect to seg_feature
-    only.
-The tile-subsampled, merged and sparse-pixel multi-view variants
-(--mv_tile_subsample, --mv_merged, --sparse_px), camera-batch data
-parallelism (--dp) and `render_views` wait for later slices (ROADMAP A9,
-A12).
+    only;
+  * the tile subset has no pair cap: K3/K4 walk each selected tile's
+    whole range, so nothing is truncated (JAX's mv_trunc is always 0 here);
+  * the merged window is one launch each way (JAX groups the views to fit
+    its scalar-prefetch budget);
+  * the sparse path's overflow test is a host read and a Python branch
+    (JAX's lax.cond); the 3D loss draws from its sampler pack, so the
+    sparse path needs no visibility mask.
+Camera-batch data parallelism (--dp) and `render_views` wait for later
+slices (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -50,12 +65,15 @@ from .. import resolve_device
 from ..models import gaussians as gmod
 from ..models.optimizer import (GEOMETRY_FIELDS, adam_step, init_adam_state,
                                 semantic_lrs)
-from ..ops.binning import BinningOut
+from ..ops import blend_visits as bv
+from ..ops.binning import BinningOut, merge_binnings
+from ..ops.blend_sparse import blend_sparse, pick_sparse_s, spix_from_idx
 from ..ops.preprocess import TILE, preprocess_gaussians
 from ..ops.rasterize import (CameraMats, RasterizeConfig,
-                             compute_binning_cache, rasterize)
+                             compute_binning_cache, pack_extras, rasterize,
+                             rasterize_extras_tiles)
 from ..semantic.contrastive import (contrastive_loss, sample_from_ids,
-                                    valid_ids_pack)
+                                    sample_valid_pixels, valid_ids_pack)
 from ..semantic.spatial_track import GausCluster
 from .train import camera_tensors
 
@@ -68,7 +86,7 @@ def render_features(params: gmod.GaussianModel, cam: CameraMats, bg,
     features."""
     feat = seg_feature if seg_feature is not None else params.seg_feature
     if feat is not None:
-        feat = feat / (torch.linalg.norm(feat, dim=1, keepdim=True) + 1e-6)
+        feat = _normed(feat)
     d = lambda a: a.detach()
     return rasterize(d(params.xyz), d(params.scaling_activated()),
                      d(params.rotation_normalized()),
@@ -126,8 +144,10 @@ class SemanticCamera:
 @dataclass
 class SemanticMVBlock:
     """The every-10th-step multi-view window: its views, in order (their
-    sorted segmaps are the labels)."""
+    sorted segmaps are the labels), and for --mv_tile_subsample the tiles
+    each view renders."""
     cams: List[SemanticCamera]
+    sel_tiles: Optional[torch.Tensor] = None   # [V, K] int ascending ids
 
 
 @dataclass
@@ -148,6 +168,8 @@ class SemanticStepConfig:
     batch: int
     max_labels: int
     consider_negative: bool = False
+    mv_merged: bool = False      # the full window in one launch (K1/K2)
+    sparse_px: bool = False      # only the drawn pixels blend (K5/K6)
 
 
 def _sv_types(cam: SemanticCamera, cf):
@@ -157,6 +179,13 @@ def _sv_types(cam: SemanticCamera, cf):
     if cf is not None:
         out.append((cam.sorted_segmap, cam.sorted_samp, cam.sorted_nv, 1))
     return out
+
+
+def _grid(cam: SemanticCamera):
+    """(width, height, tiles per row, tiles) of a view."""
+    H, W = cam.sorted_segmap.shape
+    grid_x = (W + TILE - 1) // TILE
+    return W, H, grid_x, grid_x * ((H + TILE - 1) // TILE)
 
 
 def _mv_pack(mv: SemanticMVBlock):
@@ -170,15 +199,32 @@ def _mv_pack(mv: SemanticMVBlock):
     return torch.cat(parts + [parts[0].new_tensor([nv])]), nv
 
 
+def _tile_labels(mv: SemanticMVBlock) -> torch.Tensor:
+    """[V·K·256] labels of the tile-subsampled window: each selected tile's
+    pixels (views, tiles, then row-major within the tile) read from its
+    view's sorted segmap; pixels past the image's edge get 0 (invalid), so
+    no rendered feature is paired with a clamped label."""
+    W, H, grid_x, _ = _grid(mv.cams[0])
+    sel = mv.sel_tiles.to(torch.int64)                     # [V, K]
+    lane = torch.arange(TILE * TILE, device=sel.device)
+    yy = (sel // grid_x)[..., None] * TILE + lane // TILE  # [V, K, 256]
+    xx = (sel % grid_x)[..., None] * TILE + lane % TILE
+    maps = torch.stack([c.sorted_segmap.reshape(-1) for c in mv.cams])
+    lab = torch.gather(maps, 1, (yy * W + xx).clamp(max=H * W - 1)
+                       .reshape(len(mv.cams), -1)).reshape(yy.shape)
+    return torch.where((yy < H) & (xx < W), lab, 0).reshape(-1)
+
+
 def draw_step_pixels(generator: torch.Generator, cam: SemanticCamera,
                      mv: Optional[SemanticMVBlock], cf, batch: int,
                      consider_negative: bool) -> dict:
     """All index sets one step reads, drawn before it renders (they depend
     only on segmaps, samplers and the frozen visibility): {"sv": one per
     single-view loss, "d3": the 3D set, "mv": the window's set (flat index
-    over the concatenated views), when mv is given}. Uniform with
-    replacement over each valid set; with consider_negative the raw
-    segmap's set is uniform over all its pixels."""
+    over the concatenated views, or with sel_tiles over _tile_labels'
+    pixels), when mv is given}. Uniform with replacement over each valid
+    set; with consider_negative the raw segmap's set is uniform over all
+    its pixels."""
     sv = []
     for seg, pack, nv, mask_type in _sv_types(cam, cf):
         if consider_negative and mask_type == 0:
@@ -188,31 +234,33 @@ def draw_step_pixels(generator: torch.Generator, cam: SemanticCamera,
             sv.append(sample_from_ids(generator, pack, batch, nv)[0])
     out = {"sv": sv, "d3": sample_from_ids(generator, cam.vis3d_samp, batch,
                                            cam.vis3d_nv)[0]}
-    if mv is not None:
+    if mv is not None and mv.sel_tiles is not None:
+        out["mv"] = sample_valid_pixels(generator, _tile_labels(mv) > 0,
+                                        batch)[0]
+    elif mv is not None:
         pack, nv = _mv_pack(mv)
         out["mv"] = sample_from_ids(generator, pack, batch, nv)[0]
     return out
 
 
-def single_view_and_3d_losses(seg_feature, out, cam: SemanticCamera,
+def single_view_and_3d_losses(seg_feature, fetch, cam: SemanticCamera,
                               hyp: SemanticHypers, scfg: SemanticStepConfig,
                               draws: dict):
     """Single-view ProtoNCE on the raw/filtered (weight 0.5) and, with class
     anchors, the sorted (weight 1) segmap, plus 3D ProtoNCE over visible
-    gaussians (reference train_semantic.py:108-141, :175-195). The sampled
-    features are fetched from the kernel's tile-major output."""
+    gaussians (reference train_semantic.py:108-141, :175-195). fetch(si,
+    idx) → [batch, E]: the rendered features of the si-th set's pixels idx
+    (from the kernel's tile-major output, or the sparse slots)."""
     cf = hyp.class_feat
-    W = cam.segmap.shape[1]
-    grid_x = (W + TILE - 1) // TILE
     total = seg_feature.new_zeros(())
-    for (seg, _, nv, mask_type), idx in zip(_sv_types(cam, cf), draws["sv"]):
+    for si, ((seg, _, nv, mask_type), idx) in enumerate(
+            zip(_sv_types(cam, cf), draws["sv"])):
         idx = idx.to(torch.int64)
         neg = scfg.consider_negative and mask_type == 0
         if not (neg or nv > 0):
             continue
-        t, p2 = _pix_to_tile(idx, W, TILE, grid_x)
-        f = out.blend.extra_tiles[t, :, p2]                  # [batch, E]
-        cl = contrastive_loss(f, seg.reshape(-1)[idx], scfg.max_labels,
+        cl = contrastive_loss(fetch(si, idx), seg.reshape(-1)[idx],
+                              scfg.max_labels,
                               predef_u=cf if mask_type == 1 else None,
                               consider_negative=neg)
         total = total + cl * hyp.lam_sv * (1.0 if mask_type == 1 else 0.5)
@@ -226,6 +274,24 @@ def single_view_and_3d_losses(seg_feature, out, cam: SemanticCamera,
     return total
 
 
+def _normed(feat):
+    return feat / (torch.linalg.norm(feat, dim=1, keepdim=True) + 1e-6)
+
+
+def _pack_features(params, cam: CameraMats, cfg: RasterizeConfig, featn):
+    """The packed table [N, 21+E] of one view with the normalised features
+    featn as its extras, on detached geometry."""
+    d = lambda a: a.detach()
+    return pack_extras(d(params.xyz), d(params.scaling_activated()),
+                       d(params.rotation_normalized()),
+                       d(params.opacity_activated()[:, 0]), cam, cfg.width,
+                       cfg.height, featn, params.alive)
+
+
+def _window_labels(mv: SemanticMVBlock):
+    return torch.cat([c.sorted_segmap.reshape(-1) for c in mv.cams])
+
+
 def _mv_full_loss(params, seg_feature, mv: SemanticMVBlock, hyp, scfg,
                   idx):
     """Multi-view ProtoNCE over the window (reference
@@ -233,16 +299,13 @@ def _mv_full_loss(params, seg_feature, mv: SemanticMVBlock, hyp, scfg,
     latches all but its own sampled pixels, whose features are fetched from
     its tile-major output."""
     cfg = scfg.raster
-    c0 = mv.cams[0]
-    H, W = c0.sorted_segmap.shape
+    W, H, grid_x, T = _grid(mv.cams[0])
     hw = H * W
     idx = idx.to(torch.int64)
     view_of = idx // hw
-    grid_x = (W + TILE - 1) // TILE
-    grid_y = (H + TILE - 1) // TILE
     t, p2 = _pix_to_tile(idx % hw, W, TILE, grid_x)
-    done = torch.ones((len(mv.cams), grid_x * grid_y, 1, TILE * TILE),
-                      dtype=torch.int32, device=idx.device)
+    done = torch.ones((len(mv.cams), T, 1, TILE * TILE), dtype=torch.int32,
+                      device=idx.device)
     done[view_of, t, 0, p2] = 0
     f_mv = 0.0
     for v, cam in enumerate(mv.cams):
@@ -250,8 +313,112 @@ def _mv_full_loss(params, seg_feature, mv: SemanticMVBlock, hyp, scfg,
                               cam.binning, done0=done[v])
         fv = out.blend.extra_tiles[t, :, p2]
         f_mv = f_mv + torch.where((view_of == v)[:, None], fv, 0.0)
-    labels = torch.cat([c.sorted_segmap.reshape(-1) for c in mv.cams])
-    return contrastive_loss(f_mv, labels[idx], scfg.max_labels,
+    return contrastive_loss(f_mv, _window_labels(mv)[idx], scfg.max_labels,
+                            predef_u=hyp.class_feat)
+
+
+def _mv_full_loss_merged(params, seg_feature, mv: SemanticMVBlock, hyp,
+                         scfg, idx):
+    """The same loss through one merged render: the window's packed tables
+    and binnings concatenated along the tile axis (merge_binnings), and one
+    K1 extras_only launch (tiles_per_view; no done masks, as the JAX
+    package renders it) blends all V·T tiles; one K2 launch and one
+    segment sum take the gradient back. Each view's values are bit for bit
+    its own render's."""
+    cfg = scfg.raster
+    featn = _normed(seg_feature)
+    W, H, grid_x, _ = _grid(mv.cams[0])
+    flat, b, T = merge_binnings([
+        (_pack_features(params, cam.mats, cfg, featn), cam.binning)
+        for cam in mv.cams])
+    E = featn.shape[1]
+    out, _ = bv.blend(flat, b.sorted_gid, b.tile_start, b.tile_end, grid_x,
+                      E, (b.gid_order, b.run_start), extras_only=True,
+                      tiles_per_view=T)
+    idx = idx.to(torch.int64)
+    hw = H * W
+    t, p2 = _pix_to_tile(idx % hw, W, TILE, grid_x)
+    f = out[(idx // hw) * T + t, 10:10 + E, p2]
+    return contrastive_loss(f, _window_labels(mv)[idx], scfg.max_labels,
+                            predef_u=hyp.class_feat)
+
+
+def _mv_tile_subsample_loss(params, seg_feature, mv: SemanticMVBlock, hyp,
+                            scfg, idx):
+    """Multi-view ProtoNCE over the tile-subsampled window (the JAX
+    package's --mv_tile_subsample, no reference equivalent): each view
+    renders only its selected tiles (K3, K4 for the gradient), and idx
+    draws uniformly over their label-valid pixels (_tile_labels)."""
+    cfg = scfg.raster
+    featn = _normed(seg_feature)
+    d = lambda a: a.detach()
+    p = params
+    feats = [rasterize_extras_tiles(
+        d(p.xyz), d(p.scaling_activated()), d(p.rotation_normalized()),
+        d(p.opacity_activated()[:, 0]), cam.mats, cfg, featn, cam.binning,
+        mv.sel_tiles[v], alive=p.alive).reshape(-1, featn.shape[1])
+        for v, cam in enumerate(mv.cams)]
+    idx = idx.to(torch.int64)
+    return contrastive_loss(torch.cat(feats)[idx], _tile_labels(mv)[idx],
+                            scfg.max_labels, predef_u=hyp.class_feat)
+
+
+def _sparse_plan(cam: SemanticCamera, mv: Optional[SemanticMVBlock],
+                 scfg: SemanticStepConfig, draws: dict):
+    """The slot lists of the sparse-pixel path: the single-view sets packed
+    together ({"sv": (spix, t_of, slot_of)}) and, for the full window mv,
+    one list per view ({"mv": ([spix per view], t_of, slot_of)}, t/slot
+    merged by the view that owns each draw). None when some tile drew more
+    than its S slots: the step then takes the dense path (one host read;
+    counted in LAUNCHES["sparse_fallback"])."""
+    W, H, _, T = _grid(cam)
+    idx_all = torch.cat([i.to(torch.int64) for i in draws["sv"]])
+    spix, t_of, slot_of, overflow = spix_from_idx(
+        idx_all, W, H, TILE, pick_sparse_s(idx_all.shape[0], T))
+    plan = {"sv": (spix, t_of, slot_of)}
+    if mv is not None:
+        S_mv = pick_sparse_s(scfg.batch, len(mv.cams) * T)
+        idx = draws["mv"].to(torch.int64)
+        view_of, pix = idx // (H * W), idx % (H * W)
+        spix_v, tl, sl = [], None, None
+        for v in range(len(mv.cams)):
+            own = view_of == v
+            sp, t_v, s_v, ov = spix_from_idx(pix, W, H, TILE, S_mv,
+                                             valid=own)
+            overflow = overflow | ov
+            spix_v.append(sp)
+            tl = t_v if tl is None else torch.where(own, t_v, tl)
+            sl = s_v if sl is None else torch.where(own, s_v, sl)
+        plan["mv"] = (spix_v, tl, sl)
+    if bool(overflow):
+        bv.LAUNCHES["sparse_fallback"] += 1
+        return None
+    return plan
+
+
+def _sparse_view_feats(params, featn, cam: SemanticCamera,
+                       cfg: RasterizeConfig, spix):
+    """One view's features at its drawn pixels: feat [T, S, E] (K5; K6
+    and the segment sum for the gradient)."""
+    flat = _pack_features(params, cam.mats, cfg, featn)
+    feat, _ = blend_sparse(flat, cam.binning, spix, _grid(cam)[2],
+                           featn.shape[1])
+    return feat
+
+
+def _mv_full_loss_sparse(params, seg_feature, mv: SemanticMVBlock, hyp,
+                         scfg, idx, plan_mv):
+    """The window's loss through per-view sparse renders: only the drawn
+    pixels blend, each at the slot _sparse_plan gave it."""
+    spix_v, tl, sl = plan_mv
+    featn = _normed(seg_feature)
+    idx = idx.to(torch.int64)
+    view_of = idx // mv.cams[0].sorted_segmap.numel()
+    f_mv = 0.0
+    for v, cam in enumerate(mv.cams):
+        feat = _sparse_view_feats(params, featn, cam, scfg.raster, spix_v[v])
+        f_mv = f_mv + torch.where((view_of == v)[:, None], feat[tl, sl], 0.0)
+    return contrastive_loss(f_mv, _window_labels(mv)[idx], scfg.max_labels,
                             predef_u=hyp.class_feat)
 
 
@@ -260,20 +427,55 @@ def semantic_loss(params, seg_feature, cam: SemanticCamera,
                   scfg: SemanticStepConfig, draws: dict,
                   mark: Callable[[str], None] = lambda name: None):
     """The step's loss, differentiable in seg_feature: the single-view and
-    3D terms on `cam` (rendered with the single-view sampled-pixel mask),
-    plus λ_mv · the multi-view term when mv is given. mark(name) is called
-    as the render ("render") and the losses ("loss") end."""
+    3D terms on `cam`, plus λ_mv · the multi-view term when mv is given.
+    The single view renders with the sampled-pixel mask (K1/K2
+    extras_only), or with scfg.sparse_px only at the drawn pixels (K5/K6;
+    the full window too, unless scfg.mv_merged). The full window renders
+    per view, or merged (scfg.mv_merged); a window with sel_tiles renders
+    those tiles (K3/K4). mark(name) is called as the render ("render") and
+    the losses ("loss") end."""
     cfg = scfg.raster
-    done0 = _done0_from_idx([i.to(torch.int64) for i in draws["sv"]],
-                            cfg.width, cfg.height)
-    out = render_features(params, cam.mats, hyp.bg, cfg, seg_feature,
-                          cam.binning, done0=done0)
+    mv_full = (mv is not None and mv.sel_tiles is None
+               and sum(c.sorted_nv for c in mv.cams) > 0)
+    plan = None
+    if scfg.sparse_px and not (mv_full and scfg.mv_merged):
+        plan = _sparse_plan(cam, mv if mv_full else None, scfg, draws)
+    if plan is None:
+        done0 = _done0_from_idx([i.to(torch.int64) for i in draws["sv"]],
+                                cfg.width, cfg.height)
+        tiles = render_features(params, cam.mats, hyp.bg, cfg, seg_feature,
+                                cam.binning, done0=done0).blend.extra_tiles
+        grid_x = _grid(cam)[2]
+
+        def fetch(si, idx):
+            t, p2 = _pix_to_tile(idx, cfg.width, TILE, grid_x)
+            return tiles[t, :, p2]                           # [batch, E]
+    else:
+        feat_sv = _sparse_view_feats(params, _normed(seg_feature), cam, cfg,
+                                     plan["sv"][0])
+        _, t_of, slot_of = plan["sv"]
+        b = scfg.batch
+
+        def fetch(si, idx):
+            return feat_sv[t_of[si * b:(si + 1) * b],
+                           slot_of[si * b:(si + 1) * b]]
     mark("render")
-    total = single_view_and_3d_losses(seg_feature, out, cam, hyp, scfg,
+    total = single_view_and_3d_losses(seg_feature, fetch, cam, hyp, scfg,
                                       draws)
-    if mv is not None and sum(c.sorted_nv for c in mv.cams) > 0:
-        total = total + _mv_full_loss(params, seg_feature, mv, hyp, scfg,
-                                      draws["mv"]) * hyp.lam_mv
+    if mv_full:
+        if plan is not None:
+            cl = _mv_full_loss_sparse(params, seg_feature, mv, hyp, scfg,
+                                      draws["mv"], plan["mv"])
+        elif scfg.mv_merged:
+            cl = _mv_full_loss_merged(params, seg_feature, mv, hyp, scfg,
+                                      draws["mv"])
+        else:
+            cl = _mv_full_loss(params, seg_feature, mv, hyp, scfg,
+                               draws["mv"])
+        total = total + cl * hyp.lam_mv
+    elif mv is not None and mv.sel_tiles is not None:
+        total = total + _mv_tile_subsample_loss(
+            params, seg_feature, mv, hyp, scfg, draws["mv"]) * hyp.lam_mv
     mark("loss")
     return total
 
@@ -322,10 +524,6 @@ class SegSplatting:
         if dp:
             raise NotImplementedError("--dp (camera-batch data parallelism) "
                                       "is not ported yet: ROADMAP A12")
-        for flag in ("mv_tile_subsample", "mv_merged", "sparse_px"):
-            if int(getattr(opt, flag, 0)):
-                raise NotImplementedError(
-                    f"--{flag} is not ported yet: ROADMAP A9 (slice 4)")
         self.device = resolve_device(device)
         self.dataset = dataset
         self.opt = opt
@@ -499,6 +697,7 @@ class SegSplatting:
             self._precompute_sampling()
         # tiny scenes: the window shrinks to the camera count
         n_mv = min(int(opt.sample_mv_frames), len(self.cams))
+        fallbacks0 = bv.LAUNCHES["sparse_fallback"]
         cf = None
         if self.class_feat is not None:
             cf = torch.as_tensor(np.pad(self.class_feat, (
@@ -520,7 +719,9 @@ class SegSplatting:
                     raster=RasterizeConfig(width=wh[0], height=wh[1],
                                            bwd_extras_only=True),
                     batch=int(opt.sample_batchsize), max_labels=max_labels,
-                    consider_negative=bool(opt.consider_negative_labels))
+                    consider_negative=bool(opt.consider_negative_labels),
+                    mv_merged=bool(opt.mv_merged),
+                    sparse_px=bool(opt.sparse_px))
             return scfg_of[wh]
 
         stack = []
@@ -532,8 +733,16 @@ class SegSplatting:
             mv = None
             if opt.lambda_multiview_contras > 0 and it % 10 == 0:
                 v0 = self.rng.randint(0, max(0, len(self.cams) - n_mv - 1))
+                sel = None
+                num_tiles = _grid(bundles[ci])[3]
+                mv_k = min(int(opt.mv_tile_subsample), num_tiles)
+                if mv_k:
+                    # the host stream draws as the JAX trainer's does
+                    sel = torch.as_tensor(np.stack([np.sort(np.asarray(
+                        self.rng.sample(range(num_tiles), mv_k), np.int32))
+                        for _ in range(n_mv)]), device=self.device)
                 mv = SemanticMVBlock([bundles[v] for v in
-                                      range(v0, v0 + n_mv)])
+                                      range(v0, v0 + n_mv)], sel)
             self.params, opt_state, loss = semantic_train_step(
                 self.params, opt_state, bundles[ci], mv, hyp, scfg_for(ci),
                 generator=self.generator)
@@ -544,6 +753,11 @@ class SegSplatting:
                 self.save(it)
         self.last_loss = float(loss)
         self.timings["training"] = time.perf_counter() - t0
+        if opt.sparse_px:
+            print(f"sparse-pixel steps that took the dense path (a tile "
+                  f"drew more than its slots): "
+                  f"{bv.LAUNCHES['sparse_fallback'] - fallbacks0}",
+                  flush=True)
         t1 = time.perf_counter()
         self.export_segment_results(iterations, use_hdbscan=True,
                                     note=f"iteration_{iterations}_hdbscan")

@@ -8,10 +8,13 @@ Port of train_semantic.py:15-47. The scene holds a trained point_cloud.ply
 and COLMAP cameras with images and sam/mask/<image>.png instance maps; the
 priors stage (tracker renders, spatial track) runs first, then contrastive
 training, then the HDBSCAN instance export, under
-output/<parent>/<scene>/<model_path> (or at -m when it is absolute). `--device` (default CUDA) picks where
-it runs. Refused with the item that brings them: --dp and --profile_trace
-(ROADMAP A12), non-zero --mv_tile_subsample, --mv_merged and --sparse_px
-(A9, slice 4).
+output/<parent>/<scene>/<model_path> (or at -m when it is absolute).
+`--device` (default CUDA) picks where it runs. The multi-view variants
+take the root CLI's values: --mv_tile_subsample K (K random tiles per view
+of the every-10th-step window, K3/K4), --mv_merged 1 (the window in one
+merged launch each way) and --sparse_px 1 (only the drawn pixels blend,
+K5/K6). Refused with the item that brings them: --dp and --profile_trace
+(ROADMAP A12).
 """
 
 from __future__ import annotations

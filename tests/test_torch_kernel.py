@@ -17,11 +17,11 @@ GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens",
                       "forward.npz")
 
 
-def _port_binned(E, device="cpu", boost=1.0):
+def _port_binned(E, device="cpu", boost=1.0, view=2):
     """Preprocess + bin + pack of a 2000-gaussian SH-3 scene at 64x48 by
-    the port itself: dense enough that some pixels latch done. `boost`
-    scales the surfels (12 makes the ray-splat branch take part).
-    Returns (flat, BinningOut)."""
+    the port itself, seen from orbit camera `view`: dense enough that some
+    pixels latch done. `boost` scales the surfels (12 makes the ray-splat
+    branch take part). Returns (flat, BinningOut)."""
     from instascene_tpu_torch.data.synthetic import make_bench_scene
     from instascene_tpu_torch.models.gaussians import from_numpy
     from instascene_tpu_torch.ops.binning import bin_gaussians
@@ -30,7 +30,7 @@ def _port_binned(E, device="cpu", boost=1.0):
     from instascene_tpu_torch.render import camera_mats
     st, mk = make_bench_scene(n=2000, seed=4, profile="trained")
     p = from_numpy(st, device=device)
-    cm = camera_mats(mk(2, W, H), device)
+    cm = camera_mats(mk(view, W, H), device)
     opac = p.opacity_activated()[:, 0]
     pre = preprocess_gaussians(
         p.xyz, p.scaling_activated() * boost, p.rotation_normalized(), cm.w2v,
@@ -322,6 +322,161 @@ def test_cuda_k2_extras_only_matches_plain(cuda, masked):
         scale = want.abs().amax(dim=0).clamp(min=1e-30)
         err = ((got.to(want.device) - want).abs() / scale).amax()
         assert float(err) <= 1e-4, float(err)
+
+
+def _bwd_twice(args, gout, saved, iout, n, runs, gid, **kw):
+    """K2 (or K4) and the segment sum, twice: (d_sorted, d_flat), after
+    checking that the second run is bit for bit the first."""
+    from instascene_tpu_torch.ops.blend_visits import (blend_bwd,
+                                                       reduce_per_gaussian)
+    d1 = blend_bwd(*args, gout, saved, iout, extras_only=True, **kw)
+    f1 = reduce_per_gaussian(d1, gid, n, runs)
+    d2 = blend_bwd(*args, gout, saved, iout, extras_only=True, **kw)
+    f2 = reduce_per_gaussian(d2, gid, n, runs)
+    torch.cuda.synchronize()
+    assert torch.equal(d1, d2) and torch.equal(f1, f2)
+    return d1, f1
+
+
+def _col_err(got, want):
+    scale = want.abs().amax(dim=0).clamp(min=1e-30)
+    return float(((got - want).abs() / scale).amax())
+
+
+def _saved(out, E):
+    return torch.stack([out[:, 9], out[:, 10 + E], out[:, 11 + E]],
+                       1).contiguous()
+
+
+@pytest.mark.cuda
+def test_cuda_k3_k4_match_plain(cuda):
+    """K1 and K2 extras_only over a list of 5 tiles (K3, K4) on the card:
+    out/iout equal to their plain version, and each listed row bit for bit
+    K1 extras_only's row of its tile over the whole frame; K4's rows within
+    1e-4 of each column's largest |value| of its plain version, zero for
+    the slots of unlisted tiles, bit for bit equal over two runs."""
+    from instascene_tpu_torch.ops.blend_visits import (
+        LAUNCHES, blend_bwd_reference, blend_fwd, blend_fwd_reference,
+        reduce_per_gaussian)
+    E = 16
+    flat, b = _port_binned(E, cuda, boost=12.0)
+    gid, n = b.sorted_gid, flat.shape[0]
+    args = (flat, gid, b.tile_start, b.tile_end, GRID_X, E)
+    ids = torch.tensor([0, 3, 5, 6, 11], dtype=torch.int32, device=cuda)
+    want = {**LAUNCHES, "K3 extras_only": LAUNCHES["K3 extras_only"] + 1,
+            "K4 extras_only": LAUNCHES["K4 extras_only"] + 2,
+            "segment_sum": LAUNCHES["segment_sum"] + 2}
+    out, iout = blend_fwd(*args, extras_only=True, tile_ids=ids)
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    gout = torch.randn(out.shape, generator=gen).to(cuda)
+    d, f = _bwd_twice(args, gout, _saved(out, E), iout, n,
+                      (b.gid_order, b.run_start), gid, tile_ids=ids)
+    assert LAUNCHES == want
+    ref, iref = blend_fwd_reference(*args, extras_only=True, tile_ids=ids)
+    assert out.shape == (5, 12 + E, 256) and torch.equal(iout, iref)
+    torch.testing.assert_close(out, ref, atol=3e-4, rtol=0)
+    full, ifull = blend_fwd(*args, extras_only=True)
+    assert torch.equal(out, full[ids.long()])
+    assert torch.equal(iout, ifull[ids.long()])
+    dref = blend_bwd_reference(*args, gout, _saved(out, E), iout,
+                               extras_only=True, tile_ids=ids)
+    mine = torch.zeros(gid.shape[0], dtype=torch.bool, device=cuda)
+    for t in ids.tolist():
+        mine[int(b.tile_start[t]):int(b.tile_end[t])] = True
+    assert d[mine].any() and not d[~mine].any()
+    assert _col_err(d, dref) <= 1e-4
+    fref = reduce_per_gaussian(dref.cpu(), gid.cpu(), n,
+                               (b.gid_order.cpu(), b.run_start.cpu()))
+    assert _col_err(f.cpu(), fref) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_tiles_per_view_matches_plain(cuda):
+    """K1 and K2 extras_only over three views concatenated along the tile
+    axis by merge_binnings (tiles_per_view): out/iout equal to their plain
+    version and bit for bit each view's own K1 extras_only render; K2's
+    rows within 1e-4 of each column's largest |value| of its plain
+    version, bit for bit equal over two runs."""
+    from instascene_tpu_torch.ops.binning import merge_binnings
+    from instascene_tpu_torch.ops.blend_visits import (
+        LAUNCHES, blend_bwd_reference, blend_fwd, blend_fwd_reference)
+    E = 16
+    views = [_port_binned(E, cuda, boost=12.0, view=v) for v in (1, 2, 3)]
+    n = views[0][0].shape[0]
+    flat, mb, T = merge_binnings(views)
+    args = (flat, mb.sorted_gid, mb.tile_start, mb.tile_end, GRID_X, E)
+    want = {**LAUNCHES,
+            "K1 tiles_per_view": LAUNCHES["K1 tiles_per_view"] + 1,
+            "K2 tiles_per_view": LAUNCHES["K2 tiles_per_view"] + 2,
+            "segment_sum": LAUNCHES["segment_sum"] + 2}
+    out, iout = blend_fwd(*args, extras_only=True, tiles_per_view=T)
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    gout = torch.randn(out.shape, generator=gen).to(cuda)
+    d, _ = _bwd_twice(args, gout, _saved(out, E), iout, 3 * n,
+                      (mb.gid_order, mb.run_start), mb.sorted_gid,
+                      tiles_per_view=T)
+    assert LAUNCHES == want
+    ref, iref = blend_fwd_reference(*args, extras_only=True,
+                                    tiles_per_view=T)
+    assert torch.equal(iout, iref)
+    torch.testing.assert_close(out, ref, atol=3e-4, rtol=0)
+    for v, (f, b) in enumerate(views):
+        own, iown = blend_fwd(f, b.sorted_gid, b.tile_start, b.tile_end,
+                              GRID_X, E, extras_only=True)
+        assert torch.equal(out[v * T:(v + 1) * T], own)
+        assert torch.equal(iout[v * T:(v + 1) * T], iown)
+    dref = blend_bwd_reference(*args, gout, _saved(out, E), iout,
+                               extras_only=True, tiles_per_view=T)
+    assert _col_err(d, dref) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_k5_k6_match_plain(cuda):
+    """K5 and K6 on ~300 drawn pixels (duplicates included): feat and aux
+    against their plain version (n_contrib exactly, T and features within
+    3e-4), and at every drawn pixel bit for bit K1 extras_only with a done0
+    that frees the same pixels; K6's rows within 1e-4 of each column's
+    largest |value| of its plain version, and K6 + the segment sum bit for
+    bit equal over two runs."""
+    from instascene_tpu_torch.ops import blend_sparse as bs
+    from instascene_tpu_torch.ops.blend_visits import (LAUNCHES, blend_fwd,
+                                                       reduce_per_gaussian)
+    E = 16
+    flat, b = _port_binned(E, cuda, boost=12.0)
+    gid, n = b.sorted_gid, flat.shape[0]
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    idx = torch.randint(0, W * H, (300,), generator=gen)
+    idx[5:9] = idx[0]
+    nt = b.tile_start.shape[0]
+    S = bs.pick_sparse_s(300, nt)
+    spix, _, _, ov = bs.spix_from_idx(idx.to(cuda), W, H, 16, S)
+    assert not bool(ov)
+    args = (flat, gid, b.tile_start, b.tile_end, spix, GRID_X, E)
+    want = {**LAUNCHES, "K5": LAUNCHES["K5"] + 1, "K6": LAUNCHES["K6"] + 2}
+    feat, aux = bs.blend_sparse_fwd(*args)
+    gout = torch.randn(feat.shape, generator=gen).to(cuda)
+    d1 = bs.blend_sparse_bwd(*args, gout, aux)
+    d2 = bs.blend_sparse_bwd(*args, gout, aux)
+    torch.cuda.synchronize()
+    assert LAUNCHES == want and torch.equal(d1, d2)
+    runs = (b.gid_order, b.run_start)
+    assert torch.equal(reduce_per_gaussian(d1, gid, n, runs),
+                       reduce_per_gaussian(d2, gid, n, runs))
+    rfeat, raux = bs.blend_sparse_fwd_reference(*args)
+    assert torch.equal(aux[..., 1], raux[..., 1]) and aux[..., 1].any()
+    torch.testing.assert_close(aux, raux, atol=3e-4, rtol=0)
+    torch.testing.assert_close(feat, rfeat, atol=3e-4, rtol=0)
+    t_i, s_i = torch.nonzero(spix >= 0, as_tuple=True)
+    p_i = spix[t_i, s_i].long()
+    d0 = torch.ones((nt, 1, 256), dtype=torch.int32, device=cuda)
+    d0[t_i, 0, p_i] = 0
+    out, iout = blend_fwd(flat, gid, b.tile_start, b.tile_end, GRID_X, E,
+                          extras_only=True, done0=d0)
+    assert torch.equal(feat[t_i, s_i], out[t_i, 10:10 + E, p_i])
+    assert torch.equal(aux[t_i, s_i, 0], out[t_i, 9, p_i])
+    assert torch.equal(aux[t_i, s_i, 1], iout[t_i, 0, p_i].float())
+    dref = bs.blend_sparse_bwd_reference(*args, gout, aux)
+    assert _col_err(d1, dref) <= 1e-4
 
 
 @pytest.mark.cuda

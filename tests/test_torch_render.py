@@ -138,9 +138,10 @@ def test_later_slice_options_raise():
         with pytest.raises(NotImplementedError, match="slice"):
             render(cam, p, PipelineParams(), np.zeros(3),
                    cfg=RasterizeConfig(32, 32, **{flag: True}))
-    with pytest.raises(NotImplementedError, match="slice"):
-        render(cam, p, PipelineParams(), np.zeros(3),
-               cfg=RasterizeConfig(32, 32, tiles_per_view=4))
+    # slice 4 serves merged views at the blend (blend_visits.blend's
+    # tiles_per_view), as the JAX package does: no RasterizeConfig field
+    with pytest.raises(TypeError):
+        RasterizeConfig(32, 32, tiles_per_view=4)
     # slice 3 serves contributor tracking (the priors' tracker renders);
     # bwd_extras_only is exercised by tests/test_torch_semantic_step.py
     out = render(cam, p, PipelineParams(), np.zeros(3), track_contrib=True)
