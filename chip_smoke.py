@@ -80,7 +80,29 @@ lines; any failure exits non-zero and prints no result:
    are printed beside the K5/K6 launches) and with --mv_merged 1 (K1/K2
    tiles_per_view must launch), each with a PLY that loads back finite.
    Each phase prints its seconds;
-8. one JSON line with the kernels' numbers, then the last line
+   Phase 2 also holds, at mid size, K7/K8 over the padded layout (E=16 and
+   0; bit for bit K1/K2 `full` on the same binning, d(packed) twice bit for
+   bit), K1/K2 `clip_rect` in full, no_dist, viewer and extras_only over
+   the binning dilated by one tile (bit for bit the fresh binning's
+   render and d_flat), K3/K4 full/viewer over 8 random tiles, and the
+   run-time feature widths E = 4 and 8 on K1, K2, K5/K6 and K7/K8;
+8. the padded and cached-superset paths at full width, launch counts
+   reset just before their entry points and read just after:
+   rasterize_padded_fwd (K7) at 1920x1080 on camera 0 and four orbit
+   frames (held against render()'s K1 full), the padded layout's
+   differentiable frame (pack_inputs + blend_padded_diff, K7/K8) at
+   976x728 without and with features (loss and gradients held against
+   rasterize's K1/K2), rasterize with clip_rect over a cache dilated by
+   one tile at camera 0 (full and extras_only, held against the fresh
+   render) and at an orbit step inside its envelope (printed), rasterize
+   over bench.py's 128 tiles of view 1 (K3/K4 full, K3 viewer; bit for bit
+   the whole frame) and rasterize with conic_cull at 1080p (pairs, stage
+   times, maps held against the unculled render). K7, K8, K1/K2
+   clip_rect and K3/K4 full/viewer must launch. Then K7 and K1 full timed
+   at 1080p (E=16 and 8), K8 and K2 full at 976x728 (E=0 and 16), the
+   gather's backward (and whether two runs are bit for bit equal),
+   K1/K2 clip_rect and K3/K4 with their bounds;
+9. one JSON line with the kernels' numbers, then the last line
    {"ok": true, "device": {...}}.
 """
 
@@ -188,10 +210,11 @@ def row_errors(out_k, out_r, E, mode, agree):
     return errs
 
 
-def frame_stages(p, cam, width, height, with_extras):
+def frame_stages(p, cam, width, height, with_extras, n_extra=16):
     """The stages of one frame before K1, as calls over the state's
     activated tensors (activations are not part of any stage): returns
-    (preprocess(), bin(pre), pack(pre))."""
+    (preprocess(), bin(pre), pack(pre)); with_extras packs the first
+    n_extra feature channels."""
     from instascene_tpu_torch.ops.binning import bin_gaussians
     from instascene_tpu_torch.ops.blend_visits import pack_flat_cols
     from instascene_tpu_torch.ops.preprocess import preprocess_gaussians
@@ -201,17 +224,18 @@ def frame_stages(p, cam, width, height, with_extras):
     args = (p.xyz, p.scaling_activated(), p.rotation_normalized(), cm.w2v,
             cm.full_proj, cm.campos, width, height, opac)
     kw = dict(shs=p.features(), sh_degree=p.active_sh_degree, alive=p.alive)
-    extras = p.seg_feature_normed() if with_extras else None
+    extras = (p.seg_feature_normed()[:, :n_extra].contiguous()
+              if with_extras else None)
     return (lambda: preprocess_gaussians(*args, **kw),
             lambda pre: bin_gaussians(pre, width, height),
             lambda pre: pack_flat_cols(pre.T, pre.xy, pre.normal_view, opac,
                                        pre.color, extras))
 
 
-def frame_inputs(p, cam, width, height, with_extras):
+def frame_inputs(p, cam, width, height, with_extras, n_extra=16):
     """Preprocess + bin + pack of one frame, on the state's device."""
     preprocess, binning, pack = frame_stages(p, cam, width, height,
-                                             with_extras)
+                                             with_extras, n_extra)
     pre = preprocess()
     return pack(pre), binning(pre), (width + 15) // 16
 
@@ -307,7 +331,7 @@ def compare_kernel(label, flat, b, grid_x, E, mode, exact, timing=False):
     return res
 
 
-def k1_bound(flat, b, E, mode, n_eval, n_hit, extra_bytes=0):
+def k1_bound(flat, b, E, mode, n_eval, n_hit, extra_bytes=0, extra_ops=0):
     """Least time for K1's work on these inputs: each input read once and
     each output written once over HBM bandwidth, against the FP32
     operations these inputs need at the FP32 SIMT peak — every pixel
@@ -315,7 +339,8 @@ def k1_bound(flat, b, E, mode, n_eval, n_hit, extra_bytes=0):
     contributes n_hit times. `extras_only` needs only the splat and
     feature columns of flat and writes only final T, the features and
     n_contrib (the other rows are zeros that nothing reads). extra_bytes:
-    a mode's other inputs and outputs (done0, the contributor buffer)."""
+    a mode's other inputs and outputs (done0, the contributor buffer);
+    extra_ops: a mode's other operations (clip_rect's rect tests)."""
     import torch
     nt = b.tile_start.numel()
     cols, rows, irows = ((SPLAT_COLS + E, 1 + E, 1) if mode == "extras_only"
@@ -324,7 +349,8 @@ def k1_bound(flat, b, E, mode, n_eval, n_hit, extra_bytes=0):
               + 2 * nt * 4 + nt * (rows + irows) * 256 * 4 + extra_bytes)
     evals = int(n_eval.sum(dtype=torch.int64))
     hits = int(n_hit.sum(dtype=torch.int64))
-    ops = evals * OPS_EVAL + hits * (OPS_HIT + 2 * E + OPS_HIT_MODE[mode])
+    ops = (evals * OPS_EVAL + hits * (OPS_HIT + 2 * E + OPS_HIT_MODE[mode])
+           + extra_ops)
     return dict(bound(bytes_, ops), evals=evals, hits=hits,
                 max_evals=b.total_pairs * 256)
 
@@ -414,6 +440,8 @@ def compare_k2(label, flat, b, grid_x, E, mode, timing=False, fwd=None,
                    OPS_BWD_HIT + OPS_BWD_HIT_E * E
                    + (OPS_BWD_HIT_FULL if mode == "full" else 0))
         ops = evals * OPS_EVAL + hits * per_hit + (hits - slots) * D
+        if sel.get("clip_rect"):
+            ops += walk * RECT_OPS       # each slot's rect test
         res.update(bound(bytes_, ops), evals=evals, hits=hits, slots=slots)
         gid64 = b.sorted_gid.to(torch.int64)
         acc = torch.zeros((n, D), dtype=torch.float32, device=flat.device)
@@ -886,17 +914,17 @@ def done0_of(idx, nt, width, dev):
 
 
 def compare_extras(label, flat, b, grid_x, width, height, n_sampled,
-                   timing=False):
+                   timing=False, E=16):
     """K1 extras_only (E=16) on the card against its plain version, without
     and with a done0 mask of n_sampled random pixels: final T and features
     within TOL, n_contrib exactly; at the sampled pixels T and features bit
     for bit K1 `full`'s, the others (T = 1, 0, n_contrib 0). Then K2
     extras_only on each forward against its plain version (K2_TOL of each
     column's largest |value|), the segment sum at D = 16, both twice (bit
-    for bit equal). Returns the numbers for the kernels' line."""
+    for bit equal). Returns the numbers for the kernels' line. E: another
+    feature width (the run-time-width instantiation)."""
     import torch
     from instascene_tpu_torch.ops import blend_visits as bv
-    E = 16
     args = (flat, b.sorted_gid, b.tile_start, b.tile_end, grid_x, E)
     nt = b.tile_start.numel()
     gen = torch.Generator(device=flat.device).manual_seed(11)
@@ -921,7 +949,7 @@ def compare_extras(label, flat, b, grid_x, width, height, n_sampled,
               f"nonzero")
         check(eT <= TOL["final_T"] and eF <= TOL["features"],
               f"{label} extras_only{tag}: T {eT}, features {eF}")
-        line = (f"[kernel] {label} extras_only{tag} E=16: pairs="
+        line = (f"[kernel] {label} extras_only{tag} E={E}: pairs="
                 f"{b.total_pairs} final T {eT:.3g} (tol {TOL['final_T']:g}),"
                 f" features {eF:.3g} (tol {TOL['features']:g}), n_contrib "
                 f"equal")
@@ -1573,6 +1601,744 @@ def semantic_cli_variant(root, out, tag, flags, must):
 
 
 
+# ------------------------------------------------- padded layout, clip_rect
+# K8 per contribution, as K2 `full` (the same walk)
+OPS_BWD_FULL_HIT = OPS_BWD_HIT + OPS_BWD_HIT_FULL
+# clip_rect's rect test per slot: 4 compares (the splat of a gated slot is
+# not part of the function; the work counts leave it out)
+RECT_OPS = 4
+
+
+def k7_bound(b, E, n_eval, n_hit):
+    """K7's least time: the real slots' columns of packed (not K's
+    padding), tile_count and the outputs, against K1 `full`'s FP32
+    operations on these inputs."""
+    import torch
+    nt = b.tile_start.numel()
+    bytes_ = (b.total_pairs * (21 + E) * 4 + nt * 4
+              + nt * (12 + E + 2) * 256 * 4)
+    evals = int(n_eval.sum(dtype=torch.int64))
+    hits = int(n_hit.sum(dtype=torch.int64))
+    return dict(bound(bytes_, evals * OPS_EVAL + hits * (
+        OPS_HIT + 2 * E + OPS_HIT_MODE["full"])), evals=evals, hits=hits)
+
+
+def k8_bound(b, E, K, evals, hits, slots):
+    """K8's least time: the real slots' columns of packed, tile_count,
+    gout, saved and iout read once, and all of d(packed) [T, D, K]
+    written (its zeros past each tile's slots are part of the function's
+    output), against K2 `full`'s FP32 operations on these inputs."""
+    nt = b.tile_start.numel()
+    D = 21 + E
+    bytes_ = (b.total_pairs * D * 4 + nt * 4
+              + nt * (12 + E + 3 + 2) * 256 * 4 + nt * D * K * 4)
+    return bound(bytes_, evals * OPS_EVAL
+                 + hits * (OPS_BWD_FULL_HIT + OPS_BWD_HIT_E * E)
+                 + (hits - slots) * D)
+
+
+def compare_padded(label, flat, b, grid_x, E, exact=True, timing=False,
+                   bwd=True):
+    """K7 and K8 over the padded layout of binning b on the card against
+    their plain versions: n_contrib and med_slot exactly (or on all but
+    1e-5 of the pixels at full width), rows within TOL; d(packed) within
+    K2_TOL of each column's largest |value| and bit for bit equal over two
+    runs. Both also against K1/K2 `full` on the same binning, which walk
+    the same rows in the same order: K7's out/iout and K8's per-slot rows
+    bit for bit theirs. bwd=False: K7 alone."""
+    import torch
+    from instascene_tpu_torch.ops import blend_padded as bp
+    from instascene_tpu_torch.ops import blend_visits as bv
+    from instascene_tpu_torch.ops.binning import padded_layout
+    idx, count = padded_layout(b)
+    packed = bp.pack_inputs(flat, idx)
+    T, D, K = packed.shape
+    out, iout = bp.blend_fwd_padded(packed, count, grid_x, E)
+    torch.cuda.synchronize()
+    (out_r, iout_r, n_eval, n_hit), plain7 = timed(
+        lambda: bp.blend_fwd_padded_reference(packed, count, grid_x, E,
+                                              count_work=True))
+    agree = iout[:, 0] == iout_r[:, 0]
+    mism = int((~agree).sum())
+    slot_mism = int(((iout[:, 1] != iout_r[:, 1]) & agree).sum())
+    errs = row_errors(out, out_r, E, "full", agree)
+    bargs = (flat, b.sorted_gid, b.tile_start, b.tile_end, grid_x, E)
+    k1, ik1 = bv.blend_fwd(*bargs)
+    as_k1 = bool(torch.equal(out, k1) and torch.equal(iout, ik1))
+    print(f"[kernel] {label} K7 E={E}: pairs={b.total_pairs} K={K} packed "
+          f"{packed.numel() * 4} bytes; n_contrib mismatches={mism}/"
+          f"{agree.numel()} med_slot mismatches={slot_mism} "
+          + " ".join(f"{k}={v[0]:.3g}(tol {v[1]:g})" for k, v in
+                     errs.items())
+          + f", bit for bit K1 full's: {as_k1}", flush=True)
+    check(mism == 0 if exact else mism <= 1e-5 * agree.numel(),
+          f"{label} K7 E={E}: {mism} n_contrib mismatches")
+    check(slot_mism == 0, f"{label} K7 E={E}: med_slot differs")
+    for k, (err, tol) in errs.items():
+        check(err <= tol, f"{label} K7 E={E}: {k} error {err} > {tol}")
+    check(as_k1, f"{label} K7 E={E}: not bit for bit K1 full's")
+    res = {"k7": {"max_abs_err": max(e for e, _ in errs.values())},
+           "K": K, "packed_bytes": packed.numel() * 4}
+    if timing:
+        r7 = res["k7"]
+        r7["ms"] = time_ms(lambda: bp.blend_fwd_padded(packed, count,
+                                                       grid_x, E), 20)
+        r7["k1_ms"] = time_ms(lambda: bv.blend_fwd(*bargs), 20)
+        r7["plain_ms"] = plain7
+        r7.update(k7_bound(b, E, n_eval, n_hit))
+    if not bwd:
+        return res
+    saved = torch.stack([out[:, 9], out[:, 10 + E], out[:, 11 + E]],
+                        dim=1).contiguous()
+    gen = torch.Generator(device=flat.device).manual_seed(17 + E)
+    gout = torch.randn(out.shape, generator=gen, device=flat.device)
+    d1 = bp.blend_bwd_padded(packed, count, grid_x, E, gout, saved, iout)
+    d2 = bp.blend_bwd_padded(packed, count, grid_x, E, gout, saved, iout)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(d1, d2))
+    (d_ref, (evals, hits, slots)), plain8 = timed(
+        lambda: bp.blend_bwd_padded_reference(packed, count, grid_x, E, gout,
+                                              saved, iout, count_work=True))
+    rows = lambda d: d.permute(0, 2, 1).reshape(-1, D)
+    err8 = col_rel_err(rows(d1), rows(d_ref))
+    k2 = bv.blend_bwd(*bargs, gout, saved, iout)
+    t_of = torch.repeat_interleave(torch.arange(T, device=flat.device),
+                                   count.long())
+    k_of = (torch.arange(b.total_pairs, device=flat.device)
+            - b.tile_start.long()[t_of])
+    as_k2 = bool(torch.equal(d1[t_of, :, k_of], k2))
+    slot = torch.arange(K, device=flat.device)[None] < count[:, None]
+    pad_zero = not bool(rows(d1)[~slot.reshape(-1)].any())
+    print(f"[kernel] {label} K8 E={E}: d(packed) {err8:.3g} of each "
+          f"column's max |value| (tol {K2_TOL:g}), two runs bit for bit "
+          f"equal: {same}, bit for bit K2 full's rows: {as_k2}, zero past "
+          f"the slots: {pad_zero}", flush=True)
+    check(err8 <= K2_TOL and same and pad_zero and hits > 0,
+          f"{label} K8 E={E}: {err8}, repeatable {same}, zero padding "
+          f"{pad_zero}")
+    check(as_k2, f"{label} K8 E={E}: not bit for bit K2 full's rows")
+    r8 = res["k8"] = {"max_abs_err": float((d1 - d_ref).abs().max()),
+                      "rel_err": err8}
+    if timing:
+        r8["ms"] = time_ms(lambda: bp.blend_bwd_padded(
+            packed, count, grid_x, E, gout, saved, iout), 10)
+        r8["k2_ms"] = time_ms(lambda: bv.blend_bwd(*bargs, gout, saved,
+                                                   iout), 10)
+        r8["plain_ms"] = plain8
+        r8.update(k8_bound(b, E, K, evals, hits, slots), evals=evals,
+                  hits=hits, slots=slots)
+    return res
+
+
+def superset_inputs(p, cam, width, height, E=16):
+    """One frame's fresh inputs and its cached superset: (flat, fresh
+    BinningOut, flat with the fresh rects, the binning dilated by one tile,
+    grid_x)."""
+    import torch
+    from instascene_tpu_torch.ops.binning import bin_gaussians
+    from instascene_tpu_torch.ops.blend_visits import pack_flat_cols
+    preprocess, binning, pack = frame_stages(p, cam, width, height, E > 0, E)
+    pre = preprocess()
+    opac = p.opacity_activated()[:, 0]
+    extras = p.seg_feature_normed()[:, :E].contiguous() if E else None
+    rmax = torch.where((pre.tiles_touched > 0)[:, None], pre.rect_max,
+                       pre.rect_min)
+    flat_r = pack_flat_cols(pre.T, pre.xy, pre.normal_view, opac, pre.color,
+                            extras, rect=(pre.rect_min, rmax))
+    return (pack(pre), binning(pre), flat_r,
+            bin_gaussians(pre, width, height, dilate_tiles=1),
+            (width + 15) // 16)
+
+
+def compare_clip(label, p, cam, width, height, E=16, modes=(
+        "full", "no_dist", "viewer", "extras_only"), timing=()):
+    """K1 clip_rect over the frame's binning dilated by one tile (flat
+    carrying the fresh rects) against its plain version in each mode
+    (iout equal, rows within TOL) and bit for bit K1's out over the fresh
+    binning (a gated slot contributes nothing); K2 clip_rect (not viewer)
+    against its plain version (compare_k2), and its d_flat bit for bit
+    the fresh binning's. timing: the modes whose kernels are timed.
+    Returns {mode: numbers}."""
+    import torch
+    from instascene_tpu_torch.ops import blend_visits as bv
+    flat, bf, flat_r, bd, gx = superset_inputs(p, cam, width, height, E)
+    print(f"[kernel] {label} clip_rect E={E}: the dilated binning holds "
+          f"{bd.total_pairs} pairs, {bd.total_pairs / bf.total_pairs:.3f}x "
+          f"the fresh binning's {bf.total_pairs}", flush=True)
+    args = (flat_r, bd.sorted_gid, bd.tile_start, bd.tile_end, gx, E)
+    fargs = (flat, bf.sorted_gid, bf.tile_start, bf.tile_end, gx, E)
+    n = flat.shape[0]
+    res = {"pairs": bd.total_pairs, "fresh_pairs": bf.total_pairs}
+    for mode in modes:
+        kw = dict(viewer=mode == "viewer", no_dist=mode == "no_dist",
+                  extras_only=mode == "extras_only")
+        out, iout = bv.blend_fwd(*args, clip_rect=True, **kw)
+        torch.cuda.synchronize()
+        (out_r, iout_r, n_eval, n_hit), plain_ms = timed(
+            lambda: bv.blend_fwd_reference(*args, clip_rect=True,
+                                           count_work=True, **kw))
+        errs = row_errors(out, out_r, E, mode, torch.ones_like(
+            iout[:, 0], dtype=torch.bool))
+        own, iown = bv.blend_fwd(*fargs, **kw)
+        as_fresh = bool(torch.equal(out, own))
+        print(f"[kernel] {label} K1 {mode} clip_rect E={E}: iout equal to "
+              f"the plain version's: {torch.equal(iout, iout_r)} "
+              + " ".join(f"{k}={v[0]:.3g}(tol {v[1]:g})" for k, v in
+                         errs.items())
+              + f"; out bit for bit the fresh binning's: {as_fresh}",
+              flush=True)
+        check(torch.equal(iout, iout_r), f"{label} K1 {mode} clip_rect: "
+              f"iout differs from the plain version")
+        for k, (err, tol) in errs.items():
+            check(err <= tol, f"{label} K1 {mode} clip_rect: {k} {err}")
+        check(as_fresh, f"{label} K1 {mode} clip_rect: differs from the "
+              f"fresh binning's render")
+        r = {"max_abs_err": max(e for e, _ in errs.values())}
+        if mode in timing:
+            r["ms"] = time_ms(lambda: bv.blend_fwd(*args, clip_rect=True,
+                                                   **kw), 20)
+            r["fresh_ms"] = time_ms(lambda: bv.blend_fwd(*fargs, **kw), 20)
+            r["plain_ms"] = plain_ms
+            r.update(k1_bound(flat_r, bd, E, mode, n_eval, n_hit,
+                              extra_ops=bd.total_pairs * RECT_OPS))
+        if mode != "viewer":
+            r["k2"] = compare_k2(f"{label} clip_rect", flat_r, bd, gx, E,
+                                 mode, mode in timing, fwd=(out, iout),
+                                 clip_rect=True)
+            runs = (bd.gid_order, bd.run_start)
+            bkw = dict(no_dist=mode == "no_dist",
+                       extras_only=mode == "extras_only")
+            saved = lambda o: torch.stack(
+                [o[:, 9], o[:, 10 + E], o[:, 11 + E]], dim=1).contiguous()
+            gen = torch.Generator(device=flat.device).manual_seed(5 + E)
+            gout = torch.randn(out.shape, generator=gen, device=flat.device)
+            f_c = bv.reduce_per_gaussian(bv.blend_bwd(
+                *args, gout, saved(out), iout, clip_rect=True, **bkw),
+                bd.sorted_gid, n, runs)
+            f_f = bv.reduce_per_gaussian(bv.blend_bwd(
+                *fargs, gout, saved(own), iown, **bkw), bf.sorted_gid, n,
+                (bf.gid_order, bf.run_start))
+            torch.cuda.synchronize()
+            grad_fresh = bool(torch.equal(f_c[:, :f_f.shape[1]], f_f))
+            print(f"[kernel] {label} K2 {mode} clip_rect E={E}: d_flat bit "
+                  f"for bit the fresh binning's: {grad_fresh}", flush=True)
+            check(grad_fresh, f"{label} K2 {mode} clip_rect: d_flat differs "
+                  f"from the fresh binning's")
+        res[mode] = r
+    return res
+
+
+def compare_tile_modes(label, flat, b, grid_x, sel, E=16, timing=False):
+    """K1 over the tile list sel (K3) in `full` and `viewer` against its
+    plain version (iout equal, rows within TOL) and bit for bit K1's whole
+    frame rows of those tiles; K2 `full` over the list (K4) against its
+    plain version (compare_k2). Returns {"full", "viewer", "k4"}."""
+    import torch
+    from instascene_tpu_torch.ops import blend_visits as bv
+    args = (flat, b.sorted_gid, b.tile_start, b.tile_end, grid_x, E)
+    res = {}
+    for mode in ("full", "viewer"):
+        kw = dict(viewer=mode == "viewer", tile_ids=sel)
+        out, iout = bv.blend_fwd(*args, **kw)
+        torch.cuda.synchronize()
+        (out_r, iout_r, n_eval, n_hit), plain_ms = timed(
+            lambda: bv.blend_fwd_reference(*args, count_work=True, **kw))
+        errs = row_errors(out, out_r, E, mode, torch.ones_like(
+            iout[:, 0], dtype=torch.bool))
+        full, ifull = bv.blend_fwd(*args, viewer=mode == "viewer")
+        rows = sel.long()
+        bit = bool(torch.equal(out, full[rows])
+                   and torch.equal(iout, ifull[rows]))
+        print(f"[kernel] {label} K3 {mode} E={E}, {sel.numel()} tiles: "
+              f"iout equal: {torch.equal(iout, iout_r)} "
+              + " ".join(f"{k}={v[0]:.3g}(tol {v[1]:g})" for k, v in
+                         errs.items())
+              + f"; bit for bit the whole frame's rows: {bit}", flush=True)
+        check(torch.equal(iout, iout_r) and bit,
+              f"{label} K3 {mode}: iout or the listed rows differ")
+        for k, (err, tol) in errs.items():
+            check(err <= tol, f"{label} K3 {mode}: {k} error {err}")
+        r = {"max_abs_err": max(e for e, _ in errs.values())}
+        if timing:
+            pairs, gauss = walked(sel, b)
+            nrows = out.shape[0]
+            r["ms"] = time_ms(lambda: bv.blend_fwd(*args, **kw), 10)
+            r["plain_ms"] = plain_ms
+            evals = int(n_eval.sum(dtype=torch.int64))
+            hits = int(n_hit.sum(dtype=torch.int64))
+            r.update(bound(gauss * flat.shape[1] * 4 + pairs * 4
+                           + 3 * nrows * 4 + nrows * (14 + E) * 256 * 4,
+                           evals * OPS_EVAL + hits * (
+                               OPS_HIT + 2 * E + OPS_HIT_MODE[mode])),
+                     evals=evals, hits=hits, pairs_walked=pairs)
+        res[mode] = r
+        if mode == "full":
+            fwd = (out, iout)
+    res["k4"] = compare_k2(f"{label} tile list", flat, b, grid_x, E, "full",
+                           timing, fwd=fwd, tile_ids=sel)
+    return res
+
+
+def mid_size_layouts_and_widths(p_mid, make_cam, dev):
+    """Phase 2's checks of the padded layout, clip_rect, the tile list's
+    full/viewer modes and the run-time widths, at mid size, against the
+    plain versions:
+    K7/K8 (E=16 and 0), K1/K2 clip_rect in full, no_dist, viewer and
+    extras_only, K3/K4 full/viewer over 8 random tiles, and the run-time
+    feature widths E=4 and 8 on K1 (full, extras_only ± done0), K2 (full,
+    extras_only), K5/K6 and K7/K8."""
+    import torch
+    W, H = MID["width"], MID["height"]
+    cam = make_cam(0, W, H)
+    for E in (16, 0):
+        flat, b, gx = frame_inputs(p_mid, cam, W, H, E > 0)
+        compare_padded("mid-size", flat, b, gx, E)
+    compare_clip("mid-size", p_mid, cam, W, H)
+    flat, b, gx = frame_inputs(p_mid, cam, W, H, True)
+    sel = torch.as_tensor(np.sort(np.random.default_rng(4).choice(
+        b.tile_start.numel(), 8, replace=False)).astype(np.int32),
+        device=dev)
+    compare_tile_modes("mid-size", flat, b, gx, sel)
+    for E in (4, 8):
+        flat, b, gx = frame_inputs(p_mid, cam, W, H, True, E)
+        compare_kernel("mid-size", flat, b, gx, E, "full", exact=True)
+        compare_k2("mid-size", flat, b, gx, E, "full")
+        compare_extras("mid-size", flat, b, gx, W, H, 2000, E=E)
+        compare_sparse("mid-size", flat, b, gx, W, H, 2000, E=E)
+        compare_padded("mid-size", flat, b, gx, E)
+
+
+def maps_of(blend):
+    """A BlendOut's maps by the names maps_from_tiles gives them."""
+    return {"color": blend.color, "depth": blend.depth,
+            "normal": blend.normal, "median_depth": blend.median_depth,
+            "distortion": blend.distortion, "final_T": blend.final_T,
+            "extra": blend.extra, "n_contrib": blend.n_contrib}
+
+
+# item 1's tolerances, K7's maps against render()'s (K1 full)
+MAP_TOL = {"color": 3e-4, "normal": 3e-4, "depth": 3e-3,
+           "median_depth": 3e-3, "distortion": 3e-3, "final_T": 2e-5,
+           "extra": 5e-4}
+
+
+def compare_maps(label, got, want, n_contrib=True):
+    """Largest |got − want| per map over the pixels where n_contrib agrees
+    (n_contrib itself may differ on at most 1e-5 of the pixels); checks
+    MAP_TOL. Returns (errors, mismatches, bit for bit)."""
+    import torch
+    agree = got["n_contrib"] == want["n_contrib"]
+    mism = int((~agree).sum())
+    errs, bit = {}, True
+    for k, tol in MAP_TOL.items():
+        if got[k] is None:
+            continue
+        d = (got[k] - want[k]).abs()
+        bit = bit and bool(torch.equal(got[k], want[k]))
+        errs[k] = float(d[agree].max()) if n_contrib else float(d.max())
+        check(errs[k] <= tol, f"{label}: {k} error {errs[k]} > {tol}")
+    if n_contrib:
+        check(mism <= 1e-5 * agree.numel(),
+              f"{label}: {mism} n_contrib mismatches")
+    return errs, mism, bit
+
+
+def render_k1(p, cam, width, height, E, **kw):
+    """rasterize (render()'s path, K1/K2) of p at cam → RasterizeOut."""
+    import torch
+    from instascene_tpu_torch.ops.rasterize import RasterizeConfig, rasterize
+    from instascene_tpu_torch.render import camera_mats
+    cfg_kw = {k: kw.pop(k) for k in ("clip_rect", "conic_cull",
+                                     "bwd_extras_only", "fwd_viewer")
+              if k in kw}
+    return rasterize(p.xyz, p.scaling_activated(), p.rotation_normalized(),
+                     p.opacity_activated()[:, 0],
+                     camera_mats(cam, p.device), torch.zeros(3),
+                     RasterizeConfig(width, height, **cfg_kw),
+                     shs=p.features(), sh_degree=p.active_sh_degree,
+                     extras=p.seg_feature_normed()[:, :E].contiguous()
+                     if E else None, alive=p.alive, **kw)
+
+
+def render_padded(p, cam, width, height, E):
+    """The padded-layout frame a user composes for gradients: preprocess,
+    binning, padded_layout, pack, pack_inputs, blend_padded_diff (K7/K8)
+    → (maps, K)."""
+    from instascene_tpu_torch.ops.binning import bin_gaussians, padded_layout
+    from instascene_tpu_torch.ops.blend_padded import (blend_padded_diff,
+                                                       pack_inputs)
+    from instascene_tpu_torch.ops.blend_visits import pack_flat_cols
+    from instascene_tpu_torch.ops.preprocess import preprocess_gaussians
+    from instascene_tpu_torch.ops.rasterize import maps_from_tiles
+    from instascene_tpu_torch.render import camera_mats
+    cm = camera_mats(cam, p.device)
+    opac = p.opacity_activated()[:, 0]
+    pre = preprocess_gaussians(
+        p.xyz, p.scaling_activated(), p.rotation_normalized(), cm.w2v,
+        cm.full_proj, cm.campos, width, height, opac, shs=p.features(),
+        sh_degree=p.active_sh_degree, alive=p.alive)
+    idx, count = padded_layout(bin_gaussians(pre, width, height))
+    flat = pack_flat_cols(pre.T, pre.xy, pre.normal_view, opac, pre.color,
+                          p.seg_feature_normed()[:, :E].contiguous()
+                          if E else None)
+    out, iout = blend_padded_diff(pack_inputs(flat, idx), count,
+                                  (width + 15) // 16, E)
+    maps = maps_from_tiles(out, iout, width, height, E)
+    maps["color"] = maps["color_nobg"]          # a zero background
+    return maps, idx.shape[1]
+
+
+GRAD_FIELDS = ("xyz", "scaling", "rotation", "opacity", "features_dc",
+               "seg_feature")
+
+
+def with_grads(p):
+    """A copy of p whose parameter tensors require gradients."""
+    import dataclasses
+    return dataclasses.replace(p, **{
+        f: getattr(p, f).detach().clone().requires_grad_(True)
+        for f in GRAD_FIELDS if getattr(p, f) is not None})
+
+
+def map_loss(maps, weights):
+    """Σ over the maps of weights·map, summed in float64."""
+    return sum((maps[k].double() * w).sum() for k, w in weights.items())
+
+
+def map_weights(maps, seed, dev):
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return {k: torch.randn(maps[k].shape, generator=gen, device=dev).double()
+            for k in MAP_TOL if maps.get(k) is not None and maps[k].numel()}
+
+
+def grads_of(p, loss):
+    """{field: d loss / d field} of a with_grads copy."""
+    import torch
+    fields = [f for f in GRAD_FIELDS if getattr(p, f) is not None]
+    gs = torch.autograd.grad(loss, [getattr(p, f) for f in fields])
+    return dict(zip(fields, gs))
+
+
+def grad_rel_err(got, want):
+    """Largest |got − want| over want's largest |value|, per gradient."""
+    return {k: float((got[k] - want[k]).abs().max()
+                     / want[k].abs().max().clamp(min=1e-30)) for k in want}
+
+
+def envelope_misses(p, cam, width, height, pre0):
+    """test_coherent.py:75-90's rule, as the number of gaussians that break
+    it (0: cam is inside the envelope): every gaussian with pairs at cam
+    had pairs at the cache camera, and its fresh rect lies inside the
+    cached dilated rect."""
+    import torch
+    from instascene_tpu_torch.ops.binning import dilate_rects
+    gx, gy = (width + 15) // 16, (height + 15) // 16
+    dmin, dmax, _ = dilate_rects(pre0.rect_min, pre0.rect_max,
+                                 pre0.tiles_touched, gx, gy, 1)
+    pre = frame_stages(p, cam, width, height, False)[0]()
+    need = pre.tiles_touched > 0
+    ok = ((pre0.tiles_touched > 0) & (pre.rect_min >= dmin).all(-1)
+          & (pre.rect_max <= dmax).all(-1))
+    return int((need & ~ok).sum())
+
+
+def padded_superset_phase(st, make_cam, dev):
+    """Phase 8: the padded and cached-superset paths at full width, launch
+    counts reset just before their entry points and read just after:
+    rasterize_padded_fwd (K7) at 1920x1080 on camera 0 and four orbit
+    frames; the padded layout's differentiable frame (K7/K8) at 976x728
+    without and with features; rasterize with clip_rect over a cache
+    dilated by one tile at camera 0 (K1/K2 clip_rect, full and
+    extras_only) and at an orbit step inside its envelope; rasterize over
+    bench.py's 128 tiles of view 1 (K3/K4 full, K3 viewer); rasterize with
+    conic_cull at 1080p. Then each against its reference and the kernels
+    timed with their bounds. Returns the numbers for the kernels' line."""
+    import torch
+    from instascene_tpu_torch.models.gaussians import from_numpy
+    from instascene_tpu_torch.ops.rasterize import compute_binning_cache
+    from instascene_tpu_torch.ops.rasterize_padded import (
+        rasterize_padded_fwd)
+    from instascene_tpu_torch.render import camera_mats
+    from instascene_tpu_torch.viewer.gui import OrbitCamera
+    FW, FH = FULL["width"], FULL["height"]
+    SW, SH = SEM["width"], SEM["height"]
+    p16 = from_numpy(st, dev)
+    p0 = train_scene(st, dev)
+    orbit = OrbitCamera(FW, FH, r=4.0)
+    cams = [make_cam(0, FW, FH)]
+    for _ in range(4):
+        orbit.orbit(400.0, 60.0)
+        cams.append(orbit.minicam())
+    sem0, sem1 = make_cam(0, SW, SH), make_cam(1, SW, SH)
+    sel = bench_tiles(SW, SH)[0]
+    res = {}
+
+    # ---- the entry points, counted
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        padded = []
+        for c in cams:
+            cm = camera_mats(c, dev)
+            maps = rasterize_padded_fwd(
+                p16.xyz, p16.scaling_activated(), p16.rotation_normalized(),
+                p16.opacity_activated()[:, 0], cm, torch.zeros(3), FW, FH,
+                shs=p16.features(), sh_degree=p16.active_sh_degree,
+                extras=p16.seg_feature_normed(), alive=p16.alive)[0]
+            check(all(bool(torch.isfinite(v).all()) for v in maps.values()),
+                  "rasterize_padded_fwd: non-finite maps")
+            padded.append(maps)
+    diff = {}
+    for tag, p, E in (("E=0", p0, 0), ("E=16", p16, 16)):
+        pg = with_grads(p)
+        maps, K = render_padded(pg, sem0, SW, SH, E)
+        w = map_weights(maps, 31 + E, dev)
+        loss = map_loss(maps, w)
+        diff[tag] = (pg, float(loss), grads_of(pg, loss), w, K)
+    cache0 = compute_binning_cache(p16, camera_mats(sem0, dev), SW, SH,
+                                   dilate_tiles=1)
+    clip = {}
+    for mode in ("full", "extras_only"):
+        pg = with_grads(p16)
+        o = render_k1(pg, sem0, SW, SH, 16, clip_rect=True,
+                      cached_binning=cache0,
+                      bwd_extras_only=mode == "extras_only")
+        w = map_weights(maps_of(o.blend), 41, dev)
+        if mode == "extras_only":
+            w = {"extra": w["extra"], "final_T": w["final_T"]}
+        loss = map_loss(maps_of(o.blend), w)
+        clip[mode] = (maps_of(o.blend), grads_of(pg, loss), w)
+    pre0 = frame_stages(p16, sem0, SW, SH, False)[0]()
+    step, misses = None, {}
+    for i in (0.02, 0.01, 0.005, 0.002, 0.001, 0.0005, 0.0002, 0.0001):
+        c = make_cam(i, SW, SH)
+        misses[i] = envelope_misses(p16, c, SW, SH, pre0)
+        if not misses[i]:
+            with torch.no_grad():
+                step = (i, c, maps_of(render_k1(
+                    p16, c, SW, SH, 16, clip_rect=True,
+                    cached_binning=cache0).blend))
+            break
+    cache1 = compute_binning_cache(p16, camera_mats(sem1, dev), SW, SH)
+    pg = with_grads(p16)
+    o = render_k1(pg, sem1, SW, SH, 16, cached_binning=cache1, tile_ids=sel)
+    w = map_weights(maps_of(o.blend), 51, dev)
+    tiles = (maps_of(o.blend), grads_of(pg, map_loss(maps_of(o.blend), w)),
+             w)
+    with torch.no_grad():
+        tiles_viewer = maps_of(render_k1(p16, sem1, SW, SH, 16,
+                                         cached_binning=cache1,
+                                         tile_ids=sel, fwd_viewer=True).blend)
+        culled = render_k1(p16, cams[0], FW, FH, 16, conic_cull=True)
+    torch.cuda.synchronize()
+    launches = counts()
+    print(f"[padded] launches on the padded and cached-superset paths: "
+          f"{launches}; host wall {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    for k in ("K7", "K8", "K1 full clip_rect", "K2 full clip_rect",
+              "K1 extras_only clip_rect", "K2 extras_only clip_rect",
+              "K3 full", "K3 viewer", "K4 full", "K1 full"):
+        check(launches[k] > 0, f"phase 8 never launched {k}")
+    res["launches"] = launches
+
+    # ---- 1. K7's 1080p maps against render()'s rasterizer (K1 full)
+    with torch.no_grad():
+        for i, (c, got) in enumerate(zip(cams, padded)):
+            want = maps_of(render_k1(p16, c, FW, FH, 16).blend)
+            errs, mism, bit = compare_maps(f"K7 1080p frame {i}", got, want)
+            print(f"[padded] 1080p frame {i}: K7's maps against render()'s "
+                  f"K1: " + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
+                  + f", n_contrib mismatches {mism}, bit for bit: {bit}",
+                  flush=True)
+        flat, b, gx = frame_inputs(p16, cams[0], FW, FH, True)
+        r = compare_padded("full-width", flat, b, gx, 16, exact=False,
+                           timing=True, bwd=False)
+        flat, b, gx = frame_inputs(p16, cams[0], FW, FH, True, 8)
+        r8 = compare_padded("full-width", flat, b, gx, 8, exact=False,
+                            timing=True, bwd=False)
+        del flat, b
+    k7 = r["k7"]
+    print(f"[padded] 1080p camera 0, E=16: K={r['K']}, packed "
+          f"{r['packed_bytes']} bytes; K7 {k7['ms']:.4f} ms, K1 full "
+          f"{k7['k1_ms']:.4f} ms, plain {k7['plain_ms']:.1f} ms, bound "
+          f"{k7['bound_ms']:.4f} ms ({k7['bound_by']}: {k7['bytes']} bytes, "
+          f"{k7['evals']} evaluations, {k7['hits']} contributions); E=8: K7 "
+          f"{r8['k7']['ms']:.4f} ms, K1 full {r8['k7']['k1_ms']:.4f} ms, "
+          f"bound {r8['k7']['bound_ms']:.4f} ms", flush=True)
+    res["k7"] = dict(k7, K=r["K"], packed_bytes=r["packed_bytes"],
+                     ms_E8=r8["k7"]["ms"], k1_ms_E8=r8["k7"]["k1_ms"],
+                     bound_ms_E8=r8["k7"]["bound_ms"])
+
+    # ---- 2. K8: the padded frame's gradients against rasterize's (K1/K2)
+    for tag, p, E in (("E=0", p0, 0), ("E=16", p16, 16)):
+        pg, loss, grads, w, K = diff[tag]
+        pk = with_grads(p)
+        o = render_k1(pk, sem0, SW, SH, E)
+        want = maps_of(o.blend)
+        lk = map_loss(want, w)
+        gk = grads_of(pk, lk)
+        rel = grad_rel_err(grads, gk)
+        lrel = abs(loss - float(lk)) / abs(float(lk))
+        print(f"[padded] 976x728 {tag}: K={K}; loss through K7/K8 {loss!r}, "
+              f"through K1/K2 {float(lk)!r} (rel {lrel:.3g}, tol 1e-4); "
+              f"gradients " + " ".join(f"{k} {v:.3g}" for k, v in
+                                       rel.items()) + " of the largest "
+              f"(tol 3e-3)", flush=True)
+        check(lrel <= 1e-4 and max(rel.values()) <= 3e-3,
+              f"K7/K8 {tag}: loss {lrel}, gradients {rel}")
+    with torch.no_grad():
+        res["k8"] = {}
+        for tag, p, E in (("E=0", p0, 0), ("E=16", p16, 16)):
+            flat, b, gx = frame_inputs(p, sem0, SW, SH, E > 0, E)
+            r = compare_padded(f"976x728 {tag}", flat, b, gx, E, exact=False,
+                               timing=True)
+            res["k8"][tag] = dict(r["k8"], K=r["K"],
+                                  packed_bytes=r["packed_bytes"],
+                                  k7_ms=r["k7"]["ms"])
+            del flat, b
+    from instascene_tpu_torch.ops.binning import padded_layout
+    from instascene_tpu_torch.ops.blend_padded import pack_inputs
+    flat, b, gx = frame_inputs(p16, sem0, SW, SH, True)
+    idx, _ = padded_layout(b)
+    fl = flat.detach().requires_grad_(True)
+    packed = pack_inputs(fl, idx)
+    dp = torch.randn(packed.shape, device=dev)
+    g1 = torch.autograd.grad(packed, fl, dp, retain_graph=True)[0]
+    g2 = torch.autograd.grad(packed, fl, dp, retain_graph=True)[0]
+    gather_det = bool(torch.equal(g1, g2))
+    gather_ms = time_ms(lambda: torch.autograd.grad(
+        packed, fl, dp, retain_graph=True), 5)
+    del flat, b, fl, packed, dp, g1, g2
+    for tag in ("E=0", "E=16"):
+        r = res["k8"][tag]
+        print(f"[padded] 976x728 {tag}: K={r['K']}, packed "
+              f"{r['packed_bytes']} bytes; K8 {r['ms']:.4f} ms, K2 full "
+              f"{r['k2_ms']:.4f} ms, plain {r['plain_ms']:.1f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bytes']} bytes, "
+              f"{r['ops']} FP32 ops); K7 {r['k7_ms']:.4f} ms", flush=True)
+    print(f"[padded] 976x728 E=16: the gather's backward (pack_inputs, "
+          f"torch autograd) {gather_ms:.4f} ms; two runs bit for bit equal: "
+          f"{gather_det}", flush=True)
+    res["gather_backward"] = {"ms": gather_ms, "deterministic": gather_det}
+
+    # ---- 3. clip_rect at camera 0 against the fresh render, an orbit step
+    for mode in ("full", "extras_only"):
+        pf = with_grads(p16)
+        o = render_k1(pf, sem0, SW, SH, 16,
+                      bwd_extras_only=mode == "extras_only")
+        got_maps, got_grads, w = clip[mode]
+        want = maps_of(o.blend)
+        gf = grads_of(pf, map_loss(want, w))
+        errs = {k: float((got_maps[k] - want[k]).abs().max())
+                for k in MAP_TOL if want[k] is not None}
+        rel = grad_rel_err(got_grads, gf)
+        print(f"[superset] 976x728 camera 0, {mode}: {cache0.total_pairs} "
+              f"cached pairs; clip_rect maps against the fresh render "
+              + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
+              + " (tol 2e-6); gradients " + " ".join(
+                  f"{k} {v:.3g}" for k, v in rel.items())
+              + " of the largest (tol 3e-3)", flush=True)
+        check(max(errs.values()) <= 2e-6 and max(rel.values()) <= 3e-3,
+              f"clip_rect {mode} at the cache camera: maps {errs}, "
+              f"gradients {rel}")
+    if step is None:
+        print(f"[superset] no orbit step stayed inside the dilated "
+              f"envelope; gaussians outside it by step (in camera steps of "
+              f"2π/16): {misses}", flush=True)
+    else:
+        i, c, got = step
+        with torch.no_grad():
+            want = maps_of(render_k1(p16, c, SW, SH, 16).blend)
+        print(f"[superset] orbit step {i} (inside the envelope): largest "
+              f"map difference against the fresh render " + " ".join(
+                  f"{k}={float((got[k] - want[k]).abs().max()):.3g}"
+                  for k in MAP_TOL), flush=True)
+    with torch.no_grad():
+        res["clip"] = compare_clip("976x728", p16, sem0, SW, SH,
+                                   modes=("full", "extras_only"),
+                                   timing=("full", "extras_only"))
+    for mode in ("full", "extras_only"):
+        r = res["clip"][mode]
+        k2 = r["k2"]
+        print(f"[superset] 976x728 {mode} clip_rect: K1 {r['ms']:.4f} ms "
+              f"(fresh binning {r['fresh_ms']:.4f}), plain "
+              f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}); K2 {k2['ms']:.4f} ms, plain "
+              f"{k2['plain_ms']:.1f} ms, bound {k2['bound_ms']:.4f} ms "
+              f"({k2['bound_by']})", flush=True)
+
+    # ---- 4. K3/K4 full, K3 viewer over bench.py's 128 tiles of view 1
+    with torch.no_grad():
+        want = maps_of(render_k1(p16, sem1, SW, SH, 16,
+                                 cached_binning=cache1).blend)
+        pix = torch.zeros(((SH + 15) // 16) * ((SW + 15) // 16),
+                          dtype=torch.bool, device=dev)
+        pix[sel.long()] = True
+        gxs = (SW + 15) // 16
+        pix = pix.reshape(-1, 1, gxs, 1).expand(-1, 16, gxs, 16).reshape(
+            -1, gxs * 16)[:SH, :SW]
+        bit = all(bool(torch.equal(tiles[0][k][pix], want[k][pix]))
+                  for k in MAP_TOL)
+        bitv = all(bool(torch.equal(tiles_viewer[k][pix], want[k][pix]))
+                   for k in ("color", "final_T", "extra"))
+        print(f"[tiles] view 1, {sel.numel()} tiles: rasterize(tile_ids=) "
+              f"full maps bit for bit the whole frame's: {bit}, viewer "
+              f"color/T/features: {bitv}", flush=True)
+        check(bit and bitv, "rasterize(tile_ids=) differs from the whole "
+              "frame on its tiles")
+        flat, b, gx = frame_inputs(p16, sem1, SW, SH, True)
+        res["tiles"] = compare_tile_modes("976x728 view 1", flat, b, gx, sel,
+                                          timing=True)
+        del flat, b
+    for mode in ("full", "viewer"):
+        r = res["tiles"][mode]
+        print(f"[tiles] view 1 K3 {mode}: {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})", flush=True)
+    r = res["tiles"]["k4"]
+    print(f"[tiles] view 1 K4 full: {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']})", flush=True)
+
+    # ---- 5. conic culling at 1080p
+    with torch.no_grad():
+        want = render_k1(p16, cams[0], FW, FH, 16)
+        # culled slots shift the slot numbers: n_contrib is not a map here
+        errs, mism, bit = compare_maps("conic_cull 1080p",
+                                       maps_of(culled.blend),
+                                       maps_of(want.blend), n_contrib=False)
+        cm = camera_mats(cams[0], dev)
+        args = (p16.xyz, p16.scaling_activated(), p16.rotation_normalized(),
+                cm.w2v, cm.full_proj, cm.campos, FW, FH,
+                p16.opacity_activated()[:, 0])
+        kw = dict(shs=p16.features(), sh_degree=p16.active_sh_degree,
+                  alive=p16.alive)
+        from instascene_tpu_torch.ops.binning import bin_gaussians
+        from instascene_tpu_torch.ops.preprocess import preprocess_gaussians
+        times = {}
+        for on in (False, True):
+            pre = preprocess_gaussians(*args, conic_cull=on, **kw)
+            times[on] = (time_ms(lambda: preprocess_gaussians(
+                *args, conic_cull=on, **kw), 5),
+                time_ms(lambda: bin_gaussians(pre, FW, FH), 5))
+    print(f"[conic] 1080p camera 0: pairs {want.total_pairs} without, "
+          f"{culled.total_pairs} with conic_cull "
+          f"({1 - culled.total_pairs / want.total_pairs:.3%} fewer); "
+          f"preprocess + binning {times[False][0]:.4f} + "
+          f"{times[False][1]:.4f} ms without, {times[True][0]:.4f} + "
+          f"{times[True][1]:.4f} ms with; maps against the unculled "
+          f"render " + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
+          + f" (n_contrib differs on {mism} pixels: culling renumbers the "
+          f"slots), bit for bit: {bit}", flush=True)
+    check(culled.total_pairs < want.total_pairs,
+          "conic_cull removed no pair at 1080p")
+    res["conic"] = {"pairs": want.total_pairs,
+                    "pairs_culled": culled.total_pairs,
+                    "ms": times[False], "ms_culled": times[True]}
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1647,7 +2413,10 @@ def main() -> int:
                  for v in range(3)]
         fm, bm, T = merge_binnings(views)
         compare_selected("mid-size", fm, bm, gx, ("views", T, views))
-        del p_mid, flat, b, views, fm, bm
+        del flat, b, views, fm, bm
+        # the padded layout, clip_rect, K3/K4 full/viewer, E = 4 and 8
+        mid_size_layouts_and_widths(p_mid, make_cam, dev)
+        del p_mid
 
         st, make_cam = make_bench_scene(n=FULL["n"], seed=0,
                                         profile="trained")
@@ -1758,10 +2527,15 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     sem_counts = sem_cli["counts"]
     phase_s["semantic CLI (4 runs)"] = time.perf_counter() - t_phase
+
+    # ---- 8. the padded and cached-superset paths at full width
+    t_phase = time.perf_counter()
+    pad = padded_superset_phase(st, make_cam, dev)
+    phase_s["padded and cached superset"] = time.perf_counter() - t_phase
     print("[phases] seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_s.items()), flush=True)
 
-    # ---- 8. the card again (the start of a long log may be cut), the
+    # ---- 9. the card again (the start of a long log may be cut), the
     # kernels' line and the result
     print(smi_line, flush=True)
     frame = (f"{TRAIN['width']}x{TRAIN['height']}, {len(st['xyz'])} "
@@ -1881,6 +2655,56 @@ def main() -> int:
               "instascene_tpu/ops/blend_visits.py:395",
               f"tiles_per_view ({window})", cm["K2 tiles_per_view"],
               sem_k["merged"]["k2"])]
+    # K7/K8 and the clip_rect and tile-list modes of K1-K4, launches on
+    # phase 8's path; E=8 times beside E=16 where both ran
+    pl = pad["launches"]
+    k7, k8 = pad["k7"], pad["k8"]
+    sframe0 = f"{SEM['width']}x{SEM['height']}, camera 0"
+    kernels += [
+        entry("blend_fwd_padded (K7)", "blend_padded.cu",
+              "instascene_tpu/ops/blend_pallas.py:185",
+              f"full over the padded layout, {where_1080}, camera 0, K="
+              f"{k7['K']}", pl["K7"], k7, k1_full_ms=k7["k1_ms"],
+              ms_E8=k7["ms_E8"], k1_full_ms_E8=k7["k1_ms_E8"],
+              bound_ms_E8=k7["bound_ms_E8"],
+              packed_bytes=k7["packed_bytes"]),
+        entry("blend_bwd_padded (K8)", "blend_padded.cu",
+              "instascene_tpu/ops/blend_pallas.py:333",
+              f"full over the padded layout, {sframe0}, E=0, K="
+              f"{k8['E=0']['K']}", pl["K8"], k8["E=0"],
+              k2_full_ms=k8["E=0"]["k2_ms"],
+              **{f"{f}_E16": k8["E=16"][k]
+                 for f, k in (("ms", "ms"), ("k2_full_ms", "k2_ms"),
+                              ("bound_ms", "bound_ms"),
+                              ("plain_ms", "plain_ms"))},
+              gather_backward_ms=pad["gather_backward"]["ms"],
+              gather_backward_deterministic=pad["gather_backward"][
+                  "deterministic"])]
+    for mode in ("full", "extras_only"):
+        r = pad["clip"][mode]
+        where = (f"{mode} clip_rect, {sframe0}, a binning dilated by one "
+                 f"tile ({pad['clip']['pairs']} pairs, fresh "
+                 f"{pad['clip']['fresh_pairs']})")
+        kernels += [
+            entry("blend_fwd", "blend_fwd.cu",
+                  "instascene_tpu/ops/blend_visits.py:62", where,
+                  pl[f"K1 {mode} clip_rect"], r, fresh_binning_ms=r[
+                      "fresh_ms"]),
+            entry("blend_bwd", "blend_bwd.cu",
+                  "instascene_tpu/ops/blend_visits.py:395", where,
+                  pl[f"K2 {mode} clip_rect"], r["k2"])]
+    t1 = f"over bench.py's {SEM['mv_k']} tiles of view 1, {sframe}"
+    kernels += [
+        entry("blend_fwd (K3: tile list)", "blend_fwd.cu",
+              "instascene_tpu/ops/blend_pallas.py:546", f"full {t1}",
+              pl["K3 full"], pad["tiles"]["full"]),
+        entry("blend_fwd (K3: tile list)", "blend_fwd.cu",
+              "instascene_tpu/ops/blend_pallas.py:546", f"viewer {t1}",
+              pl["K3 viewer"], pad["tiles"]["viewer"]),
+        entry("blend_bwd (K4: tile list)", "blend_bwd.cu",
+              "instascene_tpu/ops/blend_pallas.py:785", f"full {t1}",
+              pl["K4 full"], pad["tiles"]["k4"])]
+    kernels[1]["ms_E8"] = k7["k1_ms_E8"]
     variants = {k: {"window_step_median_ms": sem[k]["mv"]["median_ms"],
                     "plain_step_median_ms": (sem[k]["plain"]["median_ms"]
                                              if "plain" in sem[k] else None),
@@ -1893,6 +2717,7 @@ def main() -> int:
         "semantic_sustained_its": sem["sustained_its"],
         "semantic_variants": variants,
         "jax_capped_chunks": sem_k["jax_capped_chunks"],
+        "conic_cull_1080p": pad["conic"],
         "tracker_s_per_view": sem["tracker_s"],
         "semantic_cli_s": {k: sem_cli[k] for k in (
             "tracker renders", "spatial track", "training",

@@ -2,9 +2,11 @@
 //
 // Replaces the TPU kernel instascene_tpu/ops/blend_visits.py::_fwd_kernel_visits
 // (K1) in its `full`, `viewer`, `no_dist`, `extras_only` (with the optional
-// sampled-pixel done0 mask), `track` and `tiles_per_view` modes, and
-// instascene_tpu/ops/blend_pallas.py::_fwd_kernel_aligned (K3) over a
-// tile-subset mini bundle. Same function, same public layout:
+// sampled-pixel done0 mask), `track`, `clip_rect` and `tiles_per_view`
+// modes, and instascene_tpu/ops/blend_pallas.py::_fwd_kernel_aligned (K3)
+// over a tile-subset mini bundle, in every mode. The walk is
+// csrc/blend_walk.cuh's blend_fwd_kernel over FlatRows (K7 walks the same
+// code over the padded layout). Same function, same public layout:
 //   out  [num_tiles, 12+E, 256] f32: 0:3 color (no background), 3 expected
 //        depth sum, 4:7 view normal, 7 median depth, 8 distortion, 9 final T,
 //        10:10+E features, 10+E / 11+E the m1 / m2 totals
@@ -24,6 +26,16 @@
 // buffer: each contribution with w > 0.1 writes its gaussian id
 // (sorted_gid) and w into the pixel's next of TRACK_K = 10 slots, in blend
 // order; empty slots are -1 and 0 (ids, w [T, 10, 256]).
+//
+// `clip_rect` (a flag beside `full`, `viewer`, `no_dist` and `extras_only`,
+// not `track`): flat carries 4 trailing columns, each gaussian's fresh tile
+// rect (rmin_x, rmax_x, rmin_y, rmax_y), and a pair contributes only where
+// its tile lies in that rect. A cached superset pair list (a binning
+// dilated at a nearby camera, ops/binning.py) then blends exactly as the
+// fresh binning's pairs: the gated slots contribute nothing, though they
+// keep their slot numbers (n_contrib counts them). Feature widths: E = 0
+// and 16 are compiled as constants; any other E in [1, 256] runs the
+// run-time-width instantiation (blend_walk.cuh), with the same values.
 //
 // Two arguments select the tiles and their pixels, in every mode:
 //   * tile_ids [K] (K3; null: every tile): block b renders tile tile_ids[b]
@@ -82,149 +94,11 @@
 
 #include <cuda_runtime.h>
 
-#include "splat.cuh"
+#include "blend_walk.cuh"
 
 namespace {
 
-using namespace splat;
-
-constexpr int BATCH = 256;  // pair rows staged in shared memory per pass
-
-// ops/blend_visits.MODES
-enum Mode { FULL = 0, VIEWER = 1, NO_DIST = 2, EXTRAS = 3, TRACK = 4 };
-constexpr int TRACK_K = 10;      // contributor slots per pixel
-constexpr float TRACK_W = 0.1f;  // a contribution is tracked when w > this
-
-template <int E, int MODE>
-__global__ void __launch_bounds__(P2)
-blend_fwd_kernel(const float* __restrict__ flat,
-                 const int* __restrict__ sorted_gid,
-                 const int* __restrict__ tile_start,
-                 const int* __restrict__ tile_end, int grid_x,
-                 const int* __restrict__ tile_ids, int tiles_per_view,
-                 const int* __restrict__ done0, float* __restrict__ out,
-                 int* __restrict__ iout, int* __restrict__ track_ids,
-                 float* __restrict__ track_w) {
-  constexpr int D = 21 + E;
-  constexpr int OC = 12 + E;
-  constexpr int NF = E > 0 ? E : 1;
-  constexpr bool COLOR = MODE != EXTRAS;
-  constexpr bool AUX = MODE != VIEWER && MODE != EXTRAS;  // normal, median
-  constexpr bool DIST = MODE == FULL || MODE == TRACK;    // depth, distortion
-  __shared__ float rows[BATCH * D];
-  __shared__ int gids[MODE == TRACK ? BATCH : 1];
-
-  const int row = blockIdx.x;                      // output row
-  const int t = tile_ids != nullptr ? tile_ids[row] : row;
-  const int tl = tiles_per_view > 0 ? t % tiles_per_view : t;
-  const int p = threadIdx.x;
-  const float pxf = (float)((tl % grid_x) * TILE + p % TILE);
-  const float pyf = (float)((tl / grid_x) * TILE + p / TILE);
-  const int s = tile_start[t];
-  const int e = tile_end[t];
-
-  float T = 1.0f;
-  // done0 (extras_only only): pixels the caller will not read start latched
-  bool done = MODE == EXTRAS && done0 != nullptr &&
-              done0[(size_t)t * P2 + p] != 0;
-  int n_track = 0;
-  int* tid =
-      MODE == TRACK ? track_ids + (size_t)row * TRACK_K * P2 + p : nullptr;
-  float* tw =
-      MODE == TRACK ? track_w + (size_t)row * TRACK_K * P2 + p : nullptr;
-  float col0 = 0.f, col1 = 0.f, col2 = 0.f;
-  float feat[NF];
-#pragma unroll
-  for (int k = 0; k < NF; ++k) feat[k] = 0.f;
-  float dep = 0.f, nx = 0.f, ny = 0.f, nz = 0.f, med = 0.f, dist = 0.f;
-  float M1 = 0.f, M2 = 0.f;
-  int last = 0, med_slot = 0;
-
-  for (int base = s; base < e; base += BATCH) {
-    // every pixel latched done: nothing later in the tile can change it.
-    // Also the barrier that keeps the previous batch's rows alive until all
-    // threads finished reading them.
-    if (__syncthreads_count(done) == P2) break;
-    const int nb = min(BATCH, e - base);
-    for (int i = p; i < nb * D; i += P2) {
-      const int r = i / D;
-      const int c = i - r * D;
-      rows[i] = flat[(size_t)sorted_gid[base + r] * D + c];
-    }
-    if (MODE == TRACK && p < nb) gids[p] = sorted_gid[base + p];
-    __syncthreads();
-    if (done) continue;
-    for (int j = 0; j < nb; ++j) {
-      const float* g = rows + j * D;
-      const Terms q = eval(g, pxf, pyf);
-      if (!q.m) continue;
-      const float test_T = T * (1.0f - q.alpha);
-      if (test_T < T_DONE) {
-        done = true;
-        break;
-      }
-      const float w = q.alpha * T;
-      const int slot = base - s + j + 1;
-      if (COLOR) {
-        col0 = col0 + w * g[COL];
-        col1 = col1 + w * g[COL + 1];
-        col2 = col2 + w * g[COL + 2];
-      }
-#pragma unroll
-      for (int k = 0; k < E; ++k) feat[k] = feat[k] + w * g[EXT + k];
-      if (AUX) {
-        nx = nx + w * g[NRM];
-        ny = ny + w * g[NRM + 1];
-        nz = nz + w * g[NRM + 2];
-        if (DIST) {
-          dep = dep + w * q.depth_ray;
-          // 2DGS distortion, per-contribution form (forward.cu:396-410)
-          const float md = MD_SCALE * (1.0f - NEAR_N / q.depth_ray);
-          const float A = 1.0f - T;
-          dist = dist + w * (md * md * A + M2 - 2.0f * md * M1);
-          M1 = M1 + md * w;
-          M2 = M2 + md * md * w;
-        }
-        if (T > 0.5f) {  // median: last contributor entered with T > 0.5
-          med = q.depth_ray;
-          med_slot = slot;
-        }
-      }
-      if (MODE == TRACK && w > TRACK_W && n_track < TRACK_K) {
-        tid[n_track * P2] = gids[j];
-        tw[n_track * P2] = w;
-        ++n_track;
-      }
-      last = slot;
-      T = test_T;
-    }
-  }
-  if (MODE == TRACK) {
-    for (int k = n_track; k < TRACK_K; ++k) {
-      tid[k * P2] = -1;
-      tw[k * P2] = 0.0f;
-    }
-  }
-
-  float* o = out + (size_t)row * OC * P2 + p;
-  int* io = iout + (size_t)row * 2 * P2 + p;
-  o[0 * P2] = col0;
-  o[1 * P2] = col1;
-  o[2 * P2] = col2;
-  o[3 * P2] = dep;
-  o[4 * P2] = nx;
-  o[5 * P2] = ny;
-  o[6 * P2] = nz;
-  o[7 * P2] = med;
-  o[8 * P2] = dist;
-  o[9 * P2] = T;
-#pragma unroll
-  for (int k = 0; k < E; ++k) o[(10 + k) * P2] = feat[k];
-  o[(10 + E) * P2] = M1;
-  o[(11 + E) * P2] = M2;
-  io[0] = last;
-  io[P2] = med_slot;
-}
+using namespace walk;
 
 struct Args {
   const float* flat;
@@ -232,6 +106,7 @@ struct Args {
   const int* tile_start;
   const int* tile_end;
   int grid_x;
+  int n_extra;
   const int* tile_ids;
   int tiles_per_view;
   const int* done0;
@@ -241,25 +116,34 @@ struct Args {
   float* track_w;
 };
 
-template <int E, int MODE>
+template <int ET, int MODE, bool CLIP>
 void launch_mode(const Args& a, int num_rows, cudaStream_t stream) {
-  blend_fwd_kernel<E, MODE><<<num_rows, P2, 0, stream>>>(
-      a.flat, a.sorted_gid, a.tile_start, a.tile_end, a.grid_x, a.tile_ids,
-      a.tiles_per_view, a.done0, a.out, a.iout, a.track_ids, a.track_w);
+  const FlatRows src{a.flat, a.sorted_gid, a.tile_start, a.tile_end};
+  const int D = 21 + a.n_extra + (CLIP ? RECT : 0);
+  const int batch = ET < 0 ? fwd_batch(D) : BATCH;
+  const size_t smem = ET < 0 ? (size_t)batch * D * sizeof(float) : 0;
+  blend_fwd_kernel<ET, MODE, CLIP, FlatRows><<<num_rows, P2, smem, stream>>>(
+      src, a.n_extra, batch, a.grid_x, a.tile_ids, a.tiles_per_view, a.done0,
+      a.out, a.iout, a.track_ids, a.track_w);
 }
 
-template <int E>
-cudaError_t launch(int mode, const Args& a, int num_rows,
+template <int ET>
+cudaError_t launch(int mode, bool clip, const Args& a, int num_rows,
                    cudaStream_t stream) {
   if (a.done0 != nullptr && mode != EXTRAS) return cudaErrorInvalidValue;
-  if (mode == TRACK && (a.track_ids == nullptr || a.track_w == nullptr))
+  if (mode == TRACK && (clip || a.track_ids == nullptr ||
+                        a.track_w == nullptr))
     return cudaErrorInvalidValue;
   void (*fn)(const Args&, int, cudaStream_t) =
-      mode == FULL      ? launch_mode<E, FULL>
-      : mode == VIEWER  ? launch_mode<E, VIEWER>
-      : mode == NO_DIST ? launch_mode<E, NO_DIST>
-      : mode == EXTRAS  ? launch_mode<E, EXTRAS>
-      : mode == TRACK   ? launch_mode<E, TRACK>
+      mode == FULL      ? (clip ? launch_mode<ET, FULL, true>
+                                : launch_mode<ET, FULL, false>)
+      : mode == VIEWER  ? (clip ? launch_mode<ET, VIEWER, true>
+                                : launch_mode<ET, VIEWER, false>)
+      : mode == NO_DIST ? (clip ? launch_mode<ET, NO_DIST, true>
+                                : launch_mode<ET, NO_DIST, false>)
+      : mode == EXTRAS  ? (clip ? launch_mode<ET, EXTRAS, true>
+                                : launch_mode<ET, EXTRAS, false>)
+      : mode == TRACK   ? launch_mode<ET, TRACK, false>
                         : nullptr;
   if (fn == nullptr) return cudaErrorInvalidValue;
   fn(a, num_rows, stream);
@@ -272,20 +156,24 @@ cudaError_t launch(int mode, const Args& a, int num_rows,
 // num_rows blocks: the length of tile_ids, or the number of tiles when
 // tile_ids is null. tiles_per_view 0 is off. done0 may be null (required
 // null outside extras_only); track_ids and track_w are read only in track
-// mode.
+// mode. clip_rect 1: flat has 21 + n_extra + 4 columns (not with track).
+// n_extra: 0 <= E <= 256.
 extern "C" int blend_fwd_launch(const float* flat, const int* sorted_gid,
                                 const int* tile_start, const int* tile_end,
                                 int num_rows, int grid_x, int n_extra,
-                                int mode, const int* tile_ids,
+                                int mode, int clip_rect, const int* tile_ids,
                                 int tiles_per_view, const int* done0,
                                 float* out, int* iout, int* track_ids,
                                 float* track_w, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (num_rows <= 0) return (int)cudaSuccess;
-  const Args a{flat,   sorted_gid, tile_start, tile_end,
-               grid_x, tile_ids,   tiles_per_view,
-               done0,  out,        iout,       track_ids, track_w};
-  if (n_extra == 16) return (int)launch<16>(mode, a, num_rows, st);
-  if (n_extra == 0) return (int)launch<0>(mode, a, num_rows, st);
+  const Args a{flat,     sorted_gid, tile_start, tile_end, grid_x,
+               n_extra,  tile_ids,   tiles_per_view,       done0,
+               out,      iout,       track_ids,  track_w};
+  const bool clip = clip_rect != 0;
+  if (n_extra == 16) return (int)launch<16>(mode, clip, a, num_rows, st);
+  if (n_extra == 0) return (int)launch<0>(mode, clip, a, num_rows, st);
+  if (n_extra > 0 && n_extra <= MAX_E)
+    return (int)launch<DYN_E>(mode, clip, a, num_rows, st);
   return (int)cudaErrorInvalidValue;
 }

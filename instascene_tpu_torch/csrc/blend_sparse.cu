@@ -45,6 +45,13 @@
 // reduction (E shuffle rounds per warp and one barrier) is paid per walked
 // pair, as in K2.
 //
+// Feature widths: E = 16 is compiled as a constant; any other E in
+// [1, 256] runs the run-time-width instantiation (DYN_E): K5 accumulates a
+// slot's features in its own feat row (each thread owns its slot: no race,
+// the same order of additions), K6 reads gout per feature and reduces the
+// E columns in a loop, and the staged batch shrinks so that rows and
+// partials fit 48 KB of shared memory.
+//
 // Rounding: see splat.cuh. The plain PyTorch versions
 // (ops/blend_sparse.py::blend_sparse_fwd_reference, _bwd_reference) are
 // K1's and K2's plain versions evaluated at the sampled pixels.
@@ -59,18 +66,38 @@ using namespace splat;
 
 constexpr int BATCH = 128;          // pair rows staged in shared memory
 constexpr int MAX_THREADS = 128;    // S <= 128, as the JAX kernels take
+constexpr int MAX_WARPS = MAX_THREADS / 32;
 constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int DYN_E = -1;           // E given at run time
+constexpr int MAX_E = 256;
+constexpr int SMEM_BUDGET = 46 * 1024;
 
-template <int E>
+// pair rows staged per pass at run-time width (K6 also keeps its partials)
+int fwd_batch(int D) { return BATCH < SMEM_BUDGET / (4 * D) ? BATCH
+                                                          : SMEM_BUDGET / (4 * D); }
+int bwd_batch(int D, int E) {
+  const int b = (SMEM_BUDGET / 4 - 2 * MAX_WARPS * E) / D;
+  return BATCH < b ? BATCH : b;
+}
+
+template <int ET>
 __global__ void __launch_bounds__(MAX_THREADS)
 sparse_fwd_kernel(const float* __restrict__ flat,
                   const int* __restrict__ sorted_gid,
                   const int* __restrict__ tile_start,
                   const int* __restrict__ tile_end,
                   const int* __restrict__ spix, int S, int grid_x,
+                  int n_extra, int batch,
                   float* __restrict__ feat_out, float* __restrict__ aux_out) {
-  constexpr int D = 21 + E;
-  __shared__ float rows[BATCH * D];
+  constexpr bool DYN = ET < 0;
+  constexpr int ES = DYN ? 0 : ET;
+  constexpr int NF = ES > 0 ? ES : 1;
+  const int E = DYN ? n_extra : ET;
+  const int D = 21 + E;
+  const int nbatch = DYN ? batch : BATCH;
+  __shared__ float rows_s[DYN ? 1 : BATCH * (21 + ES)];
+  extern __shared__ float rows_d[];
+  float* rows = DYN ? rows_d : rows_s;
 
   const int t = blockIdx.x;
   const int i = threadIdx.x;
@@ -84,16 +111,23 @@ sparse_fwd_kernel(const float* __restrict__ flat,
 
   float T = 1.0f;
   bool done = sp < 0;          // empty slots start latched
-  float feat[E];
+  float feat[NF];
 #pragma unroll
-  for (int k = 0; k < E; ++k) feat[k] = 0.f;
+  for (int k = 0; k < NF; ++k) feat[k] = 0.f;
+  // run-time width: the slot's feat row accumulates in place (slots past S
+  // are latched and never contribute)
+  float* fo = feat_out + ((size_t)t * S + i) * E;
+  if constexpr (DYN) {
+    if (i < S)
+      for (int k = 0; k < E; ++k) fo[k] = 0.f;
+  }
   int last = 0;
 
-  for (int base = s; base < e; base += BATCH) {
+  for (int base = s; base < e; base += nbatch) {
     // every slot latched: nothing later in the tile can change one; also
     // the barrier that keeps the previous batch's rows until all read them
     if (__syncthreads_count(done) == nthr) break;
-    const int nb = min(BATCH, e - base);
+    const int nb = min(nbatch, e - base);
     for (int k = i; k < nb * D; k += nthr) {
       const int r = k / D;
       const int c = k - r * D;
@@ -111,35 +145,45 @@ sparse_fwd_kernel(const float* __restrict__ flat,
         break;
       }
       const float w = q.alpha * T;
+      if constexpr (DYN) {
+        for (int k = 0; k < E; ++k) fo[k] = fo[k] + w * g[EXT + k];
+      } else {
 #pragma unroll
-      for (int k = 0; k < E; ++k) feat[k] = feat[k] + w * g[EXT + k];
+        for (int k = 0; k < ES; ++k) feat[k] = feat[k] + w * g[EXT + k];
+      }
       last = base - s + j + 1;
       T = test_T;
     }
   }
   if (i < S) {
-    float* fo = feat_out + ((size_t)t * S + i) * E;
 #pragma unroll
-    for (int k = 0; k < E; ++k) fo[k] = feat[k];
+    for (int k = 0; k < ES; ++k) fo[k] = feat[k];
     float* ao = aux_out + ((size_t)t * S + i) * 2;
     ao[0] = T;
     ao[1] = (float)last;
   }
 }
 
-template <int E>
+template <int ET>
 __global__ void __launch_bounds__(MAX_THREADS)
 sparse_bwd_kernel(const float* __restrict__ flat,
                   const int* __restrict__ sorted_gid,
                   const int* __restrict__ tile_start,
                   const int* __restrict__ tile_end,
                   const int* __restrict__ spix, int S, int grid_x,
-                  const float* __restrict__ gout,
+                  int n_extra, int batch, const float* __restrict__ gout,
                   const float* __restrict__ aux, float* __restrict__ d_sorted) {
-  constexpr int D = 21 + E;
-  constexpr int MAX_WARPS = MAX_THREADS / 32;
-  __shared__ float rows[BATCH * D];
-  __shared__ float part[2][MAX_WARPS][E];
+  constexpr bool DYN = ET < 0;
+  constexpr int ES = DYN ? 0 : ET;
+  constexpr int NF = ES > 0 ? ES : 1;
+  const int E = DYN ? n_extra : ET;
+  const int D = 21 + E;
+  const int nbatch = DYN ? batch : BATCH;
+  __shared__ float rows_s[DYN ? 1 : BATCH * (21 + ES)];
+  __shared__ float part_s[DYN ? 1 : 2 * MAX_WARPS * NF];
+  extern __shared__ float dyn_s[];
+  float* rows = DYN ? dyn_s : rows_s;
+  float* part = DYN ? dyn_s + nbatch * D : part_s;
   __shared__ int max_nc;
 
   const int t = blockIdx.x;
@@ -154,10 +198,10 @@ sparse_bwd_kernel(const float* __restrict__ flat,
   const int s = tile_start[t];
   const int e = tile_end[t];
 
-  float gext[E];
+  const float* gi = gout + ((size_t)t * S + i) * E;   // read only if i < S
+  float gext[NF];
 #pragma unroll
-  for (int k = 0; k < E; ++k)
-    gext[k] = i < S ? gout[((size_t)t * S + i) * E + k] : 0.f;
+  for (int k = 0; k < ES; ++k) gext[k] = i < S ? gi[k] : 0.f;
   const float T_fin = i < S ? aux[((size_t)t * S + i) * 2] : 1.f;
   // empty slots contribute nowhere
   const int nc = sp >= 0 ? (int)aux[((size_t)t * S + i) * 2 + 1] : 0;
@@ -177,8 +221,8 @@ sparse_bwd_kernel(const float* __restrict__ flat,
 
   float T = T_fin;   // transmittance after the current pair
   int buf = 0;
-  for (int top = hi; top > s; top -= BATCH) {
-    const int base = max(s, top - BATCH);
+  for (int top = hi; top > s; top -= nbatch) {
+    const int base = max(s, top - nbatch);
     const int nb = top - base;
     __syncthreads();   // the previous batch's rows are no longer read
     for (int k = i; k < nb * D; k += blockDim.x) {
@@ -192,20 +236,22 @@ sparse_bwd_kernel(const float* __restrict__ flat,
       const int slot = base - s + j + 1;
       const Terms q = eval(g, pxf, pyf);
       const bool cm = q.m && slot <= nc;
-      float c[E];
+      float c[NF];
 #pragma unroll
-      for (int k = 0; k < E; ++k) c[k] = 0.f;
+      for (int k = 0; k < NF; ++k) c[k] = 0.f;
+      float w = 0.f;
       if (cm) {
         const float Ti = T / (1.0f - q.alpha);
-        const float w = q.alpha * Ti;
+        w = q.alpha * Ti;
         T = Ti;
 #pragma unroll
-        for (int k = 0; k < E; ++k) c[k] = w * gext[k];
+        for (int k = 0; k < ES; ++k) c[k] = w * gext[k];
       }
-      float* pw = part[buf][warp];
-      if (__any_sync(FULL_MASK, cm)) {
+      float* pw = part + (buf * MAX_WARPS + warp) * E;
+      const bool any = __any_sync(FULL_MASK, cm);
+      if (any) {
 #pragma unroll
-        for (int k = 0; k < E; ++k) {
+        for (int k = 0; k < ES; ++k) {
           float v = c[k];
 #pragma unroll
           for (int off = 16; off > 0; off >>= 1)
@@ -214,19 +260,39 @@ sparse_bwd_kernel(const float* __restrict__ flat,
         }
         if (lane == 0) {
 #pragma unroll
-          for (int k = 0; k < E; ++k) pw[k] = c[k];
+          for (int k = 0; k < ES; ++k) pw[k] = c[k];
         }
       } else if (lane == 0) {
 #pragma unroll
-        for (int k = 0; k < E; ++k) pw[k] = 0.f;
+        for (int k = 0; k < ES; ++k) pw[k] = 0.f;
+      }
+      if constexpr (DYN) {
+        // run-time width: the E columns w · gout, one at a time
+        for (int k = 0; k < E; ++k) {
+          float v = 0.f;
+          if (any) {
+            v = cm ? w * gi[k] : 0.f;
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1)
+              v += __shfl_xor_sync(FULL_MASK, v, off);
+          }
+          if (lane == 0) pw[k] = v;
+        }
       }
       // one barrier per pair: the partials are double-buffered, so the next
       // pair's writes go to the other buffer while these are read
       __syncthreads();
-      if (i < E) {
-        float sum = part[buf][0][i];
-        for (int w8 = 1; w8 < nw; ++w8) sum = sum + part[buf][w8][i];
-        d_sorted[(size_t)(base + j) * E + i] = sum;
+      auto store = [&](int col) {
+        const float* pc = part + buf * MAX_WARPS * E + col;
+        float sum = pc[0];
+        for (int w8 = 1; w8 < nw; ++w8) sum = sum + pc[w8 * E];
+        d_sorted[(size_t)(base + j) * E + col] = sum;
+      };
+      // a run-time width may outnumber the block's threads, 16 never does
+      if constexpr (DYN) {
+        for (int col = i; col < E; col += blockDim.x) store(col);
+      } else if (i < E) {
+        store(i);
       }
       buf ^= 1;
     }
@@ -247,9 +313,19 @@ extern "C" int sparse_fwd_launch(const float* flat, const int* sorted_gid,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (num_tiles <= 0) return (int)cudaSuccess;
   if (S <= 0 || S > MAX_THREADS) return (int)cudaErrorInvalidValue;
-  if (n_extra != 16) return (int)cudaErrorInvalidValue;
-  sparse_fwd_kernel<16><<<num_tiles, threads_for(S), 0, st>>>(
-      flat, sorted_gid, tile_start, tile_end, spix, S, grid_x, feat, aux);
+  if (n_extra == 16) {
+    sparse_fwd_kernel<16><<<num_tiles, threads_for(S), 0, st>>>(
+        flat, sorted_gid, tile_start, tile_end, spix, S, grid_x, n_extra,
+        BATCH, feat, aux);
+  } else if (n_extra > 0 && n_extra <= MAX_E) {
+    const int batch = fwd_batch(21 + n_extra);
+    sparse_fwd_kernel<DYN_E><<<num_tiles, threads_for(S),
+                               (size_t)batch * (21 + n_extra) * 4, st>>>(
+        flat, sorted_gid, tile_start, tile_end, spix, S, grid_x, n_extra,
+        batch, feat, aux);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -262,9 +338,20 @@ extern "C" int sparse_bwd_launch(const float* flat, const int* sorted_gid,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (num_tiles <= 0) return (int)cudaSuccess;
   if (S <= 0 || S > MAX_THREADS) return (int)cudaErrorInvalidValue;
-  if (n_extra != 16) return (int)cudaErrorInvalidValue;
-  sparse_bwd_kernel<16><<<num_tiles, threads_for(S), 0, st>>>(
-      flat, sorted_gid, tile_start, tile_end, spix, S, grid_x, gout, aux,
-      d_sorted);
+  if (n_extra == 16) {
+    sparse_bwd_kernel<16><<<num_tiles, threads_for(S), 0, st>>>(
+        flat, sorted_gid, tile_start, tile_end, spix, S, grid_x, n_extra,
+        BATCH, gout, aux, d_sorted);
+  } else if (n_extra > 0 && n_extra <= MAX_E) {
+    const int D = 21 + n_extra;
+    const int batch = bwd_batch(D, n_extra);
+    sparse_bwd_kernel<DYN_E><<<num_tiles, threads_for(S),
+                               (size_t)(batch * D + 2 * MAX_WARPS * n_extra)
+                                   * 4, st>>>(
+        flat, sorted_gid, tile_start, tile_end, spix, S, grid_x, n_extra,
+        batch, gout, aux, d_sorted);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

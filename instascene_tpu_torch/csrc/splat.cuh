@@ -64,4 +64,11 @@ __device__ __forceinline__ Terms eval(const float* g, float pxf, float pyf) {
   return q;
 }
 
+// clip_rect: the pair's gaussian reaches tile (tx, ty) only if it lies in
+// the fresh rect r = (rmin_x, rmax_x, rmin_y, rmax_y), the packed row's 4
+// trailing columns (exact small integers in f32; a zero rect gates all)
+__device__ __forceinline__ bool in_rect(const float* r, float tx, float ty) {
+  return r[0] <= tx && tx < r[1] && r[2] <= ty && ty < r[3];
+}
+
 }  // namespace splat

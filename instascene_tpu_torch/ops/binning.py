@@ -29,6 +29,15 @@ package's capped bundle would have cut.
 `merge_binnings` concatenates a window's views along the tile axis for
 K1/K2's tiles_per_view mode (the layout of the JAX package's
 pipelines/train_semantic.py:309-406, `_mv_full_loss_merged`).
+
+Also ported: `dilate_rects` (:267-281) and `bin_gaussians(dilate_tiles=)`,
+the cached superset a nearby camera renders through K1/K2's clip_rect
+gate; the conic-culled expansion (:405-420: pair rank r of a gaussian maps
+to the r-th set bit of its 64-bit keep-mask, preprocess.conic_cull_masks;
+dilation turns culling off, as in JAX); and `padded_layout`, the padded
+per-tile [T, K] index layout (layout="padded", :448-455) that K7/K8
+(ops/blend_padded.py) read, with K sized to the frame's largest tile so
+that no pair is dropped.
 """
 
 from __future__ import annotations
@@ -38,7 +47,9 @@ from typing import NamedTuple
 
 import torch
 
-from .preprocess import TILE, PreprocessOut
+from .preprocess import TILE, PreprocessOut, popcount32, word_of_i32
+
+PAD_ALIGN = 128   # padded_layout's K is a multiple of this (the JAX chunk)
 
 
 class BinningOut(NamedTuple):
@@ -63,7 +74,56 @@ def depth_bits_for(grid_x: int, grid_y: int) -> int:
     return depth_bits
 
 
-def bin_gaussians(pre: PreprocessOut, width: int, height: int) -> BinningOut:
+def dilate_rects(rect_min: torch.Tensor, rect_max: torch.Tensor,
+                 tiles_touched: torch.Tensor, grid_x: int, grid_y: int,
+                 dilate_tiles: int):
+    """Expand visible gaussians' tile rects by `dilate_tiles` per side,
+    clamped to the grid, and recount tiles_touched. Invisible gaussians
+    (tiles_touched == 0) stay empty: dilation does not resurrect culled
+    splats. Returns (rect_min, rect_max, tiles_touched)."""
+    vis = tiles_touched > 0
+    gmax = torch.tensor([grid_x, grid_y], dtype=rect_max.dtype,
+                        device=rect_max.device)
+    rmin = torch.where(vis[:, None],
+                       torch.clamp(rect_min - dilate_tiles, min=0), rect_min)
+    rmax = torch.where(vis[:, None],
+                       torch.minimum(rect_max + dilate_tiles, gmax), rect_max)
+    tiles = (rmax[:, 0] - rmin[:, 0]) * (rmax[:, 1] - rmin[:, 1])
+    return rmin, rmax, torch.where(vis, tiles, 0).to(torch.int32)
+
+
+def _culled_offsets(rank: torch.Tensor, m0: torch.Tensor,
+                    m1: torch.Tensor) -> torch.Tensor:
+    """Row-major rect offset of each pair of rank `rank` under its
+    gaussian's keep-mask words m0 (offsets 0..31) and m1 (32..63), uint32
+    bits in int64: the rank-th set bit, found by halving; ranks past the
+    mask's population map linearly onto the offsets >= 64, which are all
+    kept."""
+    p0 = popcount32(m0)
+    ptot = p0 + popcount32(m1)
+    in_win = rank < ptot
+    use_hi = rank >= p0
+    word = torch.where(use_hi, m1, m0)
+    r = rank - torch.where(use_hi, p0, 0)
+    pos = torch.zeros_like(rank)
+    for half in (16, 8, 4, 2, 1):
+        cnt = popcount32(word & ((1 << half) - 1))
+        go_hi = r >= cnt
+        word = torch.where(go_hi, word >> half, word)
+        r = r - torch.where(go_hi, cnt, 0)
+        pos = pos + torch.where(go_hi, half, 0)
+    return torch.where(in_win, pos + torch.where(use_hi, 32, 0),
+                       64 + rank - ptot)
+
+
+def bin_gaussians(pre: PreprocessOut, width: int, height: int,
+                  dilate_tiles: int = 0) -> BinningOut:
+    """dilate_tiles > 0 expands every visible gaussian's tile rect by that
+    many tiles per side (dilate_rects): a SUPERSET binning, valid for any
+    nearby camera whose fresh rects stay inside the dilated ones, rendered
+    exactly through K1/K2's clip_rect gate. With pre's conic-cull masks
+    (preprocess_gaussians(conic_cull=True)) and no dilation, each
+    gaussian's pairs cover only its kept rect offsets."""
     dev = pre.depth.device
     grid_x = (width + TILE - 1) // TILE
     grid_y = (height + TILE - 1) // TILE
@@ -71,6 +131,10 @@ def bin_gaussians(pre: PreprocessOut, width: int, height: int) -> BinningOut:
     n = pre.depth.shape[0]
 
     tiles_touched = pre.tiles_touched.detach()
+    rect_min, rect_max = pre.rect_min, pre.rect_max
+    if dilate_tiles:
+        rect_min, rect_max, tiles_touched = dilate_rects(
+            rect_min, rect_max, tiles_touched, grid_x, grid_y, dilate_tiles)
     depth = pre.depth.detach()
     total = int(tiles_touched.sum())          # the frame's one host read
     if total == 0:
@@ -95,8 +159,11 @@ def bin_gaussians(pre: PreprocessOut, width: int, height: int) -> BinningOut:
     gid = torch.repeat_interleave(torch.arange(n, device=dev), counts,
                                   output_size=total)
     rank = torch.arange(total, device=dev) - offsets[gid]
-    rmin = pre.rect_min.to(torch.int64)[gid]
-    rw = torch.clamp(pre.rect_max[:, 0] - pre.rect_min[:, 0],
+    if pre.cull_lo is not None and not dilate_tiles:
+        rank = _culled_offsets(rank, word_of_i32(pre.cull_lo)[gid],
+                               word_of_i32(pre.cull_hi)[gid])
+    rmin = rect_min.to(torch.int64)[gid]
+    rw = torch.clamp(rect_max[:, 0] - rect_min[:, 0],
                      min=1).to(torch.int64)[gid]
     dy = rank // rw
     dx = rank - dy * rw
@@ -116,6 +183,30 @@ def bin_gaussians(pre: PreprocessOut, width: int, height: int) -> BinningOut:
                       tile_end=bounds[1:].contiguous(), total_pairs=total,
                       gid_order=gid_order,
                       run_start=run_start.to(torch.int32))
+
+
+def padded_layout(binning: BinningOut):
+    """The padded per-tile layout of a binning → (tile_indices [T, K]
+    int32, tile_count [T] int32): row t lists tile t's gaussians in its
+    visit (depth) order, then the sentinel N (the packed table's zero row,
+    ops/blend_padded.pack_inputs). K is the largest tile's count rounded up
+    to PAD_ALIGN (at least PAD_ALIGN), read on the host, so no pair is
+    dropped (the JAX package's fixed tile_cap drops the excess and counts
+    it in n_dropped)."""
+    n = binning.run_start.shape[0] - 1
+    count = (binning.tile_end - binning.tile_start).to(torch.int32)
+    longest = int(count.max()) if count.numel() else 0
+    K = max(1, -(-longest // PAD_ALIGN)) * PAD_ALIGN
+    dev = count.device
+    k = torch.arange(K, dtype=torch.int64, device=dev)
+    real = k[None, :] < count[:, None]
+    if binning.total_pairs == 0:
+        return (torch.full((count.shape[0], K), n, dtype=torch.int32,
+                           device=dev), count)
+    pos = torch.clamp(binning.tile_start.to(torch.int64)[:, None] + k[None],
+                      max=binning.total_pairs - 1)
+    idx = torch.where(real, binning.sorted_gid[pos], n)
+    return idx.to(torch.int32).contiguous(), count.contiguous()
 
 
 class TileSelection(NamedTuple):

@@ -120,8 +120,8 @@ def blend_sparse_bwd_reference(flat, sorted_gid, tile_start, tile_end, spix,
 
 
 def _check(name, flat, sorted_gid, tile_start, tile_end, n_extra, spix):
-    if n_extra != 16:
-        raise ValueError(f"{name} kernel is built for E = 16, got {n_extra}")
+    if n_extra == 0:
+        raise ValueError(f"{name} needs feature channels (E > 0)")
     bv._check_common(name, flat, sorted_gid, tile_start, tile_end, n_extra)
     nt = tile_start.shape[0]
     if spix.dim() != 2 or not 0 < spix.shape[1] <= S_MAX:

@@ -5,17 +5,22 @@ Function that joins them.
 Port of instascene_tpu/ops/blend_pallas.py:51-89 (`pack_flat_cols`),
 :150-182 (`_splat_terms`) and instascene_tpu/ops/blend_visits.py:62-392
 (`_fwd_kernel_visits`, the TPU kernel K1, in its `full`, `viewer`,
-`no_dist`, `extras_only` (with the sampled-pixel done0 mask), `track` and
-`tiles_per_view` modes), :395-607 (`_bwd_kernel_visits`, the TPU kernel K2,
-in its `full`, `no_dist`, `extras_only` and `tiles_per_view` modes),
-:612-751 (`blend_visits_track` and the custom VJP with its per-gaussian
-scatter-add), and instascene_tpu/ops/blend_pallas.py:546-1083
+`no_dist`, `extras_only` (with the sampled-pixel done0 mask), `track`,
+`clip_rect` and `tiles_per_view` modes), :395-607 (`_bwd_kernel_visits`,
+the TPU kernel K2, in its `full`, `no_dist`, `extras_only`, `clip_rect`
+and `tiles_per_view` modes), :612-751 (`blend_visits_track` and the custom
+VJP with its per-gaussian scatter-add), and instascene_tpu/ops/blend_pallas.py:546-1083
 (`_fwd_kernel_aligned` and `_bwd_kernel_aligned`, the TPU kernels K3 and
-K4, with `blend_aligned_diff`, over a tile-subset mini bundle in the
-extras_only mode). The kernels are csrc/blend_fwd.cu and csrc/blend_bwd.cu
-(CUDA C++ for sm_90a): K3 and K4 are K1 and K2 given an explicit tile
-list. Their headers say what bounds them on the H100 and how the design
-answers that.
+K4, with `blend_aligned_diff`, over a tile-subset mini bundle). The
+kernels are csrc/blend_fwd.cu and csrc/blend_bwd.cu (CUDA C++ for sm_90a,
+the walk in csrc/blend_walk.cuh): K3 and K4 are K1 and K2 given an
+explicit tile list, in every mode but track. Their headers say what
+bounds them on the H100 and how the design answers that. K1's and K2's
+clip_rect mode (blend_visits.py:145-149, :458, :548) is a flag beside
+full, viewer, no_dist and extras_only: flat then carries 4 trailing rect
+columns (pack_flat_cols(rect=)) and a pair contributes only where its tile
+lies in its gaussian's rect. The kernels take any feature width
+0 <= E <= MAX_E (0 and 16 compiled as constants).
 
 The TPU layout machinery (pair caps, the (chunk, tile) visit list and its
 SMEM budget) is gone: the inputs are the per-gaussian packed table `flat`
@@ -27,9 +32,7 @@ out [num_tiles, 12+E, 256] f32 and iout [num_tiles, 2, 256] i32
 `blend_fwd`, `blend_bwd` and `reduce_per_gaussian` launch their kernels for
 CUDA tensors (or raise) and run the plain versions for CPU tensors; each
 adds one to its entry of `LAUNCHES` (by kernel and mode) where it launches.
-`blend` is the differentiable entry (`BlendFunction`). K1's and K2's
-clip_rect mode, and the tile list outside extras_only, come in a later
-slice (ROADMAP B).
+`blend` is the differentiable entry (`BlendFunction`).
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ import numpy as np
 import torch
 
 from .. import cuda_build
-from .preprocess import FAR_N, FILTER_INV_SQUARE, NEAR_N, TILE, fma
+from .preprocess import FAR_N, FILTER_INV_SQUARE, NEAR_N, TILE, cross, fma
 
 P2 = TILE * TILE
 _TW, _XY, _NRM, _OPA, _COL, _EXT = 9, 12, 14, 17, 18, 21
@@ -48,42 +51,57 @@ MD_SCALE = FAR_N / (FAR_N - NEAR_N)
 DMD_DD = FAR_N * NEAR_N / (FAR_N - NEAR_N)   # d(md)/d(depth) · depth²
 ALPHA_MIN = 1.0 / 255.0
 T_DONE = 1e-4
-KERNEL_E = (0, 16)                      # feature widths the kernels are built for
+MAX_E = 256         # the widest feature width the kernels take
+RECT = 4            # clip_rect's trailing rect columns
 # K1's and K2's modes; their C entries take the index
 MODES = ("full", "viewer", "no_dist", "extras_only", "track")
 BWD_MODES = ("full", "no_dist", "extras_only")
 TRACK_K = 10        # contributor slots per pixel (track mode)
 TRACK_W = 0.1       # a contribution is tracked when its weight exceeds this
-# kernel launches, by kernel and mode (the plain versions launch nothing);
-# "K3 extras_only"/"K4 extras_only" are K1/K2 over a tile list, K5/K6 the
-# sparse-pixel kernels (ops/blend_sparse.py), and "sparse_fallback" counts
-# the semantic steps that took the dense path on a slot overflow
-LAUNCHES = dict.fromkeys(
-    [f"K1 {m}" for m in MODES] + [f"K2 {m}" for m in BWD_MODES]
-    + ["K1 tiles_per_view", "K2 tiles_per_view", "K3 extras_only",
-       "K4 extras_only", "K5", "K6", "segment_sum", "sparse_fallback"], 0)
 
 
-def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a × b with each component fma(a_i, b_j, −a_j·b_i), the rounding the
-    JAX package's jnp.cross gets (see ops/preprocess.py on why it matters)."""
-    return torch.stack([fma(a[:, 1], b[:, 2], -(a[:, 2] * b[:, 1])),
-                        fma(a[:, 2], b[:, 0], -(a[:, 0] * b[:, 2])),
-                        fma(a[:, 0], b[:, 1], -(a[:, 1] * b[:, 0]))], dim=1)
+def _launch_keys():
+    """K1/K2 by mode; K3/K4 (K1/K2 over a tile list) in every mode but
+    track; a " clip_rect" twin of each mode that takes it; the merged
+    multi-view mode; K5/K6 the sparse-pixel kernels (ops/blend_sparse.py),
+    K7/K8 the padded-layout kernels (ops/blend_padded.py), the segment sum,
+    and "sparse_fallback", the semantic steps that took the dense path on
+    a slot overflow."""
+    fwd = MODES[:4]
+    keys = [f"K1 {m}" for m in MODES] + [f"K2 {m}" for m in BWD_MODES]
+    keys += [f"K3 {m}" for m in fwd] + [f"K4 {m}" for m in BWD_MODES]
+    keys += [f"{k} {m} clip_rect" for k in ("K1", "K3") for m in fwd]
+    keys += [f"{k} {m} clip_rect" for k in ("K2", "K4") for m in BWD_MODES]
+    return keys + ["K1 tiles_per_view", "K2 tiles_per_view", "K5", "K6",
+                   "K7", "K8", "segment_sum", "sparse_fallback"]
 
 
-def pack_flat_cols(T_used, xy, normal_view, opacities, color, extras=None):
+# kernel launches, by kernel and mode (the plain versions launch nothing)
+LAUNCHES = dict.fromkeys(_launch_keys(), 0)
+
+
+def pack_flat_cols(T_used, xy, normal_view, opacities, color, extras=None,
+                   rect=None):
     """Per-gaussian packed attribute table [N, 21+E]: affine ray
     coefficients A = Tv×Tw, B = Tw×Tu, C = Tu×Tv (so the ray-splat
     intersection is p = x·A + y·B + C), Tw, xy, view normal, opacity,
-    color, E extra channels. Differentiable."""
+    color, E extra channels. Differentiable.
+
+    rect = (rect_min, rect_max) [N, 2] int (clip_rect mode): 4 trailing
+    columns rmin_x, rmax_x, rmin_y, rmax_y as f32 (exact small integers),
+    without gradient: the kernels gate each pair by tile ∈ rect."""
     n = xy.shape[0]
     T = torch.reshape(T_used, (n, 3, 3))
     Tu, Tv, Tw = T[:, 0], T[:, 1], T[:, 2]
-    cols = [_cross(Tv, Tw), _cross(Tw, Tu), _cross(Tu, Tv), Tw, xy,
+    cols = [cross(Tv, Tw), cross(Tw, Tu), cross(Tu, Tv), Tw, xy,
             normal_view, torch.reshape(opacities, (n, 1)), color]
     if extras is not None:
         cols.append(extras)
+    if rect is not None:
+        rmin, rmax = rect
+        cols.append(torch.stack([rmin[:, 0], rmax[:, 0], rmin[:, 1],
+                                 rmax[:, 1]], dim=1).detach().to(
+                                     torch.float32))
     return torch.cat(cols, dim=1).to(torch.float32).contiguous()
 
 
@@ -115,6 +133,16 @@ def _splat(g, X, Y):
     m = pz_ok & (depth_ray >= NEAR_N) & (power <= 0.0) & (alpha >= ALPHA_MIN)
     return dict(alpha=alpha, m=m, depth_ray=depth_ray, use3d=use3d, sx=sx,
                 sy=sy, inv_pz=inv_pz, G=G, dx=dx, dy=dy)
+
+
+def _in_rect(g, tiles, tiles_per_view, grid_x):
+    """clip_rect's gate [na, 1]: the tile of each row lies in the rect of
+    the packed rows g [na, D, 1] (their 4 trailing columns)."""
+    tl = tiles % tiles_per_view if tiles_per_view else tiles
+    tx = (tl % grid_x).to(torch.float32)[:, None]
+    ty = (tl // grid_x).to(torch.float32)[:, None]
+    return ((g[:, -4] <= tx) & (tx < g[:, -3])
+            & (g[:, -2] <= ty) & (ty < g[:, -1]))
 
 
 def _walk_order(tile_start, tile_end, grid_x, tile_ids=None,
@@ -152,7 +180,8 @@ def blend_fwd_reference(flat, sorted_gid, tile_start, tile_end, grid_x: int,
                         count_work: bool = False, no_dist: bool = False,
                         extras_only: bool = False, done0=None,
                         track: bool = False, tile_ids=None,
-                        tiles_per_view: int = 0, pixels=None):
+                        tiles_per_view: int = 0, pixels=None,
+                        clip_rect: bool = False):
     """The plain PyTorch version of K1 (and K3): vectorised over tiles ×
     pixels, looping over the within-tile slot index in the kernel's order
     with the kernel's arithmetic (see _splat).
@@ -174,12 +203,14 @@ def blend_fwd_reference(flat, sorted_gid, tile_start, tile_end, grid_x: int,
     multi-view mode, pixel coordinates from t % tiles_per_view (see
     csrc/blend_fwd.cu). pixels [rows, P] int (extras_only; the sparse plain
     version): each row evaluates only these within-tile pixels (done0 is
-    then [rows, P]), and the per-pixel axis has P entries.
+    then [rows, P]), and the per-pixel axis has P entries. clip_rect: flat
+    has 4 trailing rect columns and a slot contributes only where its tile
+    lies in the rect (not with track).
 
     count_work=True also returns the work these inputs need, per pixel
     [T, 256] int32: the slots it must evaluate (up to and including the one
-    that latches it done, else its tile's whole range) and its
-    contributions."""
+    that latches it done, else its tile's whole range; with clip_rect only
+    those its rect gate lets through) and its contributions."""
     dev = flat.device
     E = n_extra
     OC = 12 + E
@@ -221,6 +252,9 @@ def blend_fwd_reference(flat, sorted_gid, tile_start, tile_end, grid_x: int,
         Tk = T[:na]
         walking = ~done[:na]
         live = s["m"] & walking
+        if clip_rect:
+            gate = _in_rect(g, tiles[:na], tiles_per_view, grid_x)
+            live = live & gate
         test_T = Tk * (1.0 - alpha)
         newly = live & (test_T < T_DONE)
         done[:na] |= newly
@@ -260,7 +294,8 @@ def blend_fwd_reference(flat, sorted_gid, tile_start, tile_end, grid_x: int,
         last[:na] = torch.where(contrib, k + 1, last[:na])
         T[:na] = torch.where(contrib, test_T, Tk)
         if count_work:
-            n_eval[:na] += walking
+            # a gated slot (clip_rect) needs its rect test, not the splat
+            n_eval[:na] += walking & gate if clip_rect else walking
             n_hit[:na] += contrib
 
     acc[:, 9] = T
@@ -286,7 +321,8 @@ def blend_bwd_reference(flat, sorted_gid, tile_start, tile_end, grid_x: int,
                         n_extra: int, gout, saved, iout,
                         no_dist: bool = False, count_work: bool = False,
                         extras_only: bool = False, tile_ids=None,
-                        tiles_per_view: int = 0, pixels=None):
+                        tiles_per_view: int = 0, pixels=None,
+                        clip_rect: bool = False):
     """The plain PyTorch version of K2 (and K4): per-slot gradients d_sorted
     [pairs, 21+E] of Σ gout·out with respect to each slot's packed row
     (extras_only: [pairs, E], the feature columns alone, w · gout[10+e]
@@ -303,17 +339,19 @@ def blend_bwd_reference(flat, sorted_gid, tile_start, tile_end, grid_x: int,
     pixels (each slot belongs to one tile). tile_ids, tiles_per_view and
     pixels as in blend_fwd_reference: gout, saved and iout then have one
     row per listed tile (and P pixels), and the rows of the slots of
-    unlisted tiles are zero.
+    unlisted tiles are zero. clip_rect: flat's 4 trailing rect columns gate
+    each slot as in K1, and the rows carry 4 zero columns for them (not in
+    extras_only).
 
     count_work=True also returns (evaluations, contributions, slots reduced)
-    these inputs need: each pixel evaluates its slots 1..n_contrib, and a
-    slot is reduced when some pixel of its tile is at or before its
-    n_contrib there."""
+    these inputs need: each pixel evaluates its slots 1..n_contrib (with
+    clip_rect those its rect gate lets through), and a slot is reduced
+    when some pixel of its tile is at or before its n_contrib there."""
     dev = flat.device
     E = n_extra
-    D = E if extras_only else 21 + E
+    D = E if extras_only else 21 + E + (RECT if clip_rect else 0)
     f32 = torch.float32
-    order, _, start, max_count, n_at, pxf, pyf = _walk_order(
+    order, tiles, start, max_count, n_at, pxf, pyf = _walk_order(
         tile_start, tile_end, grid_x, tile_ids, tiles_per_view, pixels)
     go = gout[order]
     sv = saved[order]
@@ -329,7 +367,7 @@ def blend_bwd_reference(flat, sorted_gid, tile_start, tile_end, grid_x: int,
     S = torch.zeros_like(T)
     d_sorted = torch.zeros((sorted_gid.shape[0], D), dtype=f32, device=dev)
     gid_l = sorted_gid.to(torch.int64)
-    n_hits = n_slots = 0
+    n_hits = n_slots = n_evals = 0
     for k in range(max_count - 1, -1, -1):
         na = n_at(k)
         g = flat[gid_l[start[:na] + k]][:, :, None]        # [na, D, 1]
@@ -337,6 +375,11 @@ def blend_bwd_reference(flat, sorted_gid, tile_start, tile_end, grid_x: int,
         s = _splat(g, X, Y)
         alpha, depth_ray, G = s["alpha"], s["depth_ray"], s["G"]
         cm = s["m"] & (k + 1 <= n_contrib[:na])
+        if clip_rect:
+            gate = _in_rect(g, tiles[:na], tiles_per_view, grid_x)
+            cm = cm & gate
+            if count_work:
+                n_evals += int(((k + 1 <= n_contrib[:na]) & gate).sum())
         one_minus = torch.where(cm, 1.0 - alpha, 1.0)
         Ta = T[:na]
         Ti = Ta / one_minus
@@ -396,7 +439,8 @@ def blend_bwd_reference(flat, sorted_gid, tile_start, tile_end, grid_x: int,
                 torch.where(cm, dopa, 0.0),
                 w * gcol[:na, 0], w * gcol[:na, 1], w * gcol[:na, 2]]
         cols += [w * gext[:na, e] for e in range(E)]
-        d_sorted[start[:na] + k] = torch.stack(cols, dim=1).sum(dim=2)
+        d_sorted[start[:na] + k, :21 + E] = torch.stack(cols, dim=1).sum(
+            dim=2)
         S[:na] = S_a + torch.where(cm, dLdw * w, 0.0)
         T[:na] = torch.where(cm, Ti, Ta)
         if count_work:
@@ -404,17 +448,25 @@ def blend_bwd_reference(flat, sorted_gid, tile_start, tile_end, grid_x: int,
             n_slots += int(cm.any(dim=1).sum())
     if not count_work:
         return d_sorted
-    n_evals = int(iout[:, 0].to(torch.int64).sum())
+    if not clip_rect:
+        n_evals = int(iout[:, 0].to(torch.int64).sum())
     return d_sorted, (n_evals, n_hits, n_slots)
 
 
-def _check_common(name, flat, sorted_gid, tile_start, tile_end, n_extra):
-    if n_extra not in KERNEL_E:
-        raise ValueError(f"{name} kernel is built for E in {KERNEL_E}, "
-                         f"got {n_extra}")
+def check_width(name, n_extra):
+    """The kernels take 0 <= E <= MAX_E feature channels."""
+    if not 0 <= n_extra <= MAX_E:
+        raise ValueError(f"{name} kernel takes 0 <= E <= {MAX_E} feature "
+                         f"channels, got {n_extra}")
+
+
+def _check_common(name, flat, sorted_gid, tile_start, tile_end, n_extra,
+                  clip_rect=False):
+    check_width(name, n_extra)
+    D = 21 + n_extra + (RECT if clip_rect else 0)
     if flat.dtype != torch.float32 or flat.dim() != 2 \
-            or flat.shape[1] != 21 + n_extra or not flat.is_contiguous():
-        raise ValueError(f"flat must be contiguous f32 [N, {21 + n_extra}], "
+            or flat.shape[1] != D or not flat.is_contiguous():
+        raise ValueError(f"flat must be contiguous f32 [N, {D}], "
                          f"got {flat.dtype} {tuple(flat.shape)}")
     nt = tile_start.shape[0]
     for what, a, shape in (("sorted_gid", sorted_gid, None),
@@ -482,42 +534,52 @@ def _mode(viewer: bool, no_dist: bool, extras_only: bool,
 
 
 def _tile_key(kernel: str, mode: str, tile_ids, tiles_per_view: int,
-              nt: int) -> str:
+              nt: int, clip_rect: bool = False) -> str:
     """The LAUNCHES key of a K1/K2 launch ("K1"/"K2"), which also checks
-    the tile selection: a tile list (K3/K4) or merged views serve the
-    extras_only mode alone so far, one at a time, and every listed id is
-    a tile (asserted on the list's device without a host read: on the card
-    a bad id stops the stream before the kernel reads out of bounds)."""
+    the mode and the tile selection: clip_rect serves every mode but
+    track; a tile list (K3/K4) serves every mode but track, merged views
+    (tiles_per_view) the extras_only mode without clip_rect, one selection
+    at a time; every listed id is a tile (asserted on the list's device
+    without a host read: on the card a bad id stops the stream before the
+    kernel reads out of bounds)."""
+    clip = " clip_rect" if clip_rect else ""
+    if clip_rect and mode == "track":
+        raise ValueError("clip_rect and track are separate modes (track "
+                         "packs no rect columns)")
     if tile_ids is None and not tiles_per_view:
-        return f"{kernel} {mode}"
+        return f"{kernel} {mode}{clip}"
     if tile_ids is not None:
         torch._assert_async(((tile_ids >= 0) & (tile_ids < nt)).all(),
                             f"tile_ids must lie in [0, {nt})")
-    if mode != "extras_only":
-        raise ValueError("a tile list and tiles_per_view serve the "
-                         "extras_only mode only (the other modes' are not "
-                         "held yet: ROADMAP B)")
     if tile_ids is not None and tiles_per_view:
         raise ValueError("tile_ids and tiles_per_view are separate modes")
     if tiles_per_view:
+        if mode != "extras_only" or clip_rect:
+            raise ValueError("tiles_per_view serves the extras_only mode "
+                             "without clip_rect only")
         if nt % tiles_per_view:
             raise ValueError(f"{nt} tiles are not whole views of "
                              f"{tiles_per_view}")
         return f"{kernel} tiles_per_view"
-    return {"K1": "K3", "K2": "K4"}[kernel] + " extras_only"
+    if mode == "track":
+        raise ValueError("a tile list serves every mode but track")
+    return {"K1": "K3", "K2": "K4"}[kernel] + f" {mode}{clip}"
 
 
 def blend_fwd(flat, sorted_gid, tile_start, tile_end, grid_x: int,
               n_extra: int, viewer: bool = False, no_dist: bool = False,
               extras_only: bool = False, done0=None, track: bool = False,
-              tile_ids=None, tiles_per_view: int = 0):
+              tile_ids=None, tiles_per_view: int = 0,
+              clip_rect: bool = False):
     """K1 forward blend → (out [T, 12+E, 256] f32, iout [T, 2, 256] i32),
     and with track the contributor buffer (ids [T, TRACK_K, 256] i32, w
     [T, TRACK_K, 256] f32) after them. done0 [T, 1, 256] int32 (extras_only
     only): the sampled-pixel mask (see blend_fwd_reference). tile_ids [K]
-    int32 (K3, extras_only): render only these tiles, out/iout [K, ...] in
-    list order. tiles_per_view (extras_only): merged views, pixel
-    coordinates from t % tiles_per_view.
+    int32 (K3, every mode but track): render only these tiles, out/iout
+    [K, ...] in list order. tiles_per_view (extras_only): merged views,
+    pixel coordinates from t % tiles_per_view. clip_rect (every mode but
+    track): flat [N, 21+E+4] carries each gaussian's rect (pack_flat_cols
+    rect=), and a pair contributes only where its tile lies in it.
 
     CUDA tensors launch csrc/blend_fwd.cu (and raise on anything it does
     not take); CPU tensors run blend_fwd_reference. Forward only: for
@@ -526,7 +588,7 @@ def blend_fwd(flat, sorted_gid, tile_start, tile_end, grid_x: int,
     if done0 is not None and mode != "extras_only":
         raise ValueError("done0 masks serve K1's extras_only mode only")
     key = _tile_key("K1", mode, tile_ids, tiles_per_view,
-                    tile_start.shape[0])
+                    tile_start.shape[0], clip_rect)
     if torch.is_grad_enabled() and flat.requires_grad:
         raise ValueError("blend_fwd is the forward kernel alone; call "
                          "blend() (BlendFunction) for gradients, or "
@@ -536,11 +598,12 @@ def blend_fwd(flat, sorted_gid, tile_start, tile_end, grid_x: int,
                                    grid_x, n_extra, viewer, no_dist=no_dist,
                                    extras_only=extras_only, done0=done0,
                                    track=track, tile_ids=tile_ids,
-                                   tiles_per_view=tiles_per_view)
+                                   tiles_per_view=tiles_per_view,
+                                   clip_rect=clip_rect)
     if flat.device.type != "cuda":
         raise ValueError(f"blend_fwd: unsupported device {flat.device}")
     _check_common("blend_fwd", flat, sorted_gid, tile_start, tile_end,
-                  n_extra)
+                  n_extra, clip_rect)
     nt = tile_start.shape[0]
     dev = flat.device
     rows = _check_tile_ids(tile_ids, nt, dev)
@@ -554,13 +617,13 @@ def blend_fwd(flat, sorted_gid, tile_start, tile_end, grid_x: int,
         ids = torch.empty((rows, TRACK_K, P2), dtype=torch.int32, device=dev)
         tw = torch.empty((rows, TRACK_K, P2), dtype=torch.float32, device=dev)
     fn = _lib_fn("blend_fwd.cu", "blend_fwd_launch",
-                 [_P] * 4 + [_I] * 4 + [_P, _I] + [_P] * 6)
+                 [_P] * 4 + [_I] * 5 + [_P, _I] + [_P] * 6)
     with torch.cuda.device(dev):
         err = fn(flat.data_ptr(), sorted_gid.data_ptr(),
                  tile_start.data_ptr(), tile_end.data_ptr(), rows, grid_x,
-                 n_extra, MODES.index(mode), _ptr(tile_ids), tiles_per_view,
-                 _ptr(done0), out.data_ptr(), iout.data_ptr(), _ptr(ids),
-                 _ptr(tw), _stream(dev))
+                 n_extra, MODES.index(mode), int(clip_rect), _ptr(tile_ids),
+                 tiles_per_view, _ptr(done0), out.data_ptr(),
+                 iout.data_ptr(), _ptr(ids), _ptr(tw), _stream(dev))
     if err != 0:
         raise RuntimeError(f"blend_fwd kernel launch failed: cudaError {err}")
     LAUNCHES[key] += 1
@@ -570,11 +633,12 @@ def blend_fwd(flat, sorted_gid, tile_start, tile_end, grid_x: int,
 def blend_bwd(flat, sorted_gid, tile_start, tile_end, grid_x: int,
               n_extra: int, gout, saved, iout, no_dist: bool = False,
               extras_only: bool = False, tile_ids=None,
-              tiles_per_view: int = 0):
+              tiles_per_view: int = 0, clip_rect: bool = False):
     """K2 backward blend → d_sorted [pairs, 21+E] f32 ([pairs, E] with
-    extras_only; see blend_bwd_reference for what it computes). tile_ids
-    (K4) and tiles_per_view as in blend_fwd: gout, saved and iout have
-    K1's rows, and the slots of unlisted tiles get zero rows.
+    extras_only, [pairs, 21+E+4] with clip_rect; see blend_bwd_reference
+    for what it computes). tile_ids (K4) and tiles_per_view as in
+    blend_fwd: gout, saved and iout have K1's rows, and the slots of
+    unlisted tiles get zero rows.
 
     CUDA tensors launch csrc/blend_bwd.cu (and raise on anything it does
     not take); CPU tensors run blend_bwd_reference."""
@@ -582,17 +646,18 @@ def blend_bwd(flat, sorted_gid, tile_start, tile_end, grid_x: int,
         raise ValueError("no_dist and extras_only are separate modes of K2")
     mode = "extras_only" if extras_only else "no_dist" if no_dist else "full"
     key = _tile_key("K2", mode, tile_ids, tiles_per_view,
-                    tile_start.shape[0])
+                    tile_start.shape[0], clip_rect)
     if flat.device.type == "cpu":
         return blend_bwd_reference(flat, sorted_gid, tile_start, tile_end,
                                    grid_x, n_extra, gout, saved, iout,
                                    no_dist=no_dist, extras_only=extras_only,
                                    tile_ids=tile_ids,
-                                   tiles_per_view=tiles_per_view)
+                                   tiles_per_view=tiles_per_view,
+                                   clip_rect=clip_rect)
     if flat.device.type != "cuda":
         raise ValueError(f"blend_bwd: unsupported device {flat.device}")
     _check_common("blend_bwd", flat, sorted_gid, tile_start, tile_end,
-                  n_extra)
+                  n_extra, clip_rect)
     if extras_only and n_extra == 0:
         raise ValueError("K2 extras_only needs feature channels (E > 0)")
     nt = tile_start.shape[0]
@@ -603,16 +668,17 @@ def blend_bwd(flat, sorted_gid, tile_start, tile_end, grid_x: int,
     _check_tiles("iout", iout, torch.int32, (rows, 2, P2), dev)
     # with a tile list the kernel writes only the listed tiles' slots
     d_sorted = (torch.empty if tile_ids is None else torch.zeros)(
-        (sorted_gid.shape[0], n_extra if extras_only else 21 + n_extra),
+        (sorted_gid.shape[0], n_extra if extras_only else flat.shape[1]),
         dtype=torch.float32, device=dev)
     fn = _lib_fn("blend_bwd.cu", "blend_bwd_launch",
-                 [_P] * 4 + [_I] * 4 + [_P, _I] + [_P] * 5)
+                 [_P] * 4 + [_I] * 5 + [_P, _I] + [_P] * 5)
     with torch.cuda.device(dev):
         err = fn(flat.data_ptr(), sorted_gid.data_ptr(),
                  tile_start.data_ptr(), tile_end.data_ptr(), rows, grid_x,
-                 n_extra, BWD_MODES.index(mode), _ptr(tile_ids),
-                 tiles_per_view, gout.data_ptr(), saved.data_ptr(),
-                 iout.data_ptr(), d_sorted.data_ptr(), _stream(dev))
+                 n_extra, BWD_MODES.index(mode), int(clip_rect),
+                 _ptr(tile_ids), tiles_per_view, gout.data_ptr(),
+                 saved.data_ptr(), iout.data_ptr(), d_sorted.data_ptr(),
+                 _stream(dev))
     if err != 0:
         raise RuntimeError(f"blend_bwd kernel launch failed: cudaError {err}")
     LAUNCHES[key] += 1
@@ -664,22 +730,25 @@ def reduce_per_gaussian(d_sorted, sorted_gid, n: int, runs):
 
 class BlendFunction(torch.autograd.Function):
     """Differentiable K1 (`full`, `no_dist` or `extras_only`, the last
-    with an optional done0 mask, a tile list (K3) or merged views): forward
-    runs blend_fwd; backward runs blend_bwd (K2, K4 with a tile list) and
+    with an optional done0 mask; each over a tile list (K3) or with
+    clip_rect; extras_only also over merged views): forward runs
+    blend_fwd; backward runs blend_bwd (K2, K4 with a tile list) and
     reduce_per_gaussian and returns d_flat (extras_only: zero in the 21
-    geometry columns, as the JAX VJP pads it). Saved for the backward:
-    flat, the pair list, tile ranges, tile list and per-gaussian runs, iout
-    and out's final T, m1 and m2 rows."""
+    geometry columns, as the JAX VJP pads it; clip_rect: zero in the 4
+    rect columns). Saved for the backward: flat, the pair list, tile
+    ranges, tile list and per-gaussian runs, iout and out's final T, m1
+    and m2 rows."""
 
     @staticmethod
     def forward(ctx, flat, sorted_gid, tile_start, tile_end, gid_order,
                 run_start, grid_x, n_extra, no_dist, extras_only, done0,
-                tile_ids, tiles_per_view):
+                tile_ids, tiles_per_view, clip_rect):
         out, iout = blend_fwd(flat, sorted_gid, tile_start, tile_end, grid_x,
                               n_extra, no_dist=no_dist,
                               extras_only=extras_only, done0=done0,
                               tile_ids=tile_ids,
-                              tiles_per_view=tiles_per_view)
+                              tiles_per_view=tiles_per_view,
+                              clip_rect=clip_rect)
         E = n_extra
         saved = torch.stack([out[:, 9], out[:, 10 + E], out[:, 11 + E]],
                             dim=1).contiguous()
@@ -687,7 +756,7 @@ class BlendFunction(torch.autograd.Function):
                               gid_order, run_start, iout, saved, tile_ids)
         ctx.grid_x, ctx.n_extra = grid_x, n_extra
         ctx.no_dist, ctx.extras_only = no_dist, extras_only
-        ctx.tiles_per_view = tiles_per_view
+        ctx.tiles_per_view, ctx.clip_rect = tiles_per_view, clip_rect
         ctx.mark_non_differentiable(iout)
         return out, iout
 
@@ -699,22 +768,28 @@ class BlendFunction(torch.autograd.Function):
                              ctx.grid_x, ctx.n_extra, gout.contiguous(),
                              saved, iout, no_dist=ctx.no_dist,
                              extras_only=ctx.extras_only, tile_ids=tile_ids,
-                             tiles_per_view=ctx.tiles_per_view)
+                             tiles_per_view=ctx.tiles_per_view,
+                             clip_rect=ctx.clip_rect)
         d_flat = reduce_per_gaussian(d_sorted, sorted_gid, flat.shape[0],
                                      (gid_order, run_start))
         if ctx.extras_only:
-            # pixels done0 latched have n_contrib 0: no mask input needed
-            d_flat = torch.cat([d_flat.new_zeros((flat.shape[0], _EXT)),
-                                d_flat], dim=1)
-        return (d_flat,) + (None,) * 12
+            # pixels done0 latched have n_contrib 0: no mask input needed;
+            # clip_rect's rect columns take no gradient
+            n = flat.shape[0]
+            d_flat = torch.cat(
+                [d_flat.new_zeros((n, _EXT)), d_flat]
+                + ([d_flat.new_zeros((n, RECT))] if ctx.clip_rect else []),
+                dim=1)
+        return (d_flat,) + (None,) * 13
 
 
 def blend(flat, sorted_gid, tile_start, tile_end, grid_x: int, n_extra: int,
           runs, no_dist: bool = False, extras_only: bool = False,
-          done0=None, tile_ids=None, tiles_per_view: int = 0):
+          done0=None, tile_ids=None, tiles_per_view: int = 0,
+          clip_rect: bool = False):
     """Differentiable K1 → (out, iout); gradients reach `flat` through K2.
     runs = (gid_order, run_start) of the same binning (BinningOut).
-    tile_ids (K3/K4) and tiles_per_view: see blend_fwd."""
+    tile_ids (K3/K4), tiles_per_view and clip_rect: see blend_fwd."""
     return BlendFunction.apply(flat, sorted_gid, tile_start, tile_end,
                                *runs, grid_x, n_extra, no_dist, extras_only,
-                               done0, tile_ids, tiles_per_view)
+                               done0, tile_ids, tiles_per_view, clip_rect)

@@ -3,9 +3,10 @@ AABB and tile rect.
 
 Port of instascene_tpu/ops/preprocess.py:25-280 (`quat_to_rotmat`,
 `ndc2pix_rows`, `preprocess_gaussians` with the default-on opacity-aware
-rect shrink) and :457 (`mark_visible`). Plain torch, differentiable.
-Exact conic culling (`conic_cull_masks`) and slab offsets wait for later
-slices.
+rect shrink and the opt-in exact conic culling), :283-455
+(`conic_cull_masks`, `_mask_below`, `_mask_range`) and :457
+(`mark_visible`). Plain torch, differentiable. Slab offsets wait for a
+later slice.
 
 Convention: T[n] is a 3x3 matrix whose rows (Tu, Tv, Tw) map splat-tangent
 homogeneous coords (u, v, 1) to (x_pix·w, y_pix·w, w):
@@ -47,6 +48,11 @@ class PreprocessOut(NamedTuple):
     tiles_touched: torch.Tensor  # [N] int32
     valid: torch.Tensor         # [N] bool
     color: torch.Tensor         # [N,3]
+    # conic pair-culling bitmasks (conic_cull_masks): bit k set ⟺ row-major
+    # rect offset k is kept; the 64-bit mask as two int32 words holding the
+    # JAX package's uint32 bits. None without conic culling.
+    cull_lo: Optional[torch.Tensor] = None   # [N] offsets 0..31
+    cull_hi: Optional[torch.Tensor] = None   # [N] offsets 32..63
 
 
 def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -58,6 +64,14 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 def _sum3(a: torch.Tensor) -> torch.Tensor:
     return a[..., 0] + a[..., 1] + a[..., 2]
+
+
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a × b [N,3] with each component fma(a_i, b_j, −a_j·b_i), the
+    rounding the JAX package's jnp.cross gets."""
+    return torch.stack([fma(a[:, 1], b[:, 2], -(a[:, 2] * b[:, 1])),
+                        fma(a[:, 2], b[:, 0], -(a[:, 0] * b[:, 2])),
+                        fma(a[:, 0], b[:, 1], -(a[:, 1] * b[:, 0]))], dim=1)
 
 
 def _rows(x: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
@@ -115,13 +129,18 @@ def preprocess_gaussians(
         color: Optional[torch.Tensor] = None,   # [N,3] precomputed colors
         shs: Optional[torch.Tensor] = None,     # [N,K,3]
         sh_degree: int = 0,
-        alive: Optional[torch.Tensor] = None) -> PreprocessOut:
+        alive: Optional[torch.Tensor] = None,
+        conic_cull: bool = False) -> PreprocessOut:
     """Opacity-aware tile rect (the JAX default, opacity_cull=True): a
     gaussian of opacity o can only reach alpha >= 1/255 where
     rho <= thr(o) = 2·ln(255·o), so its rect shrinks to the thr-level conic
     AABB ∪ the thr-level low-pass disk. The blend masks alpha < 1/255
     exactly, so the output is unchanged with fewer pairs; radius / valid
-    keep the opacity-blind 3σ semantics."""
+    keep the opacity-blind 3σ semantics.
+
+    conic_cull: also drop the rect tiles the conic cannot reach
+    (conic_cull_masks): tiles_touched counts the kept offsets and
+    cull_lo / cull_hi carry the keep-masks binning expands by."""
     f32 = torch.float32
     dev = xyz.device
     xyz = xyz.to(f32)
@@ -228,6 +247,11 @@ def preprocess_gaussians(
     tiles_touched = torch.where(valid, tiles, 0).to(torch.int32)
     radius = torch.where(valid, radius, 0.0)
 
+    cull_lo = cull_hi = None
+    if conic_cull:
+        cull_lo, cull_hi, tiles_touched = conic_cull_masks(
+            T, xy, opacity, rect_min, rect_max, tiles_touched)
+
     if color is None:
         color = sh_to_color(sh_degree, shs.to(f32), xyz, campos.to(f32))
     else:
@@ -236,7 +260,197 @@ def preprocess_gaussians(
     return PreprocessOut(T=T, normal_view=normal_view, depth=p_view[:, 2],
                          xy=xy, radius=radius, rect_min=rect_min,
                          rect_max=rect_max, tiles_touched=tiles_touched,
-                         valid=valid, color=color)
+                         valid=valid, color=color, cull_lo=cull_lo,
+                         cull_hi=cull_hi)
+
+
+CULL_WINDOW = 64   # row-major tile offsets representable in the cull bitmask
+CULL_ROWS = 8      # rect rows solved exactly; later rows keep all their tiles
+_WORD = 1 << 32
+
+
+def _mask_below(k: torch.Tensor):
+    """64-bit mask of bits [0, k) as two words (int64 holding uint32 bits);
+    k in [0, 64]."""
+    one = torch.ones_like(k, dtype=torch.int64)
+    lo = (one << torch.clamp(k, 0, 32).to(torch.int64)) - 1
+    hi = (one << torch.clamp(k - 32, 0, 32).to(torch.int64)) - 1
+    return lo, hi
+
+
+def _mask_range(s: torch.Tensor, e: torch.Tensor):
+    """64-bit mask of bits [s, e) (clamped to [0, 64]) as two words."""
+    elo, ehi = _mask_below(torch.clamp(e, min=0))
+    slo, shi = _mask_below(torch.clamp(s, min=0))
+    return elo & ~slo, ehi & ~shi
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each word (int64 holding uint32 bits), int64."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def word_to_i32(x: torch.Tensor) -> torch.Tensor:
+    """uint32 bits in int64 → the int32 with the same bits."""
+    return torch.where(x >= 1 << 31, x - _WORD, x).to(torch.int32)
+
+
+def word_of_i32(x: torch.Tensor) -> torch.Tensor:
+    """int32 → its uint32 bits in int64."""
+    return x.to(torch.int64) & 0xFFFFFFFF
+
+
+def conic_cull_masks(T: torch.Tensor, xy: torch.Tensor,
+                     opacity: torch.Tensor, rect_min: torch.Tensor,
+                     rect_max: torch.Tensor, tiles_touched: torch.Tensor,
+                     tile: int = TILE):
+    """Exact conic-vs-tile pair culling over a 64-offset window (the JAX
+    package's conic_cull_masks, same arithmetic in the same order).
+
+    A (gaussian, tile) pair contributes iff some pixel of the tile reaches
+    alpha >= 1/255, i.e. rho = min(rho3d, rho2d) <= thr = 2·ln(255·o). With
+    p = x·A + y·B + C, rho3d <= thr is the conic Q(x, y) = p0² + p1² −
+    thr·p2² <= 0; where it is an ellipse, its x-extent over a horizontal
+    strip of pixels is a closed-form interval, and the rho2d region is a
+    disk of radius sqrt(thr/2) around the low-pass center. Each of the
+    first CULL_ROWS rect rows keeps only the tile columns either interval
+    reaches; offsets past the CULL_WINDOW-bit mask, rows past CULL_ROWS and
+    non-elliptic or non-finite gaussians keep every tile. Bounds are padded
+    by 1 px and thr inflated 1e-4 relative, so rounding never culls a pair
+    the blend's mask would keep: culling leaves the output unchanged.
+
+    Returns (mask_lo, mask_hi, tiles_kept): [N] int32 words holding the
+    JAX package's uint32 bits, and the kept-offset count per gaussian (0
+    where tiles_touched is 0). Index data: no gradient."""
+    f32 = torch.float32
+    f64 = torch.float64
+    pad = 1.0
+    tile_f = float(tile)
+    opa = torch.clamp(torch.reshape(opacity.detach(), (-1,)).to(f32),
+                      1e-12, 1.0)
+    thr = 2.0 * torch.log(255.0 * opa)
+    thr = (thr * (1.0 + 1e-4) + 1e-4).to(f64)  # strictly more than the blend
+    # the conic's coefficients in float64: at 1080p they are products of
+    # T's ~1e3-pixel-scale entries, and the recentred constant term sums
+    # ~1e12-sized terms that cancel, so in float32 its roots move by
+    # whole tiles (JAX's float32 version culls 1,680 live pairs on
+    # camera 0 of the 300k benchmark scene at 1920x1080)
+    T = T.detach().to(f64)
+    xy = xy.detach().to(f64)
+    Tu, Tv, Tw = T[:, 0, :], T[:, 1, :], T[:, 2, :]
+    A = torch.linalg.cross(Tv, Tw)
+    B = torch.linalg.cross(Tw, Tu)
+    C = torch.linalg.cross(Tu, Tv)
+    qa = A[:, 0] * A[:, 0] + A[:, 1] * A[:, 1] - thr * (A[:, 2] * A[:, 2])
+    qb = B[:, 0] * B[:, 0] + B[:, 1] * B[:, 1] - thr * (B[:, 2] * B[:, 2])
+    qc = 2.0 * (A[:, 0] * B[:, 0] + A[:, 1] * B[:, 1]
+                - thr * A[:, 2] * B[:, 2])
+    qd = 2.0 * (A[:, 0] * C[:, 0] + A[:, 1] * C[:, 1]
+                - thr * A[:, 2] * C[:, 2])
+    qe = 2.0 * (B[:, 0] * C[:, 0] + B[:, 1] * C[:, 1]
+                - thr * B[:, 2] * C[:, 2])
+    qf = C[:, 0] * C[:, 0] + C[:, 1] * C[:, 1] - thr * (C[:, 2] * C[:, 2])
+    # recentred on the low-pass center: root magnitudes ~ splat extent
+    cx, cy = xy[:, 0], xy[:, 1]
+    qd_l = 2.0 * qa * cx + qc * cy + qd
+    qe_l = qc * cx + 2.0 * qb * cy + qe
+    qf_l = (qa * cx + qc * cy + qd) * cx + (qb * cy + qe) * cy + qf
+    det4 = 4.0 * qa * qb - qc * qc
+    fin = (torch.isfinite(qa) & torch.isfinite(qb) & torch.isfinite(qc)
+           & torch.isfinite(qd_l) & torch.isfinite(qe_l)
+           & torch.isfinite(qf_l))
+    ok_ell = fin & (qa > 0.0) & (qb > 0.0) & (det4 > 1e-9 * (4.0 * qa * qb))
+    one = torch.ones_like(qa)
+    qa_s = torch.where(qa > 0, qa, one)
+    qb_s = torch.where(qb > 0, qb, one)
+    inv2a = 0.5 / qa_s
+
+    # the ellipse's global x-extremes (dQ/dy = 0 substituted)
+    aa = det4 / (4.0 * qb_s)
+    bb_g = qd_l - qc * qe_l / (2.0 * qb_s)
+    cc_g = qf_l - qe_l * qe_l / (4.0 * qb_s)
+    disc_g = bb_g * bb_g - 4.0 * aa * cc_g
+    aa_s = torch.where(aa > 0, aa, one)
+    ok_g = ok_ell & (disc_g >= 0.0) & (aa > 0.0)
+    sq_g = torch.sqrt(torch.clamp(disc_g, min=0.0))
+    xg_lo = (-bb_g - sq_g) / (2.0 * aa_s)
+    xg_hi = (-bb_g + sq_g) / (2.0 * aa_s)
+    yg_lo = -(qc * xg_lo + qe_l) / (2.0 * qb_s)
+    yg_hi = -(qc * xg_hi + qe_l) / (2.0 * qb_s)
+
+    r2d2 = torch.clamp(thr, min=0.0) / FILTER_INV_SQUARE  # disk radius²
+
+    rmin_x = rect_min[:, 0].to(torch.int64)
+    rw = torch.clamp(rect_max[:, 0] - rect_min[:, 0], min=1).to(torch.int64)
+    rh = torch.clamp(rect_max[:, 1] - rect_min[:, 1], min=0).to(torch.int64)
+    big = torch.full_like(qa, 3e38)
+
+    def roots_at(yv):
+        bb = qc * yv + qd_l
+        cc = (qb * yv + qe_l) * yv + qf_l
+        disc = bb * bb - 4.0 * qa * cc
+        ok = ok_ell & (disc >= 0.0)
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        return ok, (-bb - sq) * inv2a, (-bb + sq) * inv2a
+
+    mlo = torch.zeros_like(rw)
+    mhi = torch.zeros_like(rw)
+    for dy in range(CULL_ROWS):
+        ty = (rect_min[:, 1] + dy).to(f64)
+        a0 = ty * tile_f - cy                  # local strip [a0, b0], pixels
+        b0 = a0 + (tile_f - 1.0)
+        a, b = a0 - pad, b0 + pad
+        okA, loA, hiA = roots_at(a)
+        okB, loB, hiB = roots_at(b)
+        okGl = ok_g & (yg_lo >= a) & (yg_lo <= b)
+        okGh = ok_g & (yg_hi >= a) & (yg_hi <= b)
+        xlo_e = torch.minimum(torch.minimum(torch.where(okA, loA, big),
+                                            torch.where(okB, loB, big)),
+                              torch.where(okGl, xg_lo, big))
+        xhi_e = torch.maximum(torch.maximum(torch.where(okA, hiA, -big),
+                                            torch.where(okB, hiB, -big)),
+                              torch.where(okGh, xg_hi, -big))
+        dyd = torch.clamp(torch.maximum(a0, -b0), min=0.0)
+        disk_ok = r2d2 >= dyd * dyd
+        s_d = torch.sqrt(torch.clamp(r2d2 - dyd * dyd, min=0.0))
+        xlo = torch.minimum(xlo_e, torch.where(disk_ok, -s_d, big)) - pad
+        xhi = torch.maximum(xhi_e, torch.where(disk_ok, s_d, -big)) + pad
+        empty = xlo > xhi
+        clo = torch.floor(torch.clamp((xlo + cx) / tile_f, -1e9, 1e9)
+                          ).to(torch.int64)
+        chi = torch.floor(torch.clamp((xhi + cx) / tile_f, -1e9, 1e9)
+                          ).to(torch.int64)
+        dxlo = torch.minimum(torch.clamp(clo - rmin_x, min=0), rw)
+        dxhi = torch.minimum(torch.clamp(chi + 1 - rmin_x, min=0), rw)
+        row_on = (dy < rh) & ~empty & (dxhi > dxlo)
+        base = dy * rw
+        s_bit = torch.where(row_on, base + dxlo, 0)
+        e_bit = torch.where(row_on, base + dxhi, 0)
+        rlo, rhi = _mask_range(torch.clamp(s_bit, max=CULL_WINDOW),
+                               torch.clamp(e_bit, max=CULL_WINDOW))
+        mlo = mlo | rlo
+        mhi = mhi | rhi
+
+    # rows past CULL_ROWS keep all their in-window offsets
+    s_late = torch.clamp(torch.clamp(rh, max=CULL_ROWS) * rw,
+                         max=CULL_WINDOW)
+    e_late = torch.clamp(rh * rw, max=CULL_WINDOW)
+    llo, lhi = _mask_range(s_late, e_late)
+    mlo = mlo | llo
+    mhi = mhi | lhi
+
+    # non-elliptic / non-finite gaussians keep everything
+    alo, ahi = _mask_below(torch.clamp(rh * rw, max=CULL_WINDOW))
+    mlo = torch.where(ok_ell, mlo, alo)
+    mhi = torch.where(ok_ell, mhi, ahi)
+
+    n_beyond = torch.clamp(rh * rw - CULL_WINDOW, min=0)
+    kept = popcount32(mlo) + popcount32(mhi) + n_beyond
+    tiles_kept = torch.where(tiles_touched > 0, kept, 0).to(torch.int32)
+    return word_to_i32(mlo), word_to_i32(mhi), tiles_kept
 
 
 def mark_visible(xyz: torch.Tensor, w2v: torch.Tensor) -> torch.Tensor:

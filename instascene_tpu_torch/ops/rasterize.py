@@ -6,18 +6,19 @@ extras-only mode with its sampled-pixel done0 mask, contributor tracking,
 `extra_tiles`), :242-364 (`_rasterize_impl`, `rasterize`, with the t_offset
 densification tap and `cached_binning`), :457-485
 (`rasterize_extras_tiles`, the tile-subset feature render through K3/K4),
-:488-495 (`densify_screen_grad`), :498-587 (`compute_binning_cache`) and
-instascene_tpu/ops/rasterize_pallas.py:30-57 (`pallas_tiles_to_map`,
-`maps_from_pallas`). Buffers follow the exact pair total, so the TPU's pair
-and tile caps, their grow-and-retry loop, slab plans and gather tuning are
-gone; `n_dropped` is always 0. The frozen-geometry binning cache is the
-camera's BinningOut itself (no visit layout, no chain-reduce indices).
+:488-495 (`densify_screen_grad`), :498-587 (`compute_binning_cache`, with
+`dilate_tiles` and `conic_cull`) and instascene_tpu/ops/rasterize_pallas.py
+:30-57 (`pallas_tiles_to_map`, `maps_from_pallas`). Buffers follow the
+exact pair total, so the TPU's pair and tile caps, their grow-and-retry
+loop, slab plans and gather tuning are gone; `n_dropped` is always 0. The
+frozen-geometry binning cache is the camera's BinningOut itself (no visit
+layout, no chain-reduce indices); a tile subset of it renders in every
+mode but track through K1/K2's tile list (K3/K4: `tile_ids`), where the
+JAX package builds a select_tiles_bundle mini bundle
+(rasterize.py:277-282, blend_pallas.py:987-1085).
 
 Differentiable: torch autograd runs through preprocess, SH and pack, and
 the blend's gradient comes from K2 (ops/blend_visits.BlendFunction).
-
-Flags that belong to later slices raise NotImplementedError rather than
-being ignored.
 """
 
 from __future__ import annotations
@@ -58,23 +59,25 @@ class RasterizeConfig:
     # only the features, final T and n_contrib (every other map is zero)
     # and the gradient reaches the feature columns alone
     bwd_extras_only: bool = False
-    # later slices
-    clip_rect: bool = False          # K1 clip_rect (slice 5)
-    conic_cull: bool = False         # preprocess.conic_cull_masks (slice 5)
+    # cached-superset mode (K1/K2 clip_rect): pack each gaussian's fresh
+    # tile rect as 4 trailing columns and gate every pair by tile ∈ rect,
+    # so a cached SUPERSET pair list (compute_binning_cache(dilate_tiles=)
+    # at a nearby camera) renders exactly as fresh binning would; requires
+    # cached_binning, not with track_contrib
+    clip_rect: bool = False
+    # exact conic-vs-tile pair culling (preprocess.conic_cull_masks) on
+    # fresh binning: drops every pair whose tile cannot reach alpha >=
+    # 1/255; the maps and gradients are unchanged, the pair lists shorter
+    conic_cull: bool = False
 
     def check(self) -> None:
-        later = {"clip_rect": "slice 5 (cached-superset binning with "
-                              "dilate_tiles, K1/K2 clip_rect)",
-                 "conic_cull": "slice 5 (exact conic pair culling)"}
-        for name, when in later.items():
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"RasterizeConfig.{name} is not ported yet: it comes in "
-                    f"{when}")
         modes = [m for m in ("fwd_viewer", "track_contrib",
                              "bwd_extras_only") if getattr(self, m)]
         if len(modes) > 1:
             raise ValueError(f"RasterizeConfig: {modes} are separate modes")
+        if self.clip_rect and self.track_contrib:
+            raise ValueError("RasterizeConfig: clip_rect serves cached "
+                             "pair lists without track_contrib")
 
 
 class BlendOut(NamedTuple):
@@ -129,7 +132,7 @@ def maps_from_tiles(out, iout, width, height, n_extra) -> dict:
 def rasterize(means3d, scales, rotations, opacities, cam: CameraMats, bg,
               cfg: RasterizeConfig, colors=None, shs=None, sh_degree: int = 0,
               extras=None, t_offset=None, alive=None,
-              done0=None, cached_binning=None) -> RasterizeOut:
+              done0=None, cached_binning=None, tile_ids=None) -> RasterizeOut:
     """means3d [N,3]; scales [N,2] (activated); rotations [N,4] (w,x,y,z);
     opacities [N] or [N,1] (activated); exactly one of colors [N,3] /
     shs [N,K,3]; extras [N,E] optional feature channels; t_offset [N,3,3]
@@ -143,37 +146,66 @@ def rasterize(means3d, scales, rotations, opacities, cam: CameraMats, bg,
     [num_tiles, 1, 256] int32 (cfg.bwd_extras_only only): 1 pre-latches a
     pixel done; the other pixels' features and gradients are bit for bit
     those of done0=None, the latched pixels' come back zero and must not be
-    read."""
+    read.
+
+    cfg.clip_rect renders a cached superset pair list (cached_binning from
+    compute_binning_cache(dilate_tiles=) at a nearby camera): each
+    gaussian's fresh rect gates its pairs in the kernels, and a gaussian
+    with no fresh pairs gets an empty rect, so its stale cached pairs
+    contribute nothing. tile_ids [K] int (ascending, unique; with
+    cached_binning, every mode but track_contrib): only these tiles
+    render (K3, and K4 for the gradient); the other tiles' outputs are
+    zero and are not to be read."""
     cfg.check()
     if done0 is not None and not cfg.bwd_extras_only:
         raise ValueError("sampled-pixel done0 masks require "
                          "cfg.bwd_extras_only")
+    if (cfg.clip_rect or tile_ids is not None) and cached_binning is None:
+        raise ValueError("clip_rect and tile_ids render a cached binning "
+                         "(compute_binning_cache)")
     width, height = cfg.width, cfg.height
     n = means3d.shape[0]
     opac = torch.reshape(opacities, (n,))
     pre = preprocess_gaussians(
         means3d, scales, rotations, cam.w2v, cam.full_proj, cam.campos,
         width, height, opac, color=colors, shs=shs, sh_degree=sh_degree,
-        alive=alive)
+        alive=alive, conic_cull=cfg.conic_cull and cached_binning is None)
     binning = (cached_binning if cached_binning is not None
                else bin_gaussians(pre, width, height))
     E = extras.shape[1] if extras is not None else 0
     grid_x = (width + TILE - 1) // TILE
     T_used = pre.T if t_offset is None else pre.T + t_offset
+    rect = None
+    if cfg.clip_rect:
+        has_pairs = (pre.tiles_touched > 0)[:, None]
+        rect = (pre.rect_min,
+                torch.where(has_pairs, pre.rect_max, pre.rect_min))
     flat = pack_flat_cols(T_used, pre.xy, pre.normal_view, opac, pre.color,
-                          extras)
+                          extras, rect=rect)
     bargs = (binning.sorted_gid, binning.tile_start, binning.tile_end,
              grid_x, E)
+    sel = (None if tile_ids is None else torch.as_tensor(
+        tile_ids, device=flat.device).to(torch.int32).contiguous())
+    kw = dict(tile_ids=sel, clip_rect=cfg.clip_rect)
     ids = tw = None
     if cfg.fwd_viewer:
-        out, iout = bv.blend_fwd(flat.detach(), *bargs, viewer=True)
+        out, iout = bv.blend_fwd(flat.detach(), *bargs, viewer=True, **kw)
     elif cfg.track_contrib:
-        out, iout, ids, tw = bv.blend_fwd(flat.detach(), *bargs, track=True)
+        out, iout, ids, tw = bv.blend_fwd(flat.detach(), *bargs, track=True,
+                                          tile_ids=sel)
     else:
         out, iout = bv.blend(flat, *bargs,
                              (binning.gid_order, binning.run_start),
                              no_dist=cfg.no_depth_dist,
-                             extras_only=cfg.bwd_extras_only, done0=done0)
+                             extras_only=cfg.bwd_extras_only, done0=done0,
+                             **kw)
+    if sel is not None:
+        # the listed tiles' rows in a whole frame of zeros
+        nt = binning.tile_start.shape[0]
+        rows = sel.long()
+        out = out.new_zeros((nt,) + out.shape[1:]).index_put((rows,), out)
+        iout = iout.new_zeros((nt,) + iout.shape[1:]).index_put((rows,),
+                                                                 iout)
     maps = maps_from_tiles(out, iout, width, height, E)
     bg = torch.as_tensor(bg, dtype=torch.float32, device=means3d.device)
     color = maps["color_nobg"] + maps["final_T"][..., None] * bg
@@ -205,18 +237,27 @@ def densify_screen_grad(t_grad: torch.Tensor, depth: torch.Tensor,
 
 
 def compute_binning_cache(params, cam: CameraMats, width: int,
-                          height: int) -> BinningOut:
+                          height: int, dilate_tiles: int = 0,
+                          conic_cull: bool = False) -> BinningOut:
     """The frozen-geometry binning of one camera (semantic training: the
     geometry never moves, so each camera's pair list is computed once):
     preprocess with the opacity-aware rects, as every render does, then
-    bin. Pass it as rasterize(..., cached_binning=...)."""
+    bin. Pass it as rasterize(..., cached_binning=...).
+
+    dilate_tiles > 0 expands every visible gaussian's rect by that many
+    tiles per side: a SUPERSET pair list that a nearby camera renders
+    exactly through RasterizeConfig(clip_rect=True), as long as its fresh
+    rects stay inside the dilated ones. conic_cull drops the pairs whose
+    tile the conic cannot reach (off when dilating, as in the JAX
+    package)."""
     with torch.no_grad():
         pre = preprocess_gaussians(
             params.xyz, params.scaling_activated(),
             params.rotation_normalized(), cam.w2v, cam.full_proj,
             cam.campos, width, height, params.opacity_activated()[:, 0],
-            color=torch.zeros_like(params.xyz), alive=params.alive)
-        return bin_gaussians(pre, width, height)
+            color=torch.zeros_like(params.xyz), alive=params.alive,
+            conic_cull=conic_cull and not dilate_tiles)
+        return bin_gaussians(pre, width, height, dilate_tiles=dilate_tiles)
 
 
 def pack_extras(means3d, scales, rotations, opacities, cam: CameraMats,

@@ -17,11 +17,15 @@ GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens",
                       "forward.npz")
 
 
-def _port_binned(E, device="cpu", boost=1.0, view=2):
+def _port_binned(E, device="cpu", boost=1.0, view=2, dilate=0,
+                 clip_rect=False):
     """Preprocess + bin + pack of a 2000-gaussian SH-3 scene at 64x48 by
     the port itself, seen from orbit camera `view`: dense enough that some
-    pixels latch done. `boost` scales the surfels (12 makes the ray-splat
-    branch take part). Returns (flat, BinningOut)."""
+    pixels latch done. E <= 16 feature channels (the first E of the
+    scene's 16). `boost` scales the surfels (12 makes the ray-splat branch
+    take part). dilate: the binning's rects dilated by that many tiles (a
+    superset pair list); clip_rect: flat carries the fresh rects. Returns
+    (flat, BinningOut)."""
     from instascene_tpu_torch.data.synthetic import make_bench_scene
     from instascene_tpu_torch.models.gaussians import from_numpy
     from instascene_tpu_torch.ops.binning import bin_gaussians
@@ -35,9 +39,12 @@ def _port_binned(E, device="cpu", boost=1.0, view=2):
     pre = preprocess_gaussians(
         p.xyz, p.scaling_activated() * boost, p.rotation_normalized(), cm.w2v,
         cm.full_proj, cm.campos, W, H, opac, shs=p.features(), sh_degree=3)
-    b = bin_gaussians(pre, W, H)
+    b = bin_gaussians(pre, W, H, dilate_tiles=dilate)
     flat = pack_flat_cols(pre.T, pre.xy, pre.normal_view, opac, pre.color,
-                          p.seg_feature_normed() if E else None)
+                          p.seg_feature_normed()[:, :E].contiguous()
+                          if E else None,
+                          rect=(pre.rect_min, pre.rect_max) if clip_rect
+                          else None)
     return flat, b
 
 
@@ -121,8 +128,10 @@ def test_cuda_kernel_matches_plain(cuda, E, viewer):
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     from instascene_tpu_torch.ops.blend_visits import blend_fwd
     flat, gid, start, end = _port_inputs(16, cuda)
-    with pytest.raises(ValueError, match="built for E"):
-        blend_fwd(flat[:, :29].contiguous(), gid, start, end, GRID_X, 8)
+    # any width up to 256 runs; a wider one raises and names the limit
+    with pytest.raises(ValueError, match="E <= 256"):
+        blend_fwd(torch.zeros((flat.shape[0], 21 + 257), device=cuda), gid,
+                  start, end, GRID_X, 257)
     with pytest.raises(ValueError, match="flat must be"):
         blend_fwd(flat.double(), gid, start, end, GRID_X, 16)
     with pytest.raises(ValueError, match="sorted_gid"):
@@ -511,3 +520,211 @@ def test_cuda_prim_graph_matches_cpu(cuda):
     b = hdbscan(x, 30, 1, 0.1, True, device=cuda)
     assert len(np.unique(a[a >= 0])) >= 2
     np.testing.assert_array_equal(b, a)
+
+
+def _k2_twice(args, gout, saved, iout, n, runs, gid, **kw):
+    """K2 (any mode) and the segment sum twice: (d_sorted, d_flat), after
+    checking that the second run is bit for bit the first."""
+    from instascene_tpu_torch.ops.blend_visits import (blend_bwd,
+                                                       reduce_per_gaussian)
+    d1 = blend_bwd(*args, gout, saved, iout, **kw)
+    f1 = reduce_per_gaussian(d1, gid, n, runs)
+    d2 = blend_bwd(*args, gout, saved, iout, **kw)
+    f2 = reduce_per_gaussian(d2, gid, n, runs)
+    torch.cuda.synchronize()
+    assert torch.equal(d1, d2) and torch.equal(f1, f2)
+    return d1, f1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [0, 4, 8, 16])
+def test_cuda_k7_k8_match_plain(cuda, E):
+    """K7 and K8 over the padded layout of the port's binning: K7's out and
+    iout equal to its plain version's (rows within 3e-4) and bit for bit
+    K1 `full`'s on the same binning (the same rows in the same order);
+    K8's d(packed) within 1e-4 of each column's largest |value| of its
+    plain version, zero past each tile's slots, bit for bit equal over two
+    runs and bit for bit K2 `full`'s per-slot rows."""
+    from instascene_tpu_torch.ops import blend_visits as bv
+    from instascene_tpu_torch.ops.binning import padded_layout
+    from instascene_tpu_torch.ops.blend_padded import (
+        blend_bwd_padded, blend_bwd_padded_reference, blend_fwd_padded,
+        blend_fwd_padded_reference, pack_inputs)
+    flat, b = _port_binned(E, cuda, boost=12.0)
+    idx, count = padded_layout(b)
+    packed = pack_inputs(flat, idx)
+    T, D, K = packed.shape
+    want = {**bv.LAUNCHES, "K7": bv.LAUNCHES["K7"] + 1,
+            "K8": bv.LAUNCHES["K8"] + 2}
+    out, iout = blend_fwd_padded(packed, count, GRID_X, E)
+    saved = _saved(out, E)
+    gen = torch.Generator(device="cpu").manual_seed(10 + E)
+    gout = torch.randn(out.shape, generator=gen).to(cuda)
+    d1 = blend_bwd_padded(packed, count, GRID_X, E, gout, saved, iout)
+    d2 = blend_bwd_padded(packed, count, GRID_X, E, gout, saved, iout)
+    torch.cuda.synchronize()
+    assert bv.LAUNCHES == want and torch.equal(d1, d2)
+    ref, iref = blend_fwd_padded_reference(packed, count, GRID_X, E)
+    assert torch.equal(iout, iref) and iout[:, 0].any()
+    torch.testing.assert_close(out, ref, atol=3e-4, rtol=0)
+    k1, ik1 = bv.blend_fwd(flat, b.sorted_gid, b.tile_start, b.tile_end,
+                           GRID_X, E)
+    assert torch.equal(out, k1) and torch.equal(iout, ik1)
+    dref = blend_bwd_padded_reference(packed, count, GRID_X, E, gout, saved,
+                                      iout)
+    assert _col_err(d1.permute(0, 2, 1).reshape(-1, D),
+                    dref.permute(0, 2, 1).reshape(-1, D)) <= 1e-4
+    slot = torch.arange(K, device=cuda)[None, :] < count[:, None]
+    assert d1.any() and not d1.permute(0, 2, 1)[~slot].any()
+    k2 = bv.blend_bwd(flat, b.sorted_gid, b.tile_start, b.tile_end, GRID_X,
+                      E, gout, saved, iout)
+    t_of = torch.repeat_interleave(torch.arange(T, device=cuda),
+                                   count.long())
+    k_of = torch.arange(b.total_pairs, device=cuda) - b.tile_start.long()[
+        t_of]
+    assert torch.equal(d1[t_of, :, k_of], k2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["full", "viewer", "no_dist",
+                                  "extras_only"])
+def test_cuda_clip_rect_matches_plain_and_fresh(cuda, mode):
+    """K1 clip_rect over a superset pair list (the binning dilated by one
+    tile, flat carrying the fresh rects) against its plain version (iout
+    equal, rows within 3e-4), and its out bit for bit K1's over the fresh
+    binning (a gated slot contributes nothing; only the slot numbers of
+    iout differ). K2 clip_rect (not viewer) against its plain version
+    (1e-4 of each column's largest), twice bit for bit, and its d_flat bit
+    for bit the fresh binning's (the gated slots' rows are zeros)."""
+    from instascene_tpu_torch.ops import blend_visits as bv
+    E = 16
+    flat, b = _port_binned(E, cuda, boost=12.0, dilate=1, clip_rect=True)
+    fresh, bf = _port_binned(E, cuda, boost=12.0)
+    assert b.total_pairs > bf.total_pairs
+    n = flat.shape[0]
+    kw = dict(viewer=mode == "viewer", no_dist=mode == "no_dist",
+              extras_only=mode == "extras_only")
+    args = (flat, b.sorted_gid, b.tile_start, b.tile_end, GRID_X, E)
+    fargs = (fresh, bf.sorted_gid, bf.tile_start, bf.tile_end, GRID_X, E)
+    key = f"K1 {mode} clip_rect"
+    want = {**bv.LAUNCHES, key: bv.LAUNCHES[key] + 1}
+    out, iout = bv.blend_fwd(*args, clip_rect=True, **kw)
+    torch.cuda.synchronize()
+    assert bv.LAUNCHES == want
+    ref, iref = bv.blend_fwd_reference(*args, clip_rect=True, **kw)
+    assert torch.equal(iout, iref)
+    torch.testing.assert_close(out, ref, atol=3e-4, rtol=0)
+    own, iown = bv.blend_fwd(*fargs, **kw)
+    assert torch.equal(out, own)
+    if mode == "viewer":
+        return
+    bkw = dict(no_dist=mode == "no_dist", extras_only=mode == "extras_only")
+    gen = torch.Generator(device="cpu").manual_seed(12)
+    gout = torch.randn(out.shape, generator=gen).to(cuda)
+    d, f = _k2_twice(args, gout, _saved(out, E), iout, n,
+                     (b.gid_order, b.run_start), b.sorted_gid,
+                     clip_rect=True, **bkw)
+    assert d.shape[1] == (E if mode == "extras_only" else 21 + E + 4)
+    assert not d[:, 21 + E:].any()
+    dref = bv.blend_bwd_reference(*args, gout, _saved(out, E), iout,
+                                  clip_rect=True, **bkw)
+    assert _col_err(d, dref) <= 1e-4
+    _, ff = _k2_twice(fargs, gout, _saved(own, E), iown, n,
+                      (bf.gid_order, bf.run_start), bf.sorted_gid, **bkw)
+    assert torch.equal(f[:, :ff.shape[1]], ff)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["full", "viewer", "no_dist"])
+def test_cuda_k3_k4_every_mode(cuda, mode):
+    """K1 over a list of 5 tiles (K3) in `mode`: out/iout equal to its
+    plain version and bit for bit the whole frame's rows; K2 over the list
+    (K4, not viewer) within 1e-4 of each column's largest of its plain
+    version, zero for the slots of unlisted tiles, twice bit for bit."""
+    from instascene_tpu_torch.ops import blend_visits as bv
+    E = 16
+    flat, b = _port_binned(E, cuda, boost=12.0)
+    n = flat.shape[0]
+    args = (flat, b.sorted_gid, b.tile_start, b.tile_end, GRID_X, E)
+    ids = torch.tensor([0, 3, 5, 6, 11], dtype=torch.int32, device=cuda)
+    kw = dict(viewer=mode == "viewer", no_dist=mode == "no_dist")
+    want = {**bv.LAUNCHES, f"K3 {mode}": bv.LAUNCHES[f"K3 {mode}"] + 1}
+    out, iout = bv.blend_fwd(*args, tile_ids=ids, **kw)
+    torch.cuda.synchronize()
+    assert bv.LAUNCHES == want
+    ref, iref = bv.blend_fwd_reference(*args, tile_ids=ids, **kw)
+    assert out.shape == (5, 12 + E, 256) and torch.equal(iout, iref)
+    torch.testing.assert_close(out, ref, atol=3e-4, rtol=0)
+    full, ifull = bv.blend_fwd(*args, **kw)
+    assert torch.equal(out, full[ids.long()])
+    assert torch.equal(iout, ifull[ids.long()])
+    if mode == "viewer":
+        return
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    gout = torch.randn(out.shape, generator=gen).to(cuda)
+    d, _ = _k2_twice(args, gout, _saved(out, E), iout, n,
+                     (b.gid_order, b.run_start), b.sorted_gid, tile_ids=ids,
+                     no_dist=mode == "no_dist")
+    dref = bv.blend_bwd_reference(*args, gout, _saved(out, E), iout,
+                                  tile_ids=ids, no_dist=mode == "no_dist")
+    mine = torch.zeros(b.total_pairs, dtype=torch.bool, device=cuda)
+    for t in ids.tolist():
+        mine[int(b.tile_start[t]):int(b.tile_end[t])] = True
+    assert d[mine].any() and not d[~mine].any()
+    assert _col_err(d, dref) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [4, 8])
+def test_cuda_runtime_width_matches_plain(cuda, E):
+    """The run-time-width instantiation (E neither 0 nor 16): K1 full and
+    extras_only against their plain versions (iout equal, rows within
+    3e-4), K2 full and extras_only and the segment sum (1e-4 of each
+    column's largest, twice bit for bit), and K5/K6 on ~300 draws (feat
+    and aux within 3e-4 with n_contrib exact, bit for bit K1 extras_only
+    at the drawn pixels; K6 within 1e-4, twice bit for bit)."""
+    from instascene_tpu_torch.ops import blend_sparse as bs
+    from instascene_tpu_torch.ops import blend_visits as bv
+    flat, b = _port_binned(E, cuda, boost=12.0)
+    gid, n = b.sorted_gid, flat.shape[0]
+    runs = (b.gid_order, b.run_start)
+    args = (flat, gid, b.tile_start, b.tile_end, GRID_X, E)
+    gen = torch.Generator(device="cpu").manual_seed(20 + E)
+    for xo in (False, True):
+        out, iout = bv.blend_fwd(*args, extras_only=xo)
+        ref, iref = bv.blend_fwd_reference(*args, extras_only=xo)
+        assert torch.equal(iout, iref) and iout[:, 0].any()
+        torch.testing.assert_close(out, ref, atol=3e-4, rtol=0)
+        gout = torch.randn(out.shape, generator=gen).to(cuda)
+        d, f = _k2_twice(args, gout, _saved(out, E), iout, n, runs, gid,
+                         extras_only=xo)
+        dref = bv.blend_bwd_reference(*args, gout, _saved(out, E), iout,
+                                      extras_only=xo)
+        fref = bv.reduce_per_gaussian(dref.cpu(), gid.cpu(), n,
+                                      (runs[0].cpu(), runs[1].cpu()))
+        assert _col_err(d, dref) <= 1e-4
+        assert _col_err(f.cpu(), fref) <= 1e-4
+    idx = torch.randint(0, W * H, (300,), generator=gen)
+    nt = b.tile_start.shape[0]
+    S = bs.pick_sparse_s(300, nt)
+    spix, _, _, ov = bs.spix_from_idx(idx.to(cuda), W, H, 16, S)
+    assert not bool(ov)
+    sargs = (flat, gid, b.tile_start, b.tile_end, spix, GRID_X, E)
+    feat, aux = bs.blend_sparse_fwd(*sargs)
+    rfeat, raux = bs.blend_sparse_fwd_reference(*sargs)
+    assert torch.equal(aux[..., 1], raux[..., 1]) and aux[..., 1].any()
+    torch.testing.assert_close(aux, raux, atol=3e-4, rtol=0)
+    torch.testing.assert_close(feat, rfeat, atol=3e-4, rtol=0)
+    t_i, s_i = torch.nonzero(spix >= 0, as_tuple=True)
+    p_i = spix[t_i, s_i].long()
+    d0 = torch.ones((nt, 1, 256), dtype=torch.int32, device=cuda)
+    d0[t_i, 0, p_i] = 0
+    out, iout = bv.blend_fwd(*args, extras_only=True, done0=d0)
+    assert torch.equal(feat[t_i, s_i], out[t_i, 10:10 + E, p_i])
+    gs = torch.randn(feat.shape, generator=gen).to(cuda)
+    d1 = bs.blend_sparse_bwd(*sargs, gs, aux)
+    d2 = bs.blend_sparse_bwd(*sargs, gs, aux)
+    torch.cuda.synchronize()
+    assert torch.equal(d1, d2)
+    assert _col_err(d1, bs.blend_sparse_bwd_reference(*sargs, gs, aux)) \
+        <= 1e-4

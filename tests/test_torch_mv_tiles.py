@@ -1,10 +1,11 @@
-"""K3 and K4, K1 and K2 over a tile list (the --mv_tile_subsample path):
-the port's plain versions against the JAX TPU kernels over a
-select_tiles_bundle mini bundle (blend_aligned_diff in its extras_only
-mode, Pallas in interpret mode), `rasterize_extras_tiles` against the JAX
-package's, and `select_tiles`' count of the chunks the JAX bundle cuts, on
-test_mv_merged's scene. The CUDA kernels are held against the plain
-versions in test_torch_kernel.py."""
+"""K3 and K4, K1 and K2 over a tile list (the --mv_tile_subsample path and
+rasterize(tile_ids=)): the port's plain versions against the JAX TPU
+kernels over a select_tiles_bundle mini bundle (blend_aligned_diff in its
+extras_only and full modes, blend_aligned_viewer; Pallas in interpret
+mode), `rasterize_extras_tiles` against the JAX package's, a tile subset
+of rasterize against the whole frame, and `select_tiles`' count of the
+chunks the JAX bundle cuts, on test_mv_merged's scene. The CUDA kernels are
+held against the plain versions in test_torch_kernel.py."""
 
 import numpy as np
 import pytest
@@ -189,3 +190,138 @@ def test_tile_ids_out_of_range_raise(kernel, bad):
                          torch.zeros((3, 3, 256)),
                          torch.zeros((3, 2, 256), dtype=torch.int32),
                          extras_only=True, tile_ids=ids)
+
+
+E4 = 4      # the full-mode tests' feature width
+
+
+def _jax_flat_full(params, mv, v):
+    """JAX's packed table of view v with colors and E4 features (the
+    scene's first four, normalised)."""
+    from instascene_tpu.ops.blend_pallas import pack_flat_cols
+    from instascene_tpu.ops.preprocess import preprocess_gaussians
+    pre = preprocess_gaussians(
+        params.xyz, params.scaling_activated(), params.rotation_normalized(),
+        mv.w2v[v], mv.full_proj[v], mv.campos[v], W, H,
+        shs=params.features(), sh_degree=0, alive=params.alive)
+    f = params.seg_feature[:, :E4]
+    featn = f / (jnp.linalg.norm(f, axis=1, keepdims=True) + 1e-6)
+    return pack_flat_cols(pre.T, pre.xy, pre.normal_view,
+                          params.opacity_activated()[:, 0], pre.color, featn)
+
+
+# the JAX suite's kernel-vs-twin tolerances by out row
+# (tests/test_blend_pallas.py:83-93)
+ROW_TOL = ((slice(0, 3), 3e-4), (slice(3, 4), 3e-3), (slice(4, 7), 3e-4),
+           (slice(7, 8), 3e-3), (slice(8, 9), 3e-3), (slice(9, 10), 2e-5),
+           (slice(10, 10 + E4), 5e-4))
+
+
+@pytest.mark.parametrize("mode", ["full", "viewer"])
+def test_plain_k3_k4_full_and_viewer_match_aligned_kernels(mode):
+    """Five random tiles of view 1 at E = 4 (no chunk cut): K3's listed
+    rows against blend_aligned_diff (full) / blend_aligned_viewer within
+    the JAX suite's row tolerances, n_contrib exact, and bit for bit the
+    whole frame's rows of those tiles; in full mode K4's gradient of a
+    random cotangent on the listed rows within 3e-3 of the largest |value|
+    of jax.grad's, per packed column group."""
+    from instascene_tpu.ops.binning import select_tiles_bundle
+    from instascene_tpu.ops.blend_pallas import (blend_aligned_diff,
+                                                 blend_aligned_viewer)
+    from instascene_tpu_torch.ops import blend_visits as bv
+    params, mv, _, bins = scene()
+    cb = jax.tree.map(lambda a: a[1], mv.binning)
+    flat = _jax_flat_full(params, mv, 1)
+    sel = _sel(7)
+    K = len(sel)
+    gid, mtile, mrank, n_tr = select_tiles_bundle(
+        cb.sorted_gid, cb.tile_bounds, jnp.asarray(sel), chunk_cap=K * 8,
+        n=params.capacity)
+    assert int(n_tr) == 0
+    bundle = (gid, mtile, mrank)
+    b = bins[1]
+    args = (b.sorted_gid, b.tile_start, b.tile_end, GRID_X, E4)
+    ids = torch.as_tensor(sel)
+    tflat = torch.as_tensor(np.array(flat)[:-1])
+    if mode == "viewer":
+        jout, jiout = blend_aligned_viewer(flat, bundle, NUM_TILES, 16,
+                                           GRID_X, E4, True, 128)
+        out, iout = bv.blend_fwd(tflat, *args, viewer=True, tile_ids=ids)
+    else:
+        rng = np.random.default_rng(8)
+        gout = rng.normal(size=(K, 12 + E4, 256)).astype(np.float32)
+        gout[:, 10 + E4:] = 0.0
+        gfull = np.zeros((NUM_TILES, 12 + E4, 256), np.float32)
+        gfull[sel] = gout
+        listed = jnp.asarray(np.isin(np.arange(NUM_TILES), sel))
+
+        def jfwd(fl):
+            out, iout = blend_aligned_diff(fl, bundle, NUM_TILES, 16, GRID_X,
+                                           E4, True, False, 128)
+            return jnp.where(listed[:, None, None], out, 0.0), iout
+
+        (jout, jiout), vjp = jax.vjp(jfwd, flat)
+        (jg,) = vjp((jnp.asarray(gfull), jnp.zeros_like(jiout)))
+        jg = np.asarray(jg)[:-1]
+        tf = tflat.clone().requires_grad_(True)
+        out, iout = bv.blend(tf, *args, (b.gid_order, b.run_start),
+                             tile_ids=ids)
+        (out * torch.as_tensor(gout)).sum().backward()
+        g = tf.grad.numpy()
+        for cols in (slice(0, 12), slice(12, 14), slice(14, 17),
+                     slice(17, 18), slice(18, 21), slice(21, 21 + E4)):
+            scale = np.abs(jg[:, cols]).max()
+            assert scale > 0, cols
+            assert np.abs(g[:, cols] - jg[:, cols]).max() <= 3e-3 * scale
+        out = out.detach()
+    jout, jiout = np.asarray(jout)[sel], np.asarray(jiout)[sel]
+    np.testing.assert_array_equal(iout[:, 0].numpy(), jiout[:, 0])
+    assert iout[:, 0].max() > 0
+    for rows, tol in ROW_TOL:
+        np.testing.assert_allclose(out[:, rows].numpy(), jout[:, rows],
+                                   atol=tol, rtol=0)
+    full, ifull = bv.blend_fwd(tflat, *args, viewer=mode == "viewer")
+    assert torch.equal(out, full[ids.long()])
+    assert torch.equal(iout, ifull[ids.long()])
+
+
+def test_rasterize_tile_subset_matches_the_whole_frame():
+    """rasterize(tile_ids=) over view 1's cached binning in full mode
+    (tests/test_blend_pallas.py:338-424's contract): the listed tiles'
+    maps within 1e-6 of the whole frame's, the other tiles' rows zero (the
+    maps derived from them, such as alpha = 1 − T, are not to be read),
+    and the xyz
+    gradient of a loss over the listed tiles' pixels within 1e-5 of the
+    largest |value| of the whole frame's."""
+    from instascene_tpu_torch.ops.rasterize import (CameraMats,
+                                                    RasterizeConfig,
+                                                    rasterize)
+    params, mv, tp, bins = scene()
+    t = lambda a: torch.as_tensor(np.array(a))
+    cam = CameraMats(t(mv.w2v[1]), t(mv.full_proj[1]), t(mv.campos[1]))
+    sel = _sel(9, k=4)
+    mask = torch.zeros(NUM_TILES, dtype=torch.bool)
+    mask[torch.as_tensor(sel).long()] = True
+    pix = mask.reshape(H // 16, 1, GRID_X, 1).expand(
+        H // 16, 16, GRID_X, 16).reshape(H, W)
+
+    def run(tile_ids):
+        xyz = tp.xyz.clone().requires_grad_(True)
+        o = rasterize(xyz, tp.scaling_activated(), tp.rotation_normalized(),
+                      tp.opacity_activated()[:, 0], cam, np.zeros(3),
+                      RasterizeConfig(W, H), shs=tp.features(), sh_degree=0,
+                      extras=tp.seg_feature_normed(), alive=tp.alive,
+                      cached_binning=bins[1], tile_ids=tile_ids)
+        ((o.blend.extra[pix] ** 2).sum()
+         + (o.blend.color[pix] * 0.5).sum()).backward()
+        return o.blend, xyz.grad
+
+    full, gf = run(None)
+    sub, gs = run(torch.as_tensor(sel))
+    for k in ("color", "extra", "depth", "normal", "final_T", "distortion",
+              "median_depth"):
+        a, b = getattr(sub, k).detach(), getattr(full, k).detach()
+        torch.testing.assert_close(a[pix], b[pix], atol=1e-6, rtol=0)
+        assert not a[~pix].any(), k      # the kernels' rows, unlisted: 0
+    scale = gf.abs().max()
+    assert scale > 0 and (gs - gf).abs().max() <= 1e-5 * scale

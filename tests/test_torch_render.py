@@ -134,10 +134,18 @@ def test_later_slice_options_raise():
     st, mk = make_bench_scene(n=50, seed=0, profile="trained")
     p = from_numpy(st, device="cpu")
     cam = mk(0, 32, 32)
-    for flag in ("clip_rect", "conic_cull"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            render(cam, p, PipelineParams(), np.zeros(3),
-                   cfg=RasterizeConfig(32, 32, **{flag: True}))
+    # clip_rect serves a cached binning (a fresh render has none to
+    # clip); conic culling leaves the maps as they were
+    with pytest.raises(ValueError, match="cached binning"):
+        render(cam, p, PipelineParams(), np.zeros(3),
+               cfg=RasterizeConfig(32, 32, clip_rect=True))
+    plain = render(cam, p, PipelineParams(), np.zeros(3),
+                   cfg=RasterizeConfig(32, 32))
+    culled = render(cam, p, PipelineParams(), np.zeros(3),
+                    cfg=RasterizeConfig(32, 32, conic_cull=True))
+    for key in ("render", "rend_alpha", "rend_normal", "surf_depth"):
+        torch.testing.assert_close(culled[key], plain[key], atol=1e-6,
+                                   rtol=0)
     # slice 4 serves merged views at the blend (blend_visits.blend's
     # tiles_per_view), as the JAX package does: no RasterizeConfig field
     with pytest.raises(TypeError):
