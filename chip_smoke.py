@@ -378,8 +378,10 @@ def compare_k2(label, flat, b, grid_x, E, mode, timing=False, fwd=None,
     the card against their plain versions on the same inputs (K1's own
     forward in that mode, or the given fwd = (out, iout), and one seeded
     random cotangent), then both kernels a second time: d_sorted and d_flat
-    bit for bit equal. sel: tile_ids (K4) or tiles_per_view, passed to
-    both versions."""
+    bit for bit equal. The segment sum's d_flat is also torch.equal to its
+    plain version run on the CPU on the kernel's own d_sorted (both add in
+    slot order). sel: tile_ids (K4) or tiles_per_view, passed to both
+    versions."""
     import torch
     from instascene_tpu_torch.ops import blend_visits as bv
     kw = dict(no_dist=mode == "no_dist", extras_only=mode == "extras_only",
@@ -399,6 +401,8 @@ def compare_k2(label, flat, b, grid_x, E, mode, timing=False, fwd=None,
     f2 = bv.reduce_per_gaussian(d2, b.sorted_gid, n, runs)
     torch.cuda.synchronize()
     same = bool(torch.equal(d1, d2) and torch.equal(f1, f2))
+    seg_exact = bool(torch.equal(f1.cpu(), bv.reduce_per_gaussian_reference(
+        d1.cpu(), b.sorted_gid.cpu(), n)))
     (d_ref, (evals, hits, slots)), plain_ms = timed(
         lambda: bv.blend_bwd_reference(*bwd, count_work=True, **kw))
     f_ref = bv.reduce_per_gaussian_reference(d_ref, b.sorted_gid, n)
@@ -408,13 +412,16 @@ def compare_k2(label, flat, b, grid_x, E, mode, timing=False, fwd=None,
           f"(slot, pixel) evaluations={evals} contributions={hits} slots "
           f"reduced={slots}; per-slot rows {err_rows:.3g}, d_flat "
           f"{err_flat:.3g} of each column's max |value| (tol {K2_TOL:g}); "
-          f"two runs bit for bit equal: {same}", flush=True)
+          f"two runs bit for bit equal: {same}; segment sum torch.equal to "
+          f"its plain version on the CPU: {seg_exact}", flush=True)
     check(bool(torch.isfinite(d1).all() and torch.isfinite(f1).all()),
           f"{label} K2 {mode} E={E}: non-finite gradients")
     check(hits > 0, f"{label} K2 {mode} E={E}: no contribution")
     check(err_rows <= K2_TOL and err_flat <= K2_TOL,
           f"{label} K2 {mode} E={E}: rows {err_rows}, d_flat {err_flat}")
     check(same, f"{label} K2 {mode} E={E}: two runs differ")
+    check(seg_exact, f"{label} K2 {mode} E={E}: the segment sum's d_flat is "
+          f"not its plain version's bits")
     res = {"max_abs_err": float((d1 - d_ref).abs().max()),
            "flat_max_abs_err": float((f1 - f_ref).abs().max()),
            "rel_err": max(err_rows, err_flat)}
@@ -442,7 +449,10 @@ def compare_k2(label, flat, b, grid_x, E, mode, timing=False, fwd=None,
         ops = evals * OPS_EVAL + hits * per_hit + (hits - slots) * D
         if sel.get("clip_rect"):
             ops += walk * RECT_OPS       # each slot's rect test
-        res.update(bound(bytes_, ops), evals=evals, hits=hits, slots=slots)
+        res.update(bound(bytes_, ops), evals=evals, hits=hits, slots=slots,
+                   longest_run=int((b.run_start[1:] - b.run_start[:-1])
+                                   .max()),
+                   largest_tile=int((b.tile_end - b.tile_start).max()))
         gid64 = b.sorted_gid.to(torch.int64)
         acc = torch.zeros((n, D), dtype=torch.float32, device=flat.device)
         seg = {"ms": time_ms(lambda: bv.reduce_per_gaussian(
@@ -632,7 +642,9 @@ def train_frame_kernels(p, make_cam):
               f"({r['bound_by']}: {r['bytes']} bytes, {r['ops']} FP32 ops); "
               f"segment sum {sg['ms']:.4f} ms, plain {sg['plain_ms']:.4f} "
               f"ms, index_add_ {sg['library_ms']:.4f} ms, bound "
-              f"{sg['bound_ms']:.4f} ms ({sg['bound_by']})", flush=True)
+              f"{sg['bound_ms']:.4f} ms ({sg['bound_by']}); longest run "
+              f"{r['longest_run']} slots, largest tile {r['largest_tile']} "
+              f"slots", flush=True)
         k2[mode] = r
     return k1, k2
 
@@ -1213,7 +1225,8 @@ def semantic_frame_kernels(p, make_cam):
               f"bytes, {k2['ops']} FP32 ops); segment sum D=16 "
               f"{sg['ms']:.4f} ms, plain {sg['plain_ms']:.4f} ms, index_add_ "
               f"{sg['library_ms']:.4f} ms, bound {sg['bound_ms']:.4f} ms "
-              f"({sg['bound_by']})", flush=True)
+              f"({sg['bound_by']}); longest run {k2['longest_run']} slots, "
+              f"largest tile {k2['largest_tile']} slots", flush=True)
     tr = compare_track("semantic-frame", flat, b, gx, 16, timing=True)
     print(f"[kernel] semantic-frame track E=16: K1 {tr['ms']:.4f} ms, plain "
           f"{tr['plain_ms']:.1f} ms, bound {tr['bound_ms']:.4f} ms "
@@ -2579,7 +2592,8 @@ def main() -> int:
          "launches": train_counts["segment_sum"],
          "max_abs_err": sg["max_abs_err"], "ms": sg["ms"],
          "plain_ms": sg["plain_ms"], "bound_ms": sg["bound_ms"],
-         "bound_by": sg["bound_by"], "library_ms": sg["library_ms"]}]
+         "bound_by": sg["bound_by"], "library_ms": sg["library_ms"],
+         "longest_run": k2_train["no_dist"]["longest_run"]}]
     sframe = (f"{SEM['width']}x{SEM['height']}, {len(st['xyz'])} gaussians, "
               f"E=16")
     x0, xp = sem_k["done0"], sem_k["plain"]
@@ -2612,7 +2626,8 @@ def main() -> int:
         "launches": sem_counts["segment_sum"],
         "max_abs_err": sg16["max_abs_err"], "ms": sg16["ms"],
         "plain_ms": sg16["plain_ms"], "bound_ms": sg16["bound_ms"],
-        "bound_by": sg16["bound_by"], "library_ms": sg16["library_ms"]})
+        "bound_by": sg16["bound_by"], "library_ms": sg16["library_ms"],
+        "longest_run": k2x["longest_run"]})
     cm = cli_merged["counts"]
 
     def entry(name, source, replaces, mode, launches, r, **more):

@@ -44,44 +44,68 @@
 // 256 threads owns a tile and one thread a pixel; the pixel's gout rows,
 // final T, m1/m2 totals, n_contrib and median slot sit in registers. The
 // block takes its tile's largest n_contrib and walks the slots from there
-// back to front, in batches gathered flat[sorted_gid[j]] into shared memory
-// (fused, no packed copy). Per slot each thread recomputes the splat exactly
-// as K1 does (splat.cuh), so its mask matches the forward bit for bit; the
-// slot takes part where that mask holds and slot <= n_contrib (a
+// back to front, in batches of 128 gathered flat[sorted_gid[j]] into shared
+// memory (fused, no packed copy). Per slot each thread recomputes the splat
+// exactly as K1 does (splat.cuh), so its mask matches the forward bit for
+// bit; the slot takes part where that mask holds and slot <= n_contrib (a
 // contribution that would have taken T below 1e-4 never happened). T before
 // the slot is recovered by one division, T_after / (1 - alpha), and the
 // suffix sum S of dL/dw·w over later slots is carried. Every slot belongs to
 // one tile, so the block reduces the slot's 21+E column contributions over
-// its 256 pixels — butterfly shuffles in each warp (skipped by warps with no
-// contribution), then the 8 warp partials from shared memory summed in a
-// fixed order — and writes the row once with a plain store: no atomics, the
+// its 256 pixels and writes the row once with a plain store: no atomics, the
 // same bits on every run. Slots past the tile's largest n_contrib get zero
 // rows.
 //
-// What bounds it on the H100: instruction issue. Each evaluated (slot,
-// pixel) pair is K1's 41-operation splat; each contribution 54 + 3E more
-// FP32 operations (25 more in `full`); and each reduced slot costs 5 · (21+E)
-// shuffles per warp plus a block barrier, whatever the number of pixels that
-// contributed. The bytes (the packed rows of the tile's pairs, gout, saved,
-// iout and d_sorted) are a few hundred MB at the benchmark's sizes, well
-// under a millisecond of HBM time. The design keeps everything per pixel in
-// registers, stops each tile at its largest n_contrib, lets warps without a
-// contribution skip the shuffles, and needs one barrier per slot
-// (double-buffered partials). chip_smoke.py computes the bound per run.
-// `extras_only` does K1's splat and 5 + E operations per contribution, then
-// E shuffle reductions per slot: on the semantic frame (976x728, E = 16) it
-// is bound by the same instruction issue, with E columns where the other
-// modes reduce 21 + E.
+// What bounded the first design on the H100: warp shuffles. Each warp with
+// a contribution reduced each of its NC columns (21, or 16 in
+// `extras_only` at E = 16, 37 in `full` at E = 16) with its own butterfly,
+// 5 · NC shuffles per slot, and an SM issues one warp shuffle per clock (a
+// quarter of its FADD rate): 105 shuffles per warp per slot put K2
+// `no_dist` at ~3 ms on 782k slots. A block barrier per slot and a row
+// store by the first DO threads alone, while the others waited, came on
+// top. The design now:
+//   * a reduce-scatter across the warp (blend_walk.cuh::scatter_reduce):
+//     each level halves the list of columns a lane holds, one shuffle per
+//     pair of columns, 23 shuffles for 21 columns, 16 for 16, 39 for 37;
+//     each kept sum is the butterfly's, so the bits are unchanged;
+//   * the warp partials of 8 consecutive slots, double-buffered, share one
+//     barrier, after which all 256 threads sum each (slot, column)'s 8
+//     partials in the order w0 .. w7 and store the group's rows in one
+//     contiguous pass.
+// What is left per evaluated (slot, pixel) is K1's 41-operation splat and,
+// per contribution, 54 + 3E more FP32 operations (25 more in `full`;
+// `extras_only` 5 + E): instruction issue. The bytes (the packed rows of
+// the tile's pairs, gout, saved, iout and d_sorted) are a few hundred MB at
+// the benchmark's sizes, well under a millisecond of HBM time.
+// chip_smoke.py computes the bound per run. The run-time width keeps a
+// butterfly per feature column (its bits are the same either way).
 //
 // The segment sum: d_flat[g] = Σ d_sorted[s] over g's slots, in slot order
-// from 0, one thread per (gaussian, column) over the runs that binning lists
-// (gid_order, run_start: ops/binning.py). Deterministic; its plain version
-// is an index_add_ in slot order on the CPU.
+// from 0, over the runs that binning lists (gid_order, run_start:
+// ops/binning.py). Deterministic; its plain version is an index_add_ in
+// slot order on the CPU, and the kernel's result is that version's bits.
+// What bounds it is latency, not bytes. On the 300k bench frame (976x728)
+// the runs have a mean length of 2.7 slots but reach 525. One thread per
+// (gaussian, column) walking its run with two dependent loads per slot
+// (gid_order[r], then the row) had few loads in flight per SM in the
+// bulk and a chain of 1,050 loads in the longest run; it took ~0.15 ms on
+// an H100 at D = 21 and D = 16 alike, slower than index_add_. A warp per
+// gaussian with its rows loaded ahead still left each warp a chain of
+// dependent phases (run bounds, indices, rows, store) for ~3 slots of
+// work, and was no faster. The design now: a block takes a batch of
+// B = 1024 / D consecutive gaussians, whose runs are one contiguous range
+// of gid_order; it stages that range in chunks, first the slot indices,
+// then every row of the chunk at once (cp.async, one 4-byte copy per
+// element: up to 24 KB of requests in flight per block), and each thread
+// then adds the staged rows of its 4 (gaussian, column) sums in slot
+// order. A batch costs ~3 load latencies per chunk, and a 525-slot run
+// is 2-3 chunks.
 //
 // Rounding: see splat.cuh. The plain PyTorch version is
 // ops/blend_visits.py::blend_bwd_reference; per pixel it computes the same
 // values in the same order, and only the sums over pixels differ in order.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "blend_walk.cuh"
@@ -90,19 +114,73 @@ namespace {
 
 using namespace walk;
 
-__global__ void segment_sum_kernel(const float* __restrict__ d_sorted,
-                                   const int* __restrict__ gid_order,
-                                   const int* __restrict__ run_start, int n,
-                                   int D, float* __restrict__ d_flat) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)n * D) return;
-  const int g = (int)(i / D);
-  const int c = (int)(i - (long long)g * D);
-  float acc = 0.f;
-  const int end = run_start[g + 1];
-  for (int r = run_start[g]; r < end; ++r)
-    acc = acc + d_sorted[(size_t)gid_order[r] * D + c];
-  d_flat[i] = acc;
+constexpr int SEG_THREADS = 256;
+constexpr int SEG_PAIRS = 4;           // (gaussian, column) sums per thread
+constexpr int SEG_SMEM = 24 * 1024;    // staged indices and rows per block
+
+// Block b sums the gaussians [b·B, b·B + B), B = SEG_PAIRS · 256 / D: their
+// runs are one contiguous range of gid_order, staged CH slots at a time
+// (the indices, then the rows, by cp.async), and thread q owns the sums
+// (gaussian, column) = divmod(q + 256k, D), k < SEG_PAIRS, adding its
+// gaussian's staged rows in slot order.
+__global__ void __launch_bounds__(SEG_THREADS)
+segment_sum_kernel(const float* __restrict__ d_sorted,
+                   const int* __restrict__ gid_order,
+                   const int* __restrict__ run_start, int n, int D, int B,
+                   int CH, float* __restrict__ d_flat) {
+  extern __shared__ float seg_s[];
+  float* rows = seg_s;                        // [CH, D]
+  int* slot = (int*)(rows + CH * D);          // [CH]
+  int* run = slot + CH;                       // [B + 1], the batch's runs
+  const int t = threadIdx.x;
+  const long long g0 = (long long)blockIdx.x * B;
+  const int nb = (int)min((long long)B, (long long)n - g0);
+  for (int i = t; i <= nb; i += SEG_THREADS)
+    run[i] = __ldg(run_start + g0 + i);
+  __syncthreads();
+  float acc[SEG_PAIRS];
+  int col[SEG_PAIRS], r0[SEG_PAIRS], r1[SEG_PAIRS];
+#pragma unroll
+  for (int k = 0; k < SEG_PAIRS; ++k) {
+    const int q = t + k * SEG_THREADS;
+    const int g = q < nb * D ? q / D : 0;
+    acc[k] = 0.f;
+    col[k] = q - g * D;
+    r0[k] = q < nb * D ? run[g] : 0;      // an empty range past the batch
+    r1[k] = q < nb * D ? run[g + 1] : 0;
+  }
+  const int end = run[nb];
+  for (int a = run[0]; a < end; a += CH) {
+    const int m = min(CH, end - a);
+    for (int i = t; i < m; i += SEG_THREADS)
+      __pipeline_memcpy_async(slot + i, gid_order + a + i, sizeof(int));
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    // every row of the chunk in flight at once
+    for (int i = t; i < m * D; i += SEG_THREADS) {
+      const int r = i / D;
+      __pipeline_memcpy_async(
+          rows + i, d_sorted + (size_t)slot[r] * D + (i - r * D),
+          sizeof(float));
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    // in slot order, each add rounded alone
+#pragma unroll
+    for (int k = 0; k < SEG_PAIRS; ++k) {
+      const int hi = min(r1[k], a + m) - a;
+      for (int r = max(r0[k], a) - a; r < hi; ++r)
+        acc[k] = acc[k] + rows[r * D + col[k]];
+    }
+    __syncthreads();   // the chunk is read before the next one is staged
+  }
+#pragma unroll
+  for (int k = 0; k < SEG_PAIRS; ++k) {
+    const int q = t + k * SEG_THREADS;
+    if (q < nb * D) d_flat[g0 * D + q] = acc[k];
+  }
 }
 
 struct Args {
@@ -125,9 +203,8 @@ void launch_mode(const Args& a, int num_rows, cudaStream_t stream) {
   const FlatRows src{a.flat, a.sorted_gid, a.tile_start, a.tile_end};
   const int D = 21 + a.n_extra + (CLIP ? RECT : 0);
   const int DO = MODE == B_EXTRAS ? a.n_extra : D;
-  const int batch = ET < 0 ? bwd_batch(D, DO) : BATCH;
-  const size_t smem =
-      ET < 0 ? (size_t)(batch * D + 2 * NW * DO) * sizeof(float) : 0;
+  const int batch = ET < 0 ? bwd_batch(D, DO) : BWD_BATCH;
+  const size_t smem = ET < 0 ? bwd_smem(D, DO) : 0;
   blend_bwd_kernel<ET, MODE, CLIP, FlatRows><<<num_rows, P2, smem, stream>>>(
       src, a.n_extra, batch, a.grid_x, a.tile_ids, a.tiles_per_view, a.gout,
       a.saved, a.iout, a.d_sorted);
@@ -184,11 +261,12 @@ extern "C" int segment_sum_launch(const float* d_sorted, const int* gid_order,
                                   const int* run_start, int n, int D,
                                   float* d_flat, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long total = (long long)n * D;
-  if (total <= 0) return (int)cudaSuccess;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  segment_sum_kernel<<<(unsigned)blocks, threads, 0, st>>>(
-      d_sorted, gid_order, run_start, n, D, d_flat);
+  if (n <= 0 || D == 0) return (int)cudaSuccess;
+  if (D < 0 || D > SEG_PAIRS * SEG_THREADS) return (int)cudaErrorInvalidValue;
+  const int B = SEG_PAIRS * SEG_THREADS / D;             // gaussians per block
+  const int CH = (SEG_SMEM / 4 - (B + 1)) / (D + 1);     // slots per chunk
+  const size_t smem = (size_t)(CH * D + CH + B + 1) * sizeof(float);
+  segment_sum_kernel<<<(unsigned)((n + B - 1) / B), SEG_THREADS, smem, st>>>(
+      d_sorted, gid_order, run_start, n, D, B, CH, d_flat);
   return (int)cudaGetLastError();
 }

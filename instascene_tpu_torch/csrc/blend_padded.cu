@@ -19,16 +19,17 @@
 // sums and products over each chunk. Here the walk is K1's and K2's own
 // (csrc/blend_walk.cuh) over PaddedRows: one block of 256 threads per tile,
 // one thread per pixel, the recurrence a plain sequential loop. The block
-// stages batches of packed[t, :, k0:k0+256] in shared memory, each column
-// read along K (neighbouring threads on neighbouring slots: coalesced, no
-// gather), and walks count[t] slots only, never K. The forward latches a
-// pixel done at T < 1e-4 and leaves when all 256 are done; the backward
-// starts at the tile's largest n_contrib, recovers T before each slot as
-// T_after / (1 - alpha) from the saved final T, m1 and m2 totals, reduces
-// the slot's 21+E column terms over the 256 pixels in a fixed order (warp
-// butterflies, then the 8 warp partials summed in order) and stores the
-// column d(packed)[t, :, slot] once: no atomics, so two runs are bit for
-// bit equal. The JAX package's cumprod form and this sequential form round
+// stages batches of packed[t, :, k0:k0+256] (backward: 128) in shared
+// memory, each column read along K (neighbouring threads on neighbouring
+// slots: coalesced, no gather), and walks count[t] slots only, never K.
+// The forward latches a pixel done at T < 1e-4 and leaves when all 256
+// are done; the backward starts at the tile's largest n_contrib, recovers
+// T before each slot as T_after / (1 - alpha) from the saved final T, m1
+// and m2 totals, reduces the slot's 21+E column terms over the 256 pixels
+// in a fixed order (a reduce-scatter across each warp, then the 8 warp
+// partials summed in order, one barrier per 8 slots) and stores the column
+// d(packed)[t, :, slot] once: no atomics, so two runs are bit for bit
+// equal. The JAX package's cumprod form and this sequential form round
 // differently; both are held to the tolerances of its own tests
 // (tests/test_blend_pallas.py:83-93) against a slot-sequential plain
 // version (ops/blend_padded.py).
@@ -71,9 +72,8 @@ void launch_bwd(const PaddedRows& src, int num_tiles, int grid_x,
                 int n_extra, const float* gout, const float* saved,
                 const int* iout, float* d_packed, cudaStream_t stream) {
   const int D = 21 + n_extra;
-  const int batch = ET < 0 ? bwd_batch(D, D) : BATCH;
-  const size_t smem =
-      ET < 0 ? (size_t)(batch * D + 2 * NW * D) * sizeof(float) : 0;
+  const int batch = ET < 0 ? bwd_batch(D, D) : BWD_BATCH;
+  const size_t smem = ET < 0 ? bwd_smem(D, D) : 0;
   blend_bwd_kernel<ET, B_FULL, false, PaddedRows>
       <<<num_tiles, P2, smem, stream>>>(src, n_extra, batch, grid_x, nullptr,
                                         0, gout, saved, iout, d_packed);

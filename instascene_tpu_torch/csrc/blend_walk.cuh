@@ -23,9 +23,10 @@
 //         E <= MAX_E): the forward accumulates a pixel's features in its
 //         own output column (each thread owns its column: no race, the
 //         same order of additions), the backward forms the E feature
-//         columns in a loop at the reduction, and the staged batch shrinks
-//         so that rows and partials fit the 48 KB of shared memory a block
-//         gets without opting in.
+//         columns in a loop at the reduction, and the staged batch (and
+//         the backward's group of slots per barrier) shrinks so that rows
+//         and partials fit the 48 KB of shared memory a block gets without
+//         opting in.
 //   MODE  the forward's (Fwd) or backward's (Bwd) mode.
 //   CLIP  clip_rect: the packed rows carry 4 trailing rect columns (rmin_x,
 //         rmax_x, rmin_y, rmax_y) and a pair contributes only where the
@@ -48,7 +49,9 @@ namespace walk {
 
 using namespace splat;
 
-constexpr int BATCH = 256;       // pair rows staged per pass (fixed E)
+constexpr int BATCH = 256;       // pair rows staged per pass (forward)
+constexpr int BWD_BATCH = 128;   // pair rows staged per pass (backward)
+constexpr int GROUP = 8;         // backward slots per barrier (fixed E)
 constexpr int NW = P2 / 32;      // warps per block
 constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int DYN_E = -1;        // ET: the feature width is given at run time
@@ -65,12 +68,25 @@ enum Fwd { FULL = 0, VIEWER = 1, NO_DIST = 2, EXTRAS = 3, TRACK = 4 };
 enum Bwd { B_FULL = 0, B_NO_DIST = 1, B_EXTRAS = 2 };
 
 // pair rows staged per pass at run-time width: rows only (forward), rows
-// and the double-buffered warp partials (backward)
+// and the double-buffered warp partials of a group of slots (backward)
 inline int fwd_batch(int D) {
   return std::min(BATCH, SMEM_BUDGET / (4 * D));
 }
+// the backward's slots per barrier: GROUP where their double-buffered
+// partials take at most half the budget, else fewer (1 at the widest rows)
+__host__ __device__ constexpr int bwd_group(int DO) {
+  int g = GROUP;
+  while (g > 1 && 2 * g * NW * DO * 4 > SMEM_BUDGET / 2) g >>= 1;
+  return g;
+}
 inline int bwd_batch(int D, int DO) {
-  return std::min(BATCH, (SMEM_BUDGET / 4 - 2 * NW * DO) / D);
+  return std::min(BWD_BATCH,
+                  (SMEM_BUDGET / 4 - 2 * bwd_group(DO) * NW * DO) / D);
+}
+// dynamic shared memory of a run-time-width backward block
+inline size_t bwd_smem(int D, int DO) {
+  return (size_t)(bwd_batch(D, DO) * D + 2 * bwd_group(DO) * NW * DO) *
+         sizeof(float);
 }
 
 // The inputs are read-only for the whole launch: the loads go through the
@@ -105,6 +121,13 @@ struct FlatRows {
                                          int DO) const {
     return d + (size_t)j * DO + col;
   }
+  // entry i of a group of cnt slots' rows → (slot r, column col), in the
+  // order of the output (row after row: one contiguous store)
+  __device__ __forceinline__ void split(int i, int cnt, int DO, int& r,
+                                        int& col) const {
+    r = i / DO;
+    col = i - r * DO;
+  }
   // zero rows for the slots [hi, end) that no contribution reaches
   __device__ __forceinline__ void zero_tail(float* d, int t, int hi, int e,
                                             int DO, int p) const {
@@ -134,6 +157,12 @@ struct PaddedRows {
   __device__ __forceinline__ float* grad(float* d, int t, int j, int col,
                                          int DO) const {
     return d + ((size_t)t * DO + col) * K + j;
+  }
+  // entry i of a group of cnt slots → (slot r, column col), along K
+  __device__ __forceinline__ void split(int i, int cnt, int DO, int& r,
+                                        int& col) const {
+    col = i / cnt;
+    r = i - col * cnt;
   }
   // zero every column of the slots [hi, K): past the last contribution and
   // past count[t]
@@ -293,6 +322,59 @@ blend_fwd_kernel(const Rows src, int n_extra, int batch, int grid_x,
   io[P2] = med_slot;
 }
 
+// The warp's sum of N columns, reduce-scatter: at each level off = 16 .. 1
+// a lane's list of columns splits in halves; the lane keeps the first half
+// where lane & off is 0 and the second otherwise, and each pair of columns
+// takes one shuffle: the lane sends the value it gives up and adds the
+// value it receives to the one it keeps. An odd column out stays on both
+// halves and takes a shuffle of its own. Each kept value is v_L + v_{L^off},
+// the per-column butterfly's own sum at that level (float addition commutes
+// bit for bit), so every column ends as the butterfly's bits, in positions
+// 0 .. scatter_left(N) - 1 of c. tests/test_torch_warp_reduce.py models
+// this schedule.
+__host__ __device__ constexpr int scatter_left(int n, int off = 16) {
+  return off == 0 ? n : scatter_left(n / 2 + n % 2, off / 2);
+}
+
+template <int N, int OFF = 16>
+__device__ __forceinline__ void scatter_reduce(float* c, int lane) {
+  if constexpr (OFF > 0 && N > 0) {
+    constexpr int H = N / 2;
+    const bool up = (lane & OFF) != 0;
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      const float send = up ? c[i] : c[H + i];
+      const float keep = up ? c[H + i] : c[i];
+      c[i] = keep + __shfl_xor_sync(FULL_MASK, send, OFF);
+    }
+    if constexpr (N % 2 == 1)
+      c[H] = c[N - 1] + __shfl_xor_sync(FULL_MASK, c[N - 1], OFF);
+    scatter_reduce<H + N % 2, OFF / 2>(c, lane);
+  }
+}
+
+// The column each of the lane's final positions holds (col) and whether
+// this lane stores it (own): of the lanes an odd column out stays on, the
+// one with the level's bit clear, so each column has one writer.
+template <int N, int OFF = 16>
+__device__ __forceinline__ void scatter_owners(int* col, bool* own,
+                                               int lane) {
+  if constexpr (OFF > 0 && N > 0) {
+    constexpr int H = N / 2;
+    const bool up = (lane & OFF) != 0;
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      col[i] = up ? col[H + i] : col[i];
+      own[i] = up ? own[H + i] : own[i];
+    }
+    if constexpr (N % 2 == 1) {
+      col[H] = col[N - 1];
+      own[H] = own[N - 1] && !up;
+    }
+    scatter_owners<H + N % 2, OFF / 2>(col, own, lane);
+  }
+}
+
 // The backward of one tile: per slot, the gradient of Σ gout·out with
 // respect to the slot's packed row (see csrc/blend_bwd.cu). Block b reads
 // row b of gout, saved and iout.
@@ -309,15 +391,18 @@ blend_bwd_kernel(const Rows src, int n_extra, int batch, int grid_x,
   constexpr bool GEOM = MODE != B_EXTRAS;    // the 21 geometry columns
   constexpr int NC = (GEOM ? 21 : 0) + ES;   // columns reduced from registers
   constexpr int NCA = NC > 0 ? NC : 1;
+  constexpr int NL = scatter_left(NC);       // columns a lane ends with
   constexpr int DS = 21 + ES + (CLIP ? RECT : 0);
   constexpr int DOS = GEOM ? DS : NF;
   const int E = DYN ? n_extra : ET;
   const int D = 21 + E + (CLIP ? RECT : 0);
   const int DO = GEOM ? D : E;               // output row's columns
   const int OC = 12 + E;
-  const int nbatch = DYN ? batch : BATCH;
-  __shared__ float rows_s[DYN ? 1 : BATCH * DS];
-  __shared__ float part_s[DYN ? 1 : 2 * NW * DOS];
+  const int nbatch = DYN ? batch : BWD_BATCH;
+  const int G = DYN ? bwd_group(DO) : GROUP;  // slots per barrier
+  __shared__ float rows_s[DYN ? 1 : BWD_BATCH * DS];
+  // the warp partials [2][G][NW][DO] of two groups of slots
+  __shared__ float part_s[DYN ? 1 : 2 * GROUP * NW * DOS];
   extern __shared__ float dyn_s[];
   float* rows = DYN ? dyn_s : rows_s;
   float* part = DYN ? dyn_s + nbatch * D : part_s;
@@ -353,6 +438,21 @@ blend_bwd_kernel(const Rows src, int n_extra, int batch, int grid_x,
   const float a_fin = 1.0f - T_fin;
   const float Tfin_g = gTfin * T_fin;
 
+  // clip_rect's rect columns take no gradient: their partials stay 0
+  if (CLIP && GEOM) {
+    for (int i = p; i < 2 * G * NW * RECT; i += P2)
+      part[(i / RECT) * DO + DO - RECT + i % RECT] = 0.f;
+  }
+  // where this lane's reduced columns go in the warp's partial row
+  int wcol[NCA];
+  bool wown[NCA];
+#pragma unroll
+  for (int k = 0; k < NCA; ++k) {
+    wcol[k] = k;
+    wown[k] = k < NC;
+  }
+  scatter_owners<NC>(wcol, wown, lane);
+
   // the tile's largest n_contrib: no slot after it has a contribution
   if (p == 0) max_nc = 0;
   __syncthreads();
@@ -377,9 +477,13 @@ blend_bwd_kernel(const Rows src, int n_extra, int batch, int grid_x,
     for (int j = nb - 1; j >= 0; --j) {
       const float* g = rows + j * D;
       const int slot = base - s + j + 1;
-      const Terms q = eval(g, pxf, pyf);
-      const bool cm = q.m && slot <= nc &&
-                      (!CLIP || in_rect(g + D - RECT, txf, tyf));
+      // clip_rect's gate is uniform over the tile: a gated slot skips the
+      // splat, as in the forward, and its partials are zeros
+      const bool gate = !CLIP || in_rect(g + D - RECT, txf, tyf);
+      Terms q;
+      q.m = false;
+      if (gate) q = eval(g, pxf, pyf);
+      const bool cm = gate && q.m && slot <= nc;
       float c[NCA];
 #pragma unroll
       for (int k = 0; k < NCA; ++k) c[k] = 0.f;
@@ -456,27 +560,14 @@ blend_bwd_kernel(const Rows src, int n_extra, int batch, int grid_x,
 #pragma unroll
         for (int k = 0; k < ES; ++k) c[EXT + k] = w * gext[k];
       }
-      float* pw = part + (buf * NW + warp) * DO;
+      const int jj = j & (G - 1);             // the slot's place in its group
+      float* pw = part + ((buf * G + jj) * NW + warp) * DO;
       const bool any = __any_sync(FULL_MASK, cm);
-      if (any) {
-        // level by level across the columns: a level's shuffles are
-        // independent, so their latencies overlap (column by column, ptxas
-        // ran one or two chains at a time: +23 % on K2 extras_only); each
-        // column's sum is the same butterfly, bit for bit
+      // a warp without a contribution writes its zeros unreduced
+      if (any) scatter_reduce<NC>(c, lane);
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-          for (int k = 0; k < NC; ++k)
-            c[k] += __shfl_xor_sync(FULL_MASK, c[k], off);
-        }
-        if (lane == 0) {
-#pragma unroll
-          for (int k = 0; k < NC; ++k) pw[k] = c[k];
-        }
-      } else if (lane == 0) {
-#pragma unroll
-        for (int k = 0; k < NC; ++k) pw[k] = 0.f;
-      }
+      for (int i = 0; i < NL; ++i)
+        if (wown[i]) pw[wcol[i]] = c[i];
       if constexpr (DYN) {
         // the feature columns w · gout[10 + k], formed here one at a time
         const int f0 = GEOM ? EXT : 0;
@@ -491,30 +582,26 @@ blend_bwd_kernel(const Rows src, int n_extra, int batch, int grid_x,
           if (lane == 0) pw[f0 + k] = v;
         }
       }
-      if (CLIP && GEOM && lane == 0) {
+      if (jj == 0) {
+        // the group's slots j .. j + cnt - 1 are reduced by every warp: one
+        // barrier (the partials are double-buffered, so the next group's
+        // writes go to the other buffer while these are read), then all
+        // threads sum each (slot, column)'s 8 warp partials in a fixed
+        // order and store it
+        const int cnt = min(G, nb - j);
+        __syncthreads();
+        const float* pb = part + buf * G * NW * DO;
+        for (int i = p; i < cnt * DO; i += P2) {
+          int r, col;
+          src.split(i, cnt, DO, r, col);
+          const float* pc = pb + r * NW * DO + col;
+          float sum = pc[0];
 #pragma unroll
-        for (int k = DO - RECT; k < DO; ++k) pw[k] = 0.f;  // no gradient
+          for (int w8 = 1; w8 < NW; ++w8) sum = sum + pc[w8 * DO];
+          *src.grad(d_out, t, base + j + r, col, DO) = sum;
+        }
+        buf ^= 1;
       }
-      // one barrier per slot: the partials are double-buffered, so the
-      // next slot's writes go to the other buffer while these are read
-      __syncthreads();
-      // column col of the slot's row: the 8 warp partials in a fixed order
-      auto store = [&](int col) {
-        const float* pc = part + buf * NW * DO + col;
-        float sum = pc[0];
-#pragma unroll
-        for (int w8 = 1; w8 < NW; ++w8) sum = sum + pc[w8 * DO];
-        *src.grad(d_out, t, base + j, col, DO) = sum;
-      };
-      // a run-time width's row may outnumber the block's threads; a fixed
-      // one never does, and a plain test keeps warp 0's path per slot
-      // short (a strided loop here, unrolled, cost K2 4-19 %)
-      if constexpr (DYN) {
-        for (int col = p; col < DO; col += P2) store(col);
-      } else if (p < DO) {
-        store(p);
-      }
-      buf ^= 1;
     }
   }
 }

@@ -699,7 +699,9 @@ def reduce_per_gaussian(d_sorted, sorted_gid, n: int, runs):
 
     runs = (gid_order, run_start), binning's list of each gaussian's slots
     (ops/binning.BinningOut). CUDA tensors launch csrc/blend_bwd.cu's
-    segment-sum kernel (one thread per (gaussian, column), over those runs);
+    segment-sum kernel (a block per batch of consecutive gaussians, their
+    runs' rows staged in shared memory; its d_flat is the plain version's
+    bits);
     CPU tensors run the plain version, reduce_per_gaussian_reference."""
     D = d_sorted.shape[1]
     if d_sorted.device.type == "cpu":

@@ -1,5 +1,5 @@
-"""Time K1 and K2 at the fixed feature widths (E = 0 and 16) in each of
-their modes on the benchmark frames, for the package of one source tree:
+"""Time K1, K2 and the segment sum in each of their modes on the benchmark
+frames, with a digest of each output, for the package of one source tree:
 an A/B of two trees on one card.
 
     python3 time_blend.py --root <tree>   # e.g. a checkout of the parent
@@ -7,24 +7,45 @@ an A/B of two trees on one card.
 --root names the directory that holds `instascene_tpu_torch/` (the
 kernels are built from its csrc/). It uses only the entry points every
 version since the geometry slice has (blend_fwd, blend_bwd with their
-mode flags), on the 300k-gaussian `trained` scene: 1920x1080 camera 0
-(E=16: K1 full, viewer) and 976x728 camera 0 (E=0: K1 no_dist, K2 full,
-no_dist; E=16: K1 extras_only, K2 extras_only). Each time is the CUDA-event
+mode flags, reduce_per_gaussian), on the 300k-gaussian `trained` scene:
+1920x1080 camera 0 (E=16: K1 full, viewer) and 976x728 camera 0 (E=0: K1
+no_dist, K2 full, no_dist; E=16: K1 extras_only, K2 full, no_dist,
+extras_only; E=8, the run-time width: K1 full, K2 full, no_dist,
+extras_only). After each K2 mode the segment sum runs on its d_sorted
+(D = 21, 37, 16, 29, 8), and index_add_ on the same rows is timed beside
+it (a yardstick; the port never calls it). Each time is the CUDA-event
 span of 20 back-to-back launches over 20, after a warm-up, so the host's
-enqueue overlaps the kernels. Prints the card and one JSON line
-{"root": ..., "ms": {"K1 full E=16 1920x1080": ...}}. Run two trees in
-turns in one call (A, B, B, A) and compare within it.
+enqueue overlaps the kernels. Each output (K1's out and iout, K2's
+d_sorted, the sum's d_flat) gets the first 16 hex digits of the sha256 of
+its bytes: equal digests in two trees are the same bits. Prints the card
+and one JSON line {"root": ..., "ms": {"K1 full E=16 1920x1080": ...},
+"sha256": {...}, "runs": {...}}. Run two trees in turns in one call (A, B,
+B, A) and compare within it.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
 import sys
 
 REPS = 20
+# (width, height, E, K1 modes timed, K2 modes timed with the segment sum)
+FRAMES = ((1920, 1080, 16, ("full", "viewer"), ()),
+          (976, 728, 0, ("no_dist",), ("full", "no_dist")),
+          (976, 728, 16, ("extras_only",), ("full", "no_dist",
+                                            "extras_only")),
+          (976, 728, 8, ("full",), ("full", "no_dist", "extras_only")))
+
+
+def digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def main() -> int:
@@ -57,12 +78,9 @@ def main() -> int:
     dev = torch.device("cuda")
     st, make_cam = make_bench_scene(n=300_000, seed=0, profile="trained")
     p = from_numpy(st, dev)
-    ms = {}
+    ms, sha, runs = {}, {}, {}
     with torch.no_grad():
-        for W, H, E, fwd, bwd in (
-                (1920, 1080, 16, ("full", "viewer"), ()),
-                (976, 728, 0, ("no_dist",), ("full", "no_dist")),
-                (976, 728, 16, ("extras_only",), ("extras_only",))):
+        for W, H, E, fwd, bwd in FRAMES:
             cm = camera_mats(make_cam(0, W, H), dev)
             opac = p.opacity_activated()[:, 0]
             pre = preprocess_gaussians(
@@ -71,14 +89,23 @@ def main() -> int:
                 shs=p.features(), sh_degree=3, alive=p.alive)
             b = bin_gaussians(pre, W, H)
             flat = bv.pack_flat_cols(pre.T, pre.xy, pre.normal_view, opac,
-                                     pre.color, p.seg_feature_normed()
-                                     if E else None)
+                                     pre.color,
+                                     p.seg_feature_normed()[:, :E]
+                                     .contiguous() if E else None)
+            n = flat.shape[0]
             args_ = (flat, b.sorted_gid, b.tile_start, b.tile_end,
                      (W + 15) // 16, E)
+            frame = f"{W}x{H}"
+            runs[frame] = {
+                "pairs": int(b.sorted_gid.numel()),
+                "longest_run": int((b.run_start[1:] - b.run_start[:-1])
+                                   .max()),
+                "largest_tile": int((b.tile_end - b.tile_start).max())}
             for mode in fwd:
                 kw = {mode: True} if mode != "full" else {}
-                ms[f"K1 {mode} E={E} {W}x{H}"] = span(
-                    lambda: bv.blend_fwd(*args_, **kw))
+                key = f"K1 {mode} E={E} {frame}"
+                ms[key] = span(lambda: bv.blend_fwd(*args_, **kw))
+                sha[key] = digest(*bv.blend_fwd(*args_, **kw))
             for mode in bwd:
                 kw = {mode: True} if mode != "full" else {}
                 out, iout = bv.blend_fwd(*args_, **kw)
@@ -86,13 +113,28 @@ def main() -> int:
                                      out[:, 11 + E]], 1).contiguous()
                 gen = torch.Generator(device=dev).manual_seed(5)
                 gout = torch.randn(out.shape, generator=gen, device=dev)
-                ms[f"K2 {mode} E={E} {W}x{H}"] = span(
+                key = f"K2 {mode} E={E} {frame}"
+                ms[key] = span(
                     lambda: bv.blend_bwd(*args_, gout, saved, iout, **kw))
+                d = bv.blend_bwd(*args_, gout, saved, iout, **kw)
+                sha[key] = digest(d)
+                D = d.shape[1]
+                runs_ = (b.gid_order, b.run_start)
+                key = f"segment_sum D={D} (K2 {mode} E={E}) {frame}"
+                ms[key] = span(lambda: bv.reduce_per_gaussian(
+                    d, b.sorted_gid, n, runs_))
+                sha[key] = digest(bv.reduce_per_gaussian(
+                    d, b.sorted_gid, n, runs_))
+                acc = torch.zeros((n, D), dtype=torch.float32, device=dev)
+                gid64 = b.sorted_gid.to(torch.int64)
+                ms[f"index_add_ D={D} (K2 {mode} E={E}) {frame}"] = span(
+                    lambda: acc.index_add_(0, gid64, d))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
-    print(json.dumps({"root": args.root, "ms": ms}), flush=True)
+    print(json.dumps({"root": args.root, "ms": ms, "sha256": sha,
+                      "runs": runs}), flush=True)
     return 0
 
 

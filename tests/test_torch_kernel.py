@@ -240,6 +240,38 @@ def test_cuda_k2_matches_plain(cuda, E, no_dist):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 21, 37])
+def test_cuda_segment_sum_is_the_plain_version_bit_for_bit(cuda, D):
+    """The segment sum on a synthetic binning — 20,000 gaussians with runs
+    of 0-3 slots in a shuffled slot order, one gaussian with a run of 4,096
+    — is torch.equal to its plain version (index_add_ in slot order) run on
+    the CPU: the kernel adds each gaussian's rows in slot order from 0."""
+    from instascene_tpu_torch.ops.blend_visits import (
+        LAUNCHES, reduce_per_gaussian, reduce_per_gaussian_reference)
+    rng = np.random.default_rng(30 + D)
+    n = 20_000
+    lens = rng.integers(0, 4, size=n)
+    lens[n // 3] = 4096
+    gid = np.repeat(np.arange(n), lens)
+    sorted_gid = gid[rng.permutation(gid.size)].astype(np.int32)
+    gid_order = np.argsort(sorted_gid, kind="stable").astype(np.int32)
+    run_start = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    d = rng.standard_normal((gid.size, D)).astype(np.float32)
+    d *= (np.float32(10.0) ** rng.integers(-4, 5, size=d.shape)).astype(
+        np.float32)
+    d_cpu, gid_cpu = torch.from_numpy(d), torch.from_numpy(sorted_gid)
+    runs = (torch.from_numpy(gid_order).to(cuda),
+            torch.from_numpy(run_start).to(cuda))
+    before = LAUNCHES["segment_sum"]
+    got = reduce_per_gaussian(d_cpu.to(cuda), gid_cpu.to(cuda), n, runs)
+    torch.cuda.synchronize()
+    assert LAUNCHES["segment_sum"] == before + 1
+    want = reduce_per_gaussian_reference(d_cpu, gid_cpu, n)
+    assert torch.equal(got.cpu(), want)
+    assert not got[torch.from_numpy(lens == 0).to(cuda)].any()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("masked", [False, True], ids=["plain", "done0"])
 def test_cuda_k1_extras_only_matches_plain(cuda, masked):
     """K1 extras_only on the card: iout equal to its plain version, final T
