@@ -155,11 +155,16 @@ CLICKS = "960,540,760,470"
 # threshold selects nearly every gaussian; trained features separate
 # instances, which a threshold of 0.95 models here
 SCORE_THRESHOLD = "0.95"
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 SIMT FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the FP32
+# instruction rate: 132 SMs x 128 FP32 lanes x the 1.98 GHz boost clock.
+# The kernels are built with --fmad=false, so each counted operation is an
+# instruction of its own; the data sheet's 67 TFLOP/s counts an FMA as two
+# operations and is twice this rate.
 HBM_BPS = 3.35e12
-FP32_FLOPS = 67e12
-# FP32 operations of K1, counted from csrc/blend_fwd.cu (an fma counts 2,
-# expf, a division, a compare or a min/max 1): each evaluated (pair, pixel)
+FP32_INSTR_PER_S = 132 * 128 * 1.98e9
+# FP32 operations of K1, counted from csrc/blend_fwd.cu (expf, a division,
+# a compare or a min/max 1; the splat's 3 explicit fmas 2 each, 3 more than
+# their instructions): each evaluated (pair, pixel)
 # does the splat and its mask; each contribution adds the done test, the
 # weight, color and E features, and in `full` mode depth, normal, distortion
 # and median
@@ -328,13 +333,14 @@ def compare_kernel(label, flat, b, grid_x, E, mode, exact, timing=False):
         res["plain_ms"] = time_ms(
             lambda: blend_fwd_reference(*args, **kw), 1)
         res.update(k1_bound(flat, b, E, mode, n_eval, n_hit))
+        res.update(walk_stats(b.tile_end - b.tile_start))
     return res
 
 
 def k1_bound(flat, b, E, mode, n_eval, n_hit, extra_bytes=0, extra_ops=0):
     """Least time for K1's work on these inputs: each input read once and
     each output written once over HBM bandwidth, against the FP32
-    operations these inputs need at the FP32 SIMT peak — every pixel
+    operations these inputs need at the FP32 instruction rate — every pixel
     evaluates its tile's slots until it latches done (n_eval), and
     contributes n_hit times. `extras_only` needs only the splat and
     feature columns of flat and writes only final T, the features and
@@ -357,12 +363,34 @@ def k1_bound(flat, b, E, mode, n_eval, n_hit, extra_bytes=0, extra_ops=0):
 
 def bound(bytes_, ops):
     """The larger of bytes over the HBM rate and FP32 operations over the
-    FP32 SIMT peak, in ms."""
+    FP32 instruction rate, in ms."""
     t_bytes = bytes_ / HBM_BPS
-    t_ops = ops / FP32_FLOPS
+    t_ops = ops / FP32_INSTR_PER_S
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": bytes_, "ops": ops}
+
+
+def walk_stats(lengths):
+    """K1/K3/K6/K7 walk their blocks longest range first: the stable
+    argsort that orders them (ops/blend_visits.walk_order, part of each
+    kernel's time), timed alone, and the longest range walked."""
+    from instascene_tpu_torch.ops.blend_visits import walk_order
+    return {"argsort_ms": time_ms(lambda: walk_order(lengths), 20),
+            "longest_walked": int(lengths.max())}
+
+
+def walk_keys(r):
+    """walk_stats' numbers of r, for the kernels' JSON line."""
+    return {k: r[k] for k in ("argsort_ms", "longest_walked") if k in r}
+
+
+def walk_note(r):
+    """The [kernel] line's note of walk_stats, where r has them."""
+    if "argsort_ms" not in r:
+        return ""
+    return (f"; argsort {r['argsort_ms']:.4f} ms, longest walked range "
+            f"{r['longest_walked']} pairs")
 
 
 def col_rel_err(got, want):
@@ -632,7 +660,7 @@ def train_frame_kernels(p, make_cam):
           f"{k1['plain_ms']:.1f} ms, bound {k1['bound_ms']:.4f} ms "
           f"({k1['bound_by']}: {k1['bytes']} bytes, {k1['evals']} of at "
           f"most {k1['max_evals']} evaluations, {k1['hits']} contributions, "
-          f"{k1['ops']} FP32 ops)", flush=True)
+          f"{k1['ops']} FP32 ops){walk_note(k1)}", flush=True)
     k2 = {}
     for mode in ("no_dist", "full"):
         r = compare_k2("train-frame", flat, b, gx, 0, mode, timing=True)
@@ -987,6 +1015,7 @@ def compare_extras(label, flat, b, grid_x, width, height, n_sampled,
             r.update(k1_bound(flat, b, E, "extras_only", n_eval, n_hit,
                               extra_bytes=0 if mask is None
                               else mask.numel() * 4))
+            r.update(walk_stats(b.tile_end - b.tile_start))
         res[tag.strip() or "plain"] = r
         res.setdefault("k2", {})[tag.strip() or "plain"] = compare_k2(
             label + tag, flat, b, grid_x, E, "extras_only", timing,
@@ -1022,6 +1051,7 @@ def compare_track(label, flat, b, grid_x, E, timing=False):
             *args, track=True), 1, warm=False)
         res.update(k1_bound(flat, b, E, "track", n_eval, n_hit,
                             extra_bytes=ids.numel() * 8))
+        res.update(walk_stats(b.tile_end - b.tile_start))
     return res
 
 
@@ -1101,6 +1131,8 @@ def compare_selected(label, flat, b, grid_x, sel, E=16, timing=False):
         res.update(bound(bytes_, evals * OPS_EVAL + hits * (
             OPS_HIT + 2 * E + OPS_HIT_MODE["extras_only"])), evals=evals,
             hits=hits, pairs_walked=pairs)
+        res.update(walk_stats(bv.range_lengths(
+            b.tile_start, b.tile_end, kw.get("tile_ids"))))
     res["k2"] = compare_k2(label + (" merged" if merged else " tile list"),
                            flat, b, grid_x, E, "extras_only", timing,
                            fwd=(out, iout), **kw)
@@ -1198,6 +1230,7 @@ def compare_sparse(label, flat, b, grid_x, width, height, n_draws, E=16,
                         + hits6 * (OPS_BWD_EXTRAS_HIT + E)
                         + (hits6 - slots6) * E),
                   evals=evals6, hits=hits6, slots=slots6)
+        r6.update(walk_stats(b.tile_end - b.tile_start))
     return res
 
 
@@ -1216,7 +1249,7 @@ def semantic_frame_kernels(p, make_cam):
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.1f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bytes']} bytes, "
               f"{r['evals']} evaluations, {r['hits']} contributions, "
-              f"{r['ops']} FP32 ops)", flush=True)
+              f"{r['ops']} FP32 ops){walk_note(r)}", flush=True)
         k2 = res["k2"][tag]
         sg = k2["segment_sum"]
         print(f"[kernel] semantic-frame K2 extras_only ({tag}) E=16: "
@@ -1230,8 +1263,8 @@ def semantic_frame_kernels(p, make_cam):
     tr = compare_track("semantic-frame", flat, b, gx, 16, timing=True)
     print(f"[kernel] semantic-frame track E=16: K1 {tr['ms']:.4f} ms, plain "
           f"{tr['plain_ms']:.1f} ms, bound {tr['bound_ms']:.4f} ms "
-          f"({tr['bound_by']}: {tr['bytes']} bytes, {tr['ops']} FP32 ops)",
-          flush=True)
+          f"({tr['bound_by']}: {tr['bytes']} bytes, {tr['ops']} FP32 ops)"
+          f"{walk_note(tr)}", flush=True)
     res["track"] = tr
 
     # K5/K6 on the single-view draws of the plain step (32k, no anchors)
@@ -1263,8 +1296,8 @@ def semantic_frame_kernels(p, make_cam):
                     ("K5", sp["k5"]), ("K6", sp["k6"])):
         print(f"[kernel] semantic-frame {name} E=16: {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}: {r['bytes']} bytes, {r['ops']} FP32 ops)",
-              flush=True)
+              f"({r['bound_by']}: {r['bytes']} bytes, {r['ops']} FP32 ops)"
+              f"{walk_note(r)}", flush=True)
     res.update(k3=sub, merged=mg, sparse=sp, jax_capped_chunks=capped)
     return res
 
@@ -1699,6 +1732,7 @@ def compare_padded(label, flat, b, grid_x, E, exact=True, timing=False,
         r7["k1_ms"] = time_ms(lambda: bv.blend_fwd(*bargs), 20)
         r7["plain_ms"] = plain7
         r7.update(k7_bound(b, E, n_eval, n_hit))
+        r7.update(walk_stats(count))
     if not bwd:
         return res
     saved = torch.stack([out[:, 9], out[:, 10 + E], out[:, 11 + E]],
@@ -1814,6 +1848,7 @@ def compare_clip(label, p, cam, width, height, E=16, modes=(
             r["plain_ms"] = plain_ms
             r.update(k1_bound(flat_r, bd, E, mode, n_eval, n_hit,
                               extra_ops=bd.total_pairs * RECT_OPS))
+            r.update(walk_stats(bd.tile_end - bd.tile_start))
         if mode != "viewer":
             r["k2"] = compare_k2(f"{label} clip_rect", flat_r, bd, gx, E,
                                  mode, mode in timing, fwd=(out, iout),
@@ -1884,6 +1919,8 @@ def compare_tile_modes(label, flat, b, grid_x, sel, E=16, timing=False):
                            evals * OPS_EVAL + hits * (
                                OPS_HIT + 2 * E + OPS_HIT_MODE[mode])),
                      evals=evals, hits=hits, pairs_walked=pairs)
+            r.update(walk_stats(bv.range_lengths(b.tile_start, b.tile_end,
+                                                 sel)))
         res[mode] = r
         if mode == "full":
             fwd = (out, iout)
@@ -2178,7 +2215,7 @@ def padded_superset_phase(st, make_cam, dev):
           f"{k7['bound_ms']:.4f} ms ({k7['bound_by']}: {k7['bytes']} bytes, "
           f"{k7['evals']} evaluations, {k7['hits']} contributions); E=8: K7 "
           f"{r8['k7']['ms']:.4f} ms, K1 full {r8['k7']['k1_ms']:.4f} ms, "
-          f"bound {r8['k7']['bound_ms']:.4f} ms", flush=True)
+          f"bound {r8['k7']['bound_ms']:.4f} ms{walk_note(k7)}", flush=True)
     res["k7"] = dict(k7, K=r["K"], packed_bytes=r["packed_bytes"],
                      ms_E8=r8["k7"]["ms"], k1_ms_E8=r8["k7"]["k1_ms"],
                      bound_ms_E8=r8["k7"]["bound_ms"])
@@ -2277,9 +2314,9 @@ def padded_superset_phase(st, make_cam, dev):
         print(f"[superset] 976x728 {mode} clip_rect: K1 {r['ms']:.4f} ms "
               f"(fresh binning {r['fresh_ms']:.4f}), plain "
               f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}); K2 {k2['ms']:.4f} ms, plain "
-              f"{k2['plain_ms']:.1f} ms, bound {k2['bound_ms']:.4f} ms "
-              f"({k2['bound_by']})", flush=True)
+              f"({r['bound_by']}){walk_note(r)}; K2 {k2['ms']:.4f} ms, "
+              f"plain {k2['plain_ms']:.1f} ms, bound {k2['bound_ms']:.4f} "
+              f"ms ({k2['bound_by']})", flush=True)
 
     # ---- 4. K3/K4 full, K3 viewer over bench.py's 128 tiles of view 1
     with torch.no_grad():
@@ -2308,7 +2345,7 @@ def padded_superset_phase(st, make_cam, dev):
         r = res["tiles"][mode]
         print(f"[tiles] view 1 K3 {mode}: {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']})", flush=True)
+              f"({r['bound_by']}){walk_note(r)}", flush=True)
     r = res["tiles"]["k4"]
     print(f"[tiles] view 1 K4 full: {r['ms']:.4f} ms, plain "
           f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
@@ -2449,8 +2486,8 @@ def main() -> int:
                       f"{r['bound_ms']:.4f} ms ({r['bound_by']}: "
                       f"{r['bytes']} bytes, {r['evals']} of at most "
                       f"{r['max_evals']} (pair, pixel) evaluations, "
-                      f"{r['hits']} contributions, {r['ops']} FP32 ops)",
-                      flush=True)
+                      f"{r['hits']} contributions, {r['ops']} FP32 ops)"
+                      f"{walk_note(r)}", flush=True)
             del flat, b
         phase_s["kernels vs plain, goldens"] = time.perf_counter() - t_phase
 
@@ -2562,7 +2599,8 @@ def main() -> int:
                 "mode": f"{mode}, {where}", "launches": launches,
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": None}
+                "bound_by": r["bound_by"], "library_ms": None,
+                **walk_keys(r)}
 
     def k2_entry(mode):
         r = k2_train[mode]
@@ -2636,7 +2674,8 @@ def main() -> int:
                 "replaces": replaces, "mode": mode, "launches": launches,
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": None, **more}
+                "bound_by": r["bound_by"], "library_ms": None,
+                **walk_keys(r), **more}
 
     def ref_batch(k):
         # K5/K6's launches come from the CLI at a reduced batch; these are

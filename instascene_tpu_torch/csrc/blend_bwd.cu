@@ -64,7 +64,7 @@
 // `no_dist` at ~3 ms on 782k slots. A block barrier per slot and a row
 // store by the first DO threads alone, while the others waited, came on
 // top. The design now:
-//   * a reduce-scatter across the warp (blend_walk.cuh::scatter_reduce):
+//   * a reduce-scatter across the warp (warp.cuh::scatter_reduce):
 //     each level halves the list of columns a lane holds, one shuffle per
 //     pair of columns, 23 shuffles for 21 columns, 16 for 16, 39 for 37;
 //     each kept sum is the butterfly's, so the bits are unchanged;

@@ -19,10 +19,12 @@
 // sums and products over each chunk. Here the walk is K1's and K2's own
 // (csrc/blend_walk.cuh) over PaddedRows: one block of 256 threads per tile,
 // one thread per pixel, the recurrence a plain sequential loop. The block
-// stages batches of packed[t, :, k0:k0+256] (backward: 128) in shared
-// memory, each column read along K (neighbouring threads on neighbouring
+// stages batches of packed[t, :, k0:k0+128] in shared memory (the forward
+// by cp.async into two buffers, the next batch in flight while one is
+// walked), each column read along K (neighbouring threads on neighbouring
 // slots: coalesced, no gather), and walks count[t] slots only, never K.
-// The forward latches a pixel done at T < 1e-4 and leaves when all 256
+// The forward takes the tiles largest count first (the wrapper's stable
+// argsort), latches a pixel done at T < 1e-4 and leaves when all 256
 // are done; the backward starts at the tile's largest n_contrib, recovers
 // T before each slot as T_after / (1 - alpha) from the saved final T, m1
 // and m2 totals, reduces the slot's 21+E column terms over the 256 pixels
@@ -57,14 +59,15 @@ using namespace walk;
 
 template <int ET>
 void launch_fwd(const PaddedRows& src, int num_tiles, int grid_x,
-                int n_extra, float* out, int* iout, cudaStream_t stream) {
+                int n_extra, const long long* order, float* out, int* iout,
+                cudaStream_t stream) {
   const int D = 21 + n_extra;
-  const int batch = ET < 0 ? fwd_batch(D) : BATCH;
-  const size_t smem = ET < 0 ? (size_t)batch * D * sizeof(float) : 0;
+  const int batch = ET < 0 ? fwd_batch(D) : FWD_BATCH;
+  const size_t smem = ET < 0 ? (size_t)2 * batch * D * sizeof(float) : 0;
   blend_fwd_kernel<ET, FULL, false, PaddedRows>
-      <<<num_tiles, P2, smem, stream>>>(src, n_extra, batch, grid_x, nullptr,
-                                        0, nullptr, out, iout, nullptr,
-                                        nullptr);
+      <<<num_tiles, P2, smem, stream>>>(src, n_extra, batch, grid_x, order,
+                                        nullptr, 0, nullptr, out, iout,
+                                        nullptr, nullptr);
 }
 
 template <int ET>
@@ -83,20 +86,22 @@ void launch_bwd(const PaddedRows& src, int num_tiles, int grid_x,
 
 // Plain C entry points for ctypes. Each returns a cudaError_t (0 = launched).
 // One block per tile; packed [num_tiles, 21 + n_extra, K], count[t] <= K
-// (the wrapper asserts it), 0 <= n_extra <= 256.
+// (the wrapper asserts it), 0 <= n_extra <= 256. K7's order [num_tiles]
+// int64: the tiles by count, largest first (block b walks tile order[b]).
 extern "C" int blend_fwd_padded_launch(const float* packed, const int* count,
                                        int num_tiles, int K, int grid_x,
-                                       int n_extra, float* out, int* iout,
-                                       void* stream) {
+                                       int n_extra, const long long* order,
+                                       float* out, int* iout, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (num_tiles <= 0) return (int)cudaSuccess;
+  if (order == nullptr) return (int)cudaErrorInvalidValue;
   const PaddedRows src{packed, count, K};
   if (n_extra == 16)
-    launch_fwd<16>(src, num_tiles, grid_x, n_extra, out, iout, st);
+    launch_fwd<16>(src, num_tiles, grid_x, n_extra, order, out, iout, st);
   else if (n_extra == 0)
-    launch_fwd<0>(src, num_tiles, grid_x, n_extra, out, iout, st);
+    launch_fwd<0>(src, num_tiles, grid_x, n_extra, order, out, iout, st);
   else if (n_extra > 0 && n_extra <= MAX_E)
-    launch_fwd<DYN_E>(src, num_tiles, grid_x, n_extra, out, iout, st);
+    launch_fwd<DYN_E>(src, num_tiles, grid_x, n_extra, order, out, iout, st);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

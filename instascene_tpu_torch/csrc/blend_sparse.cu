@@ -28,10 +28,21 @@
 // K6 walks its tile back to front from the largest n_contrib among its
 // slots, recovers T before each pair as T_after / (1 - alpha) from the
 // saved final T (as K2 does), and reduces w · gout over the slots per pair
-// with warp shuffles and then a fixed cross-warp order in shared memory:
+// across each warp and then in a fixed cross-warp order in shared memory:
 // no atomics, the same bits on every run. Pairs past every slot's
 // n_contrib get zero rows without a walk (the JAX kernel's `beyond` test).
 // The per-gaussian sum is the segment sum of csrc/blend_bwd.cu at D = E.
+//
+// K6's schedule (its first design ran 1.65 ms on the 32k-draw frame, 70x
+// its bound): the blocks take the tiles longest range first (the wrapper's
+// stable argsort, as K1); it stages only columns 0-17, the span
+// splat.cuh::eval reads (not the colour or the features: 18 of 37 floats
+// at E = 16), row by row by cp.async into two buffers, the next batch in flight while
+// one is walked; it evaluates SPARSE_U pairs ahead of the T recurrence; and
+// at E = 16 it reduces the 16 columns with warp.cuh's reduce-scatter (16
+// shuffles per warp per pair, not 80 in 16 butterflies, the butterflies'
+// bits) into double-buffered partials of 8 pairs, one barrier per group,
+// after which every thread stores the group's rows in the output's order.
 //
 // What bounds them on the H100: the bytes. On the semantic step's 976x728
 // frame a tile holds ~12 (up to S = 48) of its 256 pixels, so the FP32 work
@@ -41,16 +52,15 @@
 // 15 splat columns + E features per walked row, then spix, feat and aux).
 // The design keeps the gather fused (no packed copy), stops each block at
 // its last slot's latch (K5) or at its largest n_contrib (K6), and runs
-// blocks of 32-128 threads so that many of them fit an SM. K6's per-pair
-// reduction (E shuffle rounds per warp and one barrier) is paid per walked
-// pair, as in K2.
+// blocks of 32-128 threads so that many of them fit an SM.
 //
 // Feature widths: E = 16 is compiled as a constant; any other E in
 // [1, 256] runs the run-time-width instantiation (DYN_E): K5 accumulates a
 // slot's features in its own feat row (each thread owns its slot: no race,
-// the same order of additions), K6 reads gout per feature and reduces the
-// E columns in a loop, and the staged batch shrinks so that rows and
-// partials fit 48 KB of shared memory.
+// the same order of additions) and its staged batch shrinks to fit 48 KB
+// of shared memory; K6 reads gout per feature and reduces the E columns in
+// a loop, one butterfly each, with a group of pairs per barrier whose
+// partials fit beside its rows (sparse_group).
 //
 // Rounding: see splat.cuh. The plain PyTorch versions
 // (ops/blend_sparse.py::blend_sparse_fwd_reference, _bwd_reference) are
@@ -59,25 +69,34 @@
 #include <cuda_runtime.h>
 
 #include "splat.cuh"
+#include "warp.cuh"
 
 namespace {
 
 using namespace splat;
+using namespace warp;
 
 constexpr int BATCH = 128;          // pair rows staged in shared memory
 constexpr int MAX_THREADS = 128;    // S <= 128, as the JAX kernels take
 constexpr int MAX_WARPS = MAX_THREADS / 32;
-constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int DYN_E = -1;           // E given at run time
 constexpr int MAX_E = 256;
 constexpr int SMEM_BUDGET = 46 * 1024;
+constexpr int EVAL_COLS = OPA + 1;  // the span of columns eval reads
+constexpr int SPARSE_GROUP = 8;     // K6's pairs per barrier at E = 16
+constexpr int SPARSE_U = 2;         // K6's pairs evaluated ahead
 
-// pair rows staged per pass at run-time width (K6 also keeps its partials)
+// K5's pair rows staged per pass at run-time width
 int fwd_batch(int D) { return BATCH < SMEM_BUDGET / (4 * D) ? BATCH
                                                           : SMEM_BUDGET / (4 * D); }
-int bwd_batch(int D, int E) {
-  const int b = (SMEM_BUDGET / 4 - 2 * MAX_WARPS * E) / D;
-  return BATCH < b ? BATCH : b;
+// K6's pairs per barrier at run-time width: its double-buffered partials
+// fit beside the two buffers of rows
+int sparse_group(int E) {
+  int g = SPARSE_GROUP;
+  while (g > 1 && 2 * g * MAX_WARPS * E * 4 >
+                      SMEM_BUDGET - 2 * BATCH * EVAL_COLS * 4)
+    g >>= 1;
+  return g;
 }
 
 template <int ET>
@@ -164,29 +183,36 @@ sparse_fwd_kernel(const float* __restrict__ flat,
   }
 }
 
+// K6: block b walks tile order[b] (the tiles longest range first), back to
+// front from its largest n_contrib. batch: none (the staged rows hold the
+// EVAL_COLS columns at any E); G: pairs per barrier (SPARSE_GROUP at
+// E = 16).
 template <int ET>
 __global__ void __launch_bounds__(MAX_THREADS)
 sparse_bwd_kernel(const float* __restrict__ flat,
                   const int* __restrict__ sorted_gid,
                   const int* __restrict__ tile_start,
                   const int* __restrict__ tile_end,
+                  const long long* __restrict__ order,
                   const int* __restrict__ spix, int S, int grid_x,
-                  int n_extra, int batch, const float* __restrict__ gout,
+                  int n_extra, int group, const float* __restrict__ gout,
                   const float* __restrict__ aux, float* __restrict__ d_sorted) {
   constexpr bool DYN = ET < 0;
   constexpr int ES = DYN ? 0 : ET;
   constexpr int NF = ES > 0 ? ES : 1;
+  constexpr int NL = scatter_left(ES);       // columns a lane ends with
   const int E = DYN ? n_extra : ET;
   const int D = 21 + E;
-  const int nbatch = DYN ? batch : BATCH;
-  __shared__ float rows_s[DYN ? 1 : BATCH * (21 + ES)];
-  __shared__ float part_s[DYN ? 1 : 2 * MAX_WARPS * NF];
-  extern __shared__ float dyn_s[];
-  float* rows = DYN ? dyn_s : rows_s;
-  float* part = DYN ? dyn_s + nbatch * D : part_s;
+  const int G = DYN ? group : SPARSE_GROUP;
+  // two buffers of BATCH rows of EVAL_COLS columns
+  __shared__ float rows[2 * BATCH * EVAL_COLS];
+  // the warp partials [2][G][MAX_WARPS][E] of two groups of pairs
+  __shared__ float part_s[DYN ? 1 : 2 * SPARSE_GROUP * MAX_WARPS * NF];
+  extern __shared__ float part_d[];
+  float* part = DYN ? part_d : part_s;
   __shared__ int max_nc;
 
-  const int t = blockIdx.x;
+  const int t = (int)__ldg(order + blockIdx.x);
   const int i = threadIdx.x;
   const int lane = i & 31;
   const int warp = i >> 5;
@@ -205,6 +231,15 @@ sparse_bwd_kernel(const float* __restrict__ flat,
   const float T_fin = i < S ? aux[((size_t)t * S + i) * 2] : 1.f;
   // empty slots contribute nowhere
   const int nc = sp >= 0 ? (int)aux[((size_t)t * S + i) * 2 + 1] : 0;
+  // where this lane's reduced columns go in the warp's partial row
+  int wcol[NF];
+  bool wown[NF];
+#pragma unroll
+  for (int k = 0; k < NF; ++k) {
+    wcol[k] = k;
+    wown[k] = k < ES;
+  }
+  scatter_owners<ES>(wcol, wown, lane);
 
   // the tile's largest n_contrib: no pair after it has a contribution
   if (i == 0) max_nc = 0;
@@ -219,55 +254,52 @@ sparse_bwd_kernel(const float* __restrict__ flat,
   for (int k = i; k < (e - hi) * E; k += blockDim.x)
     d_sorted[(size_t)hi * E + k] = 0.f;
 
+  // the batches from the top down, the next one in flight while one is
+  // walked
+  auto stage = [&](int b, int top) {
+    const int base = max(s, top - BATCH);
+    gather_rows(rows + b * BATCH * EVAL_COLS, EVAL_COLS, flat, D, EVAL_COLS,
+                sorted_gid + base, top - base, warp, nw, lane, nullptr);
+  };
+  if (hi > s) stage(0, hi);
+  __pipeline_commit();
   float T = T_fin;   // transmittance after the current pair
-  int buf = 0;
-  for (int top = hi; top > s; top -= nbatch) {
-    const int base = max(s, top - nbatch);
+  int buf = 0, pbuf = 0;
+  for (int top = hi; top > s; top -= BATCH) {
+    const int base = max(s, top - BATCH);
     const int nb = top - base;
-    __syncthreads();   // the previous batch's rows are no longer read
-    for (int k = i; k < nb * D; k += blockDim.x) {
-      const int r = k / D;
-      const int c = k - r * D;
-      rows[k] = flat[(size_t)sorted_gid[base + r] * D + c];
-    }
+    // this batch has landed, and the previous one is no longer read
+    __pipeline_wait_prior(0);
     __syncthreads();
-    for (int j = nb - 1; j >= 0; --j) {
-      const float* g = rows + j * D;
+    if (base > s) stage(buf ^ 1, base);
+    __pipeline_commit();
+    const float* rb = rows + buf * BATCH * EVAL_COLS;
+    buf ^= 1;
+    // pair j of the batch, given its evaluation (alpha, the splat's mask)
+    auto pair = [&](int j, float alpha, bool m) {
       const int slot = base - s + j + 1;
-      const Terms q = eval(g, pxf, pyf);
-      const bool cm = q.m && slot <= nc;
+      const bool cm = m && slot <= nc;
       float c[NF];
 #pragma unroll
       for (int k = 0; k < NF; ++k) c[k] = 0.f;
       float w = 0.f;
       if (cm) {
-        const float Ti = T / (1.0f - q.alpha);
-        w = q.alpha * Ti;
+        const float Ti = T / (1.0f - alpha);
+        w = alpha * Ti;
         T = Ti;
 #pragma unroll
         for (int k = 0; k < ES; ++k) c[k] = w * gext[k];
       }
-      float* pw = part + (buf * MAX_WARPS + warp) * E;
+      const int jj = j & (G - 1);             // the pair's place in its group
+      float* pw = part + ((pbuf * G + jj) * MAX_WARPS + warp) * E;
       const bool any = __any_sync(FULL_MASK, cm);
-      if (any) {
+      // a warp without a contribution writes its zeros unreduced
+      if (any) scatter_reduce<ES>(c, lane);
 #pragma unroll
-        for (int k = 0; k < ES; ++k) {
-          float v = c[k];
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            v += __shfl_xor_sync(FULL_MASK, v, off);
-          c[k] = v;
-        }
-        if (lane == 0) {
-#pragma unroll
-          for (int k = 0; k < ES; ++k) pw[k] = c[k];
-        }
-      } else if (lane == 0) {
-#pragma unroll
-        for (int k = 0; k < ES; ++k) pw[k] = 0.f;
-      }
+      for (int k = 0; k < NL; ++k)
+        if (wown[k]) pw[wcol[k]] = c[k];
       if constexpr (DYN) {
-        // run-time width: the E columns w · gout, one at a time
+        // run-time width: the E columns w · gout, one butterfly each
         for (int k = 0; k < E; ++k) {
           float v = 0.f;
           if (any) {
@@ -279,22 +311,43 @@ sparse_bwd_kernel(const float* __restrict__ flat,
           if (lane == 0) pw[k] = v;
         }
       }
-      // one barrier per pair: the partials are double-buffered, so the next
-      // pair's writes go to the other buffer while these are read
-      __syncthreads();
-      auto store = [&](int col) {
-        const float* pc = part + buf * MAX_WARPS * E + col;
-        float sum = pc[0];
-        for (int w8 = 1; w8 < nw; ++w8) sum = sum + pc[w8 * E];
-        d_sorted[(size_t)(base + j) * E + col] = sum;
-      };
-      // a run-time width may outnumber the block's threads, 16 never does
-      if constexpr (DYN) {
-        for (int col = i; col < E; col += blockDim.x) store(col);
-      } else if (i < E) {
-        store(i);
+      if (jj == 0) {
+        // the group's pairs j .. j + cnt - 1 are reduced by every warp: one
+        // barrier (the partials are double-buffered, so the next group's
+        // writes go to the other buffer while these are read), then every
+        // thread sums each (pair, column)'s warp partials in the order
+        // w0, w1, .. and stores the group's rows in the output's order
+        const int cnt = min(G, nb - j);
+        __syncthreads();
+        const float* pb = part + pbuf * G * MAX_WARPS * E;
+        for (int k = i; k < cnt * E; k += blockDim.x) {
+          const int r = k / E;
+          const int col = k - r * E;
+          const float* pc = pb + r * MAX_WARPS * E + col;
+          float sum = pc[0];
+          for (int w8 = 1; w8 < nw; ++w8) sum = sum + pc[w8 * E];
+          d_sorted[(size_t)(base + j) * E + k] = sum;
+        }
+        pbuf ^= 1;
       }
-      buf ^= 1;
+    };
+    // SPARSE_U pairs evaluated ahead of their recurrence, back to front
+    int j = nb - 1;
+    for (; j >= SPARSE_U - 1; j -= SPARSE_U) {
+      float al[SPARSE_U];
+      bool mk[SPARSE_U];
+#pragma unroll
+      for (int u = 0; u < SPARSE_U; ++u) {
+        const Terms q = eval(rb + (j - u) * EVAL_COLS, pxf, pyf);
+        al[u] = q.alpha;
+        mk[u] = q.m;
+      }
+#pragma unroll
+      for (int u = 0; u < SPARSE_U; ++u) pair(j - u, al[u], mk[u]);
+    }
+    for (; j >= 0; --j) {
+      const Terms q = eval(rb + j * EVAL_COLS, pxf, pyf);
+      pair(j, q.alpha, q.m);
     }
   }
 }
@@ -331,25 +384,25 @@ extern "C" int sparse_fwd_launch(const float* flat, const int* sorted_gid,
 
 extern "C" int sparse_bwd_launch(const float* flat, const int* sorted_gid,
                                  const int* tile_start, const int* tile_end,
-                                 int num_tiles, int grid_x, int n_extra,
+                                 const long long* order, int num_tiles,
+                                 int grid_x, int n_extra,
                                  const int* spix, int S, const float* gout,
                                  const float* aux, float* d_sorted,
                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (num_tiles <= 0) return (int)cudaSuccess;
   if (S <= 0 || S > MAX_THREADS) return (int)cudaErrorInvalidValue;
+  if (order == nullptr) return (int)cudaErrorInvalidValue;
   if (n_extra == 16) {
     sparse_bwd_kernel<16><<<num_tiles, threads_for(S), 0, st>>>(
-        flat, sorted_gid, tile_start, tile_end, spix, S, grid_x, n_extra,
-        BATCH, gout, aux, d_sorted);
+        flat, sorted_gid, tile_start, tile_end, order, spix, S, grid_x,
+        n_extra, SPARSE_GROUP, gout, aux, d_sorted);
   } else if (n_extra > 0 && n_extra <= MAX_E) {
-    const int D = 21 + n_extra;
-    const int batch = bwd_batch(D, n_extra);
+    const int G = sparse_group(n_extra);
     sparse_bwd_kernel<DYN_E><<<num_tiles, threads_for(S),
-                               (size_t)(batch * D + 2 * MAX_WARPS * n_extra)
-                                   * 4, st>>>(
-        flat, sorted_gid, tile_start, tile_end, spix, S, grid_x, n_extra,
-        batch, gout, aux, d_sorted);
+                               (size_t)2 * G * MAX_WARPS * n_extra * 4, st>>>(
+        flat, sorted_gid, tile_start, tile_end, order, spix, S, grid_x,
+        n_extra, G, gout, aux, d_sorted);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -17,6 +17,27 @@
 // tile's values depend only on its pair rows in order, never on where they
 // were read from.
 //
+// The forward's schedule (what bounds it on the H100, and the answer):
+//   * the tiles' loads differ by orders of magnitude (on the 976x728 bench
+//     frame a mean of 279 pairs, the largest 4,341), and a block left
+//     alone on an SM at the end of the launch walks at the latency of its
+//     slot chain. Block b walks row order[b], a permutation of the output
+//     rows longest range first (the wrapper's stable argsort), so the
+//     heaviest tiles start in the first wave; each block still writes its
+//     own row;
+//   * a slot is an evaluation (splat.cuh's terms and the clip_rect gate,
+//     functions of the row and the pixel alone: an IEEE division and an
+//     expf) and the recurrence (T, the accumulators, the latch). The walk
+//     evaluates U consecutive slots, then applies the recurrence to them
+//     in slot order, so the evaluations' latencies overlap; a latch inside
+//     a group drops the rest of it, as the one-slot loop would never have
+//     reached them. U was chosen by timing on the H100 (PERF.md): 4
+//     where the features take registers (U = 8 slowed E = 8 by 41 %), 8
+//     at E = 0 (K1 no_dist 0.70 → 0.64 ms);
+//   * the rows are staged in two buffers of FWD_BATCH rows by cp.async (a
+//     warp per stretch of rows, FlatRows) while the other buffer is
+//     walked, one barrier per batch; shared memory stays 256 rows.
+//
 // Template arguments:
 //   ET    the feature width E. 0 and 16 are compiled as constants (their
 //         features live in registers); DYN_E takes E at run time (1 <=
@@ -44,16 +65,19 @@
 #include <algorithm>
 
 #include "splat.cuh"
+#include "warp.cuh"
 
 namespace walk {
 
 using namespace splat;
+using namespace warp;
 
-constexpr int BATCH = 256;       // pair rows staged per pass (forward)
+constexpr int FWD_BATCH = 128;   // pair rows per buffer (forward, two)
+constexpr int FWD_U = 4;         // forward slots evaluated ahead (E > 0)
+constexpr int FWD_U0 = 8;        // the same at E = 0
 constexpr int BWD_BATCH = 128;   // pair rows staged per pass (backward)
 constexpr int GROUP = 8;         // backward slots per barrier (fixed E)
 constexpr int NW = P2 / 32;      // warps per block
-constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int DYN_E = -1;        // ET: the feature width is given at run time
 constexpr int MAX_E = 256;       // the widest E the run-time width takes
 constexpr int RECT = 4;          // clip_rect's trailing columns
@@ -67,10 +91,11 @@ constexpr float TRACK_W = 0.1f;  // a contribution is tracked when w > this
 enum Fwd { FULL = 0, VIEWER = 1, NO_DIST = 2, EXTRAS = 3, TRACK = 4 };
 enum Bwd { B_FULL = 0, B_NO_DIST = 1, B_EXTRAS = 2 };
 
-// pair rows staged per pass at run-time width: rows only (forward), rows
-// and the double-buffered warp partials of a group of slots (backward)
+// pair rows per buffer at run-time width: the forward's two buffers of
+// rows, the backward's rows and the double-buffered warp partials of a
+// group of slots
 inline int fwd_batch(int D) {
-  return std::min(BATCH, SMEM_BUDGET / (4 * D));
+  return std::min(FWD_BATCH, SMEM_BUDGET / (8 * D));
 }
 // the backward's slots per barrier: GROUP where their double-buffered
 // partials take at most half the budget, else fewer (1 at the widest rows)
@@ -113,8 +138,13 @@ struct FlatRows {
       rows[i] = __ldg(flat + (size_t)__ldg(sorted_gid + base + r) * D + c);
     }
   }
-  __device__ __forceinline__ int gid(int j) const {
-    return __ldg(sorted_gid + j);
+  // the forward's staging: slots [base, base + nb) → rows[r * D + c] by
+  // cp.async (warp.cuh::gather_rows), the slots' ids → gids (may be null)
+  __device__ __forceinline__ void stage_async(float* rows, int* gids, int t,
+                                              int base, int nb, int D,
+                                              int p) const {
+    gather_rows(rows, D, flat, D, D, sorted_gid + base, nb, p >> 5, NW,
+                p & 31, gids);
   }
   // d_sorted [pairs, DO]: column col of slot j
   __device__ __forceinline__ float* grad(float* d, int t, int j, int col,
@@ -152,7 +182,19 @@ struct PaddedRows {
       rows[r * D + c] = __ldg(packed + ((size_t)t * D + c) * K + base + r);
     }
   }
-  __device__ __forceinline__ int gid(int j) const { return j; }
+  // the forward's staging by cp.async: warp w copies columns w, w + 8, ..
+  // of the slots, its lanes on neighbouring slots (gids: the slot indices)
+  __device__ __forceinline__ void stage_async(float* rows, int* gids, int t,
+                                              int base, int nb, int D,
+                                              int p) const {
+    for (int c = p >> 5; c < D; c += NW) {
+      const float* col = packed + ((size_t)t * D + c) * K + base;
+      for (int r = p & 31; r < nb; r += 32)
+        __pipeline_memcpy_async(rows + r * D + c, col + r, sizeof(float));
+    }
+    if (gids != nullptr)
+      for (int r = p; r < nb; r += P2) gids[r] = base + r;
+  }
   // d(packed) [T, DO, K]: column col of tile t's slot j
   __device__ __forceinline__ float* grad(float* d, int t, int j, int col,
                                          int DO) const {
@@ -176,11 +218,13 @@ struct PaddedRows {
   }
 };
 
-// The forward blend of one tile (row blockIdx.x of out/iout; see
-// csrc/blend_fwd.cu for the modes, the outputs and the tile selection).
+// The forward blend of one tile: block b writes row order[b] of out/iout
+// (see csrc/blend_fwd.cu for the modes, the outputs and the tile
+// selection). batch: rows per buffer (FWD_BATCH at a fixed E).
 template <int ET, int MODE, bool CLIP, class Rows>
 __global__ void __launch_bounds__(P2)
 blend_fwd_kernel(const Rows src, int n_extra, int batch, int grid_x,
+                 const long long* __restrict__ order,
                  const int* __restrict__ tile_ids, int tiles_per_view,
                  const int* __restrict__ done0, float* __restrict__ out,
                  int* __restrict__ iout, int* __restrict__ track_ids,
@@ -192,16 +236,17 @@ blend_fwd_kernel(const Rows src, int n_extra, int batch, int grid_x,
   const int E = DYN ? n_extra : ET;
   const int D = 21 + E + (CLIP ? RECT : 0);
   const int OC = 12 + E;
-  const int nbatch = DYN ? batch : BATCH;
+  const int nbatch = DYN ? batch : FWD_BATCH;
   constexpr bool COLOR = MODE != EXTRAS;
   constexpr bool AUX = MODE != VIEWER && MODE != EXTRAS;  // normal, median
   constexpr bool DIST = MODE == FULL || MODE == TRACK;    // depth, distortion
-  __shared__ float rows_s[DYN ? 1 : BATCH * DS];
+  __shared__ float rows_s[DYN ? 1 : 2 * FWD_BATCH * DS];
   extern __shared__ float rows_d[];
   float* rows = DYN ? rows_d : rows_s;
-  __shared__ int gids[MODE == TRACK ? BATCH : 1];
+  __shared__ int gids_s[MODE == TRACK ? 2 * FWD_BATCH : 1];
+  int* gids = MODE == TRACK ? gids_s : nullptr;
 
-  const int row = blockIdx.x;                      // output row
+  const int row = (int)__ldg(order + blockIdx.x);  // output row
   const int t = tile_ids != nullptr ? tile_ids[row] : row;
   const int tl = tiles_per_view > 0 ? t % tiles_per_view : t;
   const int p = threadIdx.x;
@@ -235,28 +280,39 @@ blend_fwd_kernel(const Rows src, int n_extra, int batch, int grid_x,
   float M1 = 0.f, M2 = 0.f;
   int last = 0, med_slot = 0;
 
+  // the first batch in flight before the loop
+  if (s < e) src.stage_async(rows, gids, t, s, min(nbatch, e - s), D, p);
+  __pipeline_commit();
+  int buf = 0;
   for (int base = s; base < e; base += nbatch) {
-    // every pixel latched done: nothing later in the tile can change it.
-    // Also the barrier that keeps the previous batch's rows alive until all
-    // threads finished reading them.
+    // this thread's copies of the batch have landed; the barrier makes
+    // every thread's visible and ends the walk of the previous batch (its
+    // buffer takes the next one). Every pixel latched done: nothing later
+    // in the tile can change it, so the block leaves.
+    __pipeline_wait_prior(0);
     if (__syncthreads_count(done) == P2) break;
     const int nb = min(nbatch, e - base);
-    src.stage(rows, t, base, nb, D, p);
-    if (MODE == TRACK && p < nb) gids[p] = src.gid(base + p);
-    __syncthreads();
+    const int next = base + nbatch;
+    if (next < e)
+      src.stage_async(rows + (buf ^ 1) * nbatch * D,
+                      gids + (MODE == TRACK ? (buf ^ 1) * FWD_BATCH : 0), t,
+                      next, min(nbatch, e - next), D, p);
+    __pipeline_commit();
+    const float* rb = rows + buf * nbatch * D;
+    const int* gb = gids + (MODE == TRACK ? buf * FWD_BATCH : 0);
+    const int slot0 = base - s + 1;
+    buf ^= 1;
     if (done) continue;
-    for (int j = 0; j < nb; ++j) {
-      const float* g = rows + j * D;
-      if (CLIP && !in_rect(g + D - RECT, txf, tyf)) continue;
-      const Terms q = eval(g, pxf, pyf);
-      if (!q.m) continue;
-      const float test_T = T * (1.0f - q.alpha);
-      if (test_T < T_DONE) {
-        done = true;
-        break;
-      }
-      const float w = q.alpha * T;
-      const int slot = base - s + j + 1;
+
+    // the recurrence of slot j of the batch, given its evaluation (alpha,
+    // depth along the ray); true where the contribution would take T below
+    // 1e-4: the pixel latches done and the contribution is dropped
+    auto apply = [&](int j, float alpha, float depth_ray) -> bool {
+      const float* g = rb + j * D;
+      const float test_T = T * (1.0f - alpha);
+      if (test_T < T_DONE) return true;
+      const float w = alpha * T;
+      const int slot = slot0 + j;
       if (COLOR) {
         col0 = col0 + w * g[COL];
         col1 = col1 + w * g[COL + 1];
@@ -274,26 +330,56 @@ blend_fwd_kernel(const Rows src, int n_extra, int batch, int grid_x,
         ny = ny + w * g[NRM + 1];
         nz = nz + w * g[NRM + 2];
         if (DIST) {
-          dep = dep + w * q.depth_ray;
+          dep = dep + w * depth_ray;
           // 2DGS distortion, per-contribution form (forward.cu:396-410)
-          const float md = MD_SCALE * (1.0f - NEAR_N / q.depth_ray);
+          const float md = MD_SCALE * (1.0f - NEAR_N / depth_ray);
           const float A = 1.0f - T;
           dist = dist + w * (md * md * A + M2 - 2.0f * md * M1);
           M1 = M1 + md * w;
           M2 = M2 + md * md * w;
         }
         if (T > 0.5f) {  // median: last contributor entered with T > 0.5
-          med = q.depth_ray;
+          med = depth_ray;
           med_slot = slot;
         }
       }
       if (MODE == TRACK && w > TRACK_W && n_track < TRACK_K) {
-        tid[n_track * P2] = gids[j];
+        tid[n_track * P2] = gb[j];
         tw[n_track * P2] = w;
         ++n_track;
       }
       last = slot;
       T = test_T;
+      return false;
+    };
+    // the evaluation of slot j: clip_rect's gate, then the splat's mask
+    auto evaluate = [&](int j, float& alpha, float& depth_ray) -> bool {
+      const float* g = rb + j * D;
+      alpha = depth_ray = 0.f;
+      if (CLIP && !in_rect(g + D - RECT, txf, tyf)) return false;
+      const Terms q = eval(g, pxf, pyf);
+      alpha = q.alpha;
+      depth_ray = q.depth_ray;
+      return q.m;
+    };
+    constexpr int U = ET == 0 ? FWD_U0 : FWD_U;
+    int j = 0;
+    for (; j + U <= nb && !done; j += U) {
+      float al[U], dr[U];
+      bool mk[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) mk[u] = evaluate(j + u, al[u], dr[u]);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (mk[u] && apply(j + u, al[u], dr[u])) {
+          done = true;
+          break;
+        }
+      }
+    }
+    for (; j < nb && !done; ++j) {
+      float al, dr;
+      if (evaluate(j, al, dr) && apply(j, al, dr)) done = true;
     }
   }
   if (MODE == TRACK) {
@@ -320,59 +406,6 @@ blend_fwd_kernel(const Rows src, int n_extra, int batch, int grid_x,
   o[(11 + E) * P2] = M2;
   io[0] = last;
   io[P2] = med_slot;
-}
-
-// The warp's sum of N columns, reduce-scatter: at each level off = 16 .. 1
-// a lane's list of columns splits in halves; the lane keeps the first half
-// where lane & off is 0 and the second otherwise, and each pair of columns
-// takes one shuffle: the lane sends the value it gives up and adds the
-// value it receives to the one it keeps. An odd column out stays on both
-// halves and takes a shuffle of its own. Each kept value is v_L + v_{L^off},
-// the per-column butterfly's own sum at that level (float addition commutes
-// bit for bit), so every column ends as the butterfly's bits, in positions
-// 0 .. scatter_left(N) - 1 of c. tests/test_torch_warp_reduce.py models
-// this schedule.
-__host__ __device__ constexpr int scatter_left(int n, int off = 16) {
-  return off == 0 ? n : scatter_left(n / 2 + n % 2, off / 2);
-}
-
-template <int N, int OFF = 16>
-__device__ __forceinline__ void scatter_reduce(float* c, int lane) {
-  if constexpr (OFF > 0 && N > 0) {
-    constexpr int H = N / 2;
-    const bool up = (lane & OFF) != 0;
-#pragma unroll
-    for (int i = 0; i < H; ++i) {
-      const float send = up ? c[i] : c[H + i];
-      const float keep = up ? c[H + i] : c[i];
-      c[i] = keep + __shfl_xor_sync(FULL_MASK, send, OFF);
-    }
-    if constexpr (N % 2 == 1)
-      c[H] = c[N - 1] + __shfl_xor_sync(FULL_MASK, c[N - 1], OFF);
-    scatter_reduce<H + N % 2, OFF / 2>(c, lane);
-  }
-}
-
-// The column each of the lane's final positions holds (col) and whether
-// this lane stores it (own): of the lanes an odd column out stays on, the
-// one with the level's bit clear, so each column has one writer.
-template <int N, int OFF = 16>
-__device__ __forceinline__ void scatter_owners(int* col, bool* own,
-                                               int lane) {
-  if constexpr (OFF > 0 && N > 0) {
-    constexpr int H = N / 2;
-    const bool up = (lane & OFF) != 0;
-#pragma unroll
-    for (int i = 0; i < H; ++i) {
-      col[i] = up ? col[H + i] : col[i];
-      own[i] = up ? own[H + i] : own[i];
-    }
-    if constexpr (N % 2 == 1) {
-      col[H] = col[N - 1];
-      own[H] = own[N - 1] && !up;
-    }
-    scatter_owners<H + N % 2, OFF / 2>(col, own, lane);
-  }
 }
 
 // The backward of one tile: per slot, the gradient of Σ gout·out with

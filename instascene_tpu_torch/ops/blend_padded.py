@@ -104,9 +104,10 @@ def blend_fwd_padded(packed, tile_count, grid_x: int, n_extra: int):
     """K7 → (out [T, 12+E, 256] f32, iout [T, 2, 256] i32), K1 `full`'s
     outputs for the padded layout (see blend_fwd_padded_reference).
 
-    CUDA tensors launch csrc/blend_padded.cu (and raise on anything it does
-    not take); CPU tensors run the plain version. Forward only: for
-    gradients call `blend_padded_diff`."""
+    CUDA tensors launch csrc/blend_padded.cu, its blocks in the tiles'
+    walk_order by count (and raise on anything it does not take); CPU
+    tensors run the plain version. Forward only: for gradients call
+    `blend_padded_diff`."""
     if torch.is_grad_enabled() and packed.requires_grad:
         raise ValueError("blend_fwd_padded is the forward kernel alone; call "
                          "blend_padded_diff() for gradients, or detach "
@@ -123,11 +124,13 @@ def blend_fwd_padded(packed, tile_count, grid_x: int, n_extra: int):
     out = torch.empty((T, 12 + n_extra, bv.P2), dtype=torch.float32,
                       device=dev)
     iout = torch.empty((T, 2, bv.P2), dtype=torch.int32, device=dev)
+    order = bv.walk_order(tile_count)
     fn = bv._lib_fn("blend_padded.cu", "blend_fwd_padded_launch",
-                    [bv._P] * 2 + [bv._I] * 4 + [bv._P] * 3)
+                    [bv._P] * 2 + [bv._I] * 4 + [bv._P] * 4)
     with torch.cuda.device(dev):
         err = fn(packed.data_ptr(), tile_count.data_ptr(), T, K, grid_x,
-                 n_extra, out.data_ptr(), iout.data_ptr(), bv._stream(dev))
+                 n_extra, order.data_ptr(), out.data_ptr(), iout.data_ptr(),
+                 bv._stream(dev))
     if err != 0:
         raise RuntimeError(f"blend_fwd_padded kernel launch failed: "
                            f"cudaError {err}")

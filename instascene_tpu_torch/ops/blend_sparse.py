@@ -173,8 +173,9 @@ def blend_sparse_bwd(flat, sorted_gid, tile_start, tile_end, spix,
     """K6 → d_sorted [pairs, E] f32: per slot, Σ over its tile's sampled
     pixels of w · gout (see blend_sparse_bwd_reference).
 
-    CUDA tensors launch csrc/blend_sparse.cu (and raise on anything it does
-    not take); CPU tensors run blend_sparse_bwd_reference."""
+    CUDA tensors launch csrc/blend_sparse.cu, its blocks in the tiles'
+    walk_order (and raise on anything it does not take); CPU tensors run
+    blend_sparse_bwd_reference."""
     if flat.device.type == "cpu":
         return blend_sparse_bwd_reference(flat, sorted_gid, tile_start,
                                           tile_end, spix, grid_x, n_extra,
@@ -190,14 +191,16 @@ def blend_sparse_bwd(flat, sorted_gid, tile_start, tile_end, spix,
     bv._check_tiles("aux", aux, torch.float32, (nt, S, 2), dev)
     d_sorted = torch.empty((sorted_gid.shape[0], n_extra),
                            dtype=torch.float32, device=dev)
+    order = bv.walk_order(bv.range_lengths(tile_start, tile_end))
     fn = bv._lib_fn("blend_sparse.cu", "sparse_bwd_launch",
-                    [bv._P] * 4 + [bv._I] * 3 + [bv._P, bv._I]
+                    [bv._P] * 5 + [bv._I] * 3 + [bv._P, bv._I]
                     + [bv._P] * 4)
     with torch.cuda.device(dev):
         err = fn(flat.data_ptr(), sorted_gid.data_ptr(),
-                 tile_start.data_ptr(), tile_end.data_ptr(), nt, grid_x,
-                 n_extra, spix.data_ptr(), S, gout.data_ptr(),
-                 aux.data_ptr(), d_sorted.data_ptr(), bv._stream(dev))
+                 tile_start.data_ptr(), tile_end.data_ptr(),
+                 order.data_ptr(), nt, grid_x, n_extra, spix.data_ptr(), S,
+                 gout.data_ptr(), aux.data_ptr(), d_sorted.data_ptr(),
+                 bv._stream(dev))
     if err != 0:
         raise RuntimeError(f"sparse_bwd kernel launch failed: cudaError "
                            f"{err}")

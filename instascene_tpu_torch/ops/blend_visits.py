@@ -145,20 +145,35 @@ def _in_rect(g, tiles, tiles_per_view, grid_x):
             & (g[:, -2] <= ty) & (ty < g[:, -1]))
 
 
+def range_lengths(tile_start, tile_end, tile_ids=None):
+    """The length of each row's range: per tile, or per listed tile."""
+    n = tile_end - tile_start
+    return n if tile_ids is None else n.index_select(0, tile_ids)
+
+
+def walk_order(lengths):
+    """The rows longest range first, ties in row order: one stable argsort
+    on the lengths' device (int64), no host read. The kernels K1, K3, K6
+    and K7 walk their blocks in this order (block b takes row order[b], so
+    the heaviest tiles start in the first wave), and the plain versions
+    step their rows in it."""
+    return torch.argsort(lengths, descending=True, stable=True)
+
+
 def _walk_order(tile_start, tile_end, grid_x, tile_ids=None,
                 tiles_per_view=0, pixels=None):
     """The rows the plain versions walk — one per tile, or per listed tile
-    (tile_ids) — longest-first, so step k touches only the first `na`
-    rows, those with a slot k. Returns (order, their tiles, their first
-    slots, the longest range, n_at(k), pixel x and y [rows, P]): the
-    pixels are a tile's 256, or per row the within-tile indices `pixels`
-    [rows, P]; with tiles_per_view the coordinates come from the view-local
-    tile t % tiles_per_view."""
+    (tile_ids) — longest-first (walk_order), so step k touches only the
+    first `na` rows, those with a slot k. Returns (order, their tiles,
+    their first slots, the longest range, n_at(k), pixel x and y [rows,
+    P]): the pixels are a tile's 256, or per row the within-tile indices
+    `pixels` [rows, P]; with tiles_per_view the coordinates come from the
+    view-local tile t % tiles_per_view."""
     dev = tile_start.device
     tiles = (torch.arange(tile_start.shape[0], device=dev)
              if tile_ids is None else tile_ids.to(torch.int64))
-    counts = (tile_end - tile_start).to(torch.int64)[tiles]
-    order = torch.argsort(counts, descending=True, stable=True)
+    counts = range_lengths(tile_start, tile_end, tile_ids).to(torch.int64)
+    order = walk_order(counts)
     tiles = tiles[order]
     start = tile_start.to(torch.int64)[tiles]
     asc = counts[order].cpu().numpy()[::-1]
@@ -581,9 +596,9 @@ def blend_fwd(flat, sorted_gid, tile_start, tile_end, grid_x: int,
     track): flat [N, 21+E+4] carries each gaussian's rect (pack_flat_cols
     rect=), and a pair contributes only where its tile lies in it.
 
-    CUDA tensors launch csrc/blend_fwd.cu (and raise on anything it does
-    not take); CPU tensors run blend_fwd_reference. Forward only: for
-    gradients call `blend`."""
+    CUDA tensors launch csrc/blend_fwd.cu, its blocks in walk_order (and
+    raise on anything it does not take); CPU tensors run
+    blend_fwd_reference. Forward only: for gradients call `blend`."""
     mode = _mode(viewer, no_dist, extras_only, track)
     if done0 is not None and mode != "extras_only":
         raise ValueError("done0 masks serve K1's extras_only mode only")
@@ -616,14 +631,16 @@ def blend_fwd(flat, sorted_gid, tile_start, tile_end, grid_x: int,
     if track:
         ids = torch.empty((rows, TRACK_K, P2), dtype=torch.int32, device=dev)
         tw = torch.empty((rows, TRACK_K, P2), dtype=torch.float32, device=dev)
+    order = walk_order(range_lengths(tile_start, tile_end, tile_ids))
     fn = _lib_fn("blend_fwd.cu", "blend_fwd_launch",
-                 [_P] * 4 + [_I] * 5 + [_P, _I] + [_P] * 6)
+                 [_P] * 4 + [_I] * 5 + [_P, _I] + [_P] * 7)
     with torch.cuda.device(dev):
         err = fn(flat.data_ptr(), sorted_gid.data_ptr(),
                  tile_start.data_ptr(), tile_end.data_ptr(), rows, grid_x,
                  n_extra, MODES.index(mode), int(clip_rect), _ptr(tile_ids),
-                 tiles_per_view, _ptr(done0), out.data_ptr(),
-                 iout.data_ptr(), _ptr(ids), _ptr(tw), _stream(dev))
+                 tiles_per_view, order.data_ptr(), _ptr(done0),
+                 out.data_ptr(), iout.data_ptr(), _ptr(ids), _ptr(tw),
+                 _stream(dev))
     if err != 0:
         raise RuntimeError(f"blend_fwd kernel launch failed: cudaError {err}")
     LAUNCHES[key] += 1

@@ -17,15 +17,22 @@ GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens",
                       "forward.npz")
 
 
+# a shift of the scene that puts its densest tiles in the last tile row at
+# view 2 (boost 12: 761, 702 and 365 pairs in tiles 9, 10 and 8 of 12, the
+# first row 28-77): the heaviest tiles last in raster order
+LATE_HEAVY = (1.0, 1.0, -1.0)
+
+
 def _port_binned(E, device="cpu", boost=1.0, view=2, dilate=0,
-                 clip_rect=False):
+                 clip_rect=False, shift=None):
     """Preprocess + bin + pack of a 2000-gaussian SH-3 scene at 64x48 by
     the port itself, seen from orbit camera `view`: dense enough that some
     pixels latch done. E <= 16 feature channels (the first E of the
     scene's 16). `boost` scales the surfels (12 makes the ray-splat branch
     take part). dilate: the binning's rects dilated by that many tiles (a
-    superset pair list); clip_rect: flat carries the fresh rects. Returns
-    (flat, BinningOut)."""
+    superset pair list); clip_rect: flat carries the fresh rects; shift:
+    a vector added to every centre (LATE_HEAVY). Returns (flat,
+    BinningOut)."""
     from instascene_tpu_torch.data.synthetic import make_bench_scene
     from instascene_tpu_torch.models.gaussians import from_numpy
     from instascene_tpu_torch.ops.binning import bin_gaussians
@@ -33,6 +40,8 @@ def _port_binned(E, device="cpu", boost=1.0, view=2, dilate=0,
     from instascene_tpu_torch.ops.preprocess import preprocess_gaussians
     from instascene_tpu_torch.render import camera_mats
     st, mk = make_bench_scene(n=2000, seed=4, profile="trained")
+    if shift is not None:
+        st = dict(st, xyz=st["xyz"] + np.asarray(shift, np.float32))
     p = from_numpy(st, device=device)
     cm = camera_mats(mk(view, W, H), device)
     opac = p.opacity_activated()[:, 0]
@@ -518,6 +527,53 @@ def test_cuda_k5_k6_match_plain(cuda):
     assert torch.equal(aux[t_i, s_i, 1], iout[t_i, 0, p_i].float())
     dref = bs.blend_sparse_bwd_reference(*args, gout, aux)
     assert _col_err(d1, dref) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K1 no_dist", "K1 extras_only done0",
+                                    "K1 track", "K6"])
+def test_cuda_heaviest_tiles_last_in_raster_order(cuda, kernel):
+    """On a scene whose longest tiles come last in raster order (LATE_HEAVY,
+    so the kernels walk them first): K1 no_dist, extras_only with a done0
+    mask and track, and K6 against their plain versions (iout and ids
+    exactly, rows within 3e-4, weights within 1e-6; K6 within 1e-4 of each
+    column's largest |value|, and bit for bit equal over two runs)."""
+    from instascene_tpu_torch.ops import blend_sparse as bs
+    from instascene_tpu_torch.ops import blend_visits as bv
+    E = 16
+    flat, b = _port_binned(E, cuda, boost=12.0, shift=LATE_HEAVY)
+    order = bv.walk_order(bv.range_lengths(b.tile_start, b.tile_end))
+    nt = b.tile_start.shape[0]
+    assert int(order[0]) >= nt - GRID_X and int(order[1]) >= nt - GRID_X
+    args = (flat, b.sorted_gid, b.tile_start, b.tile_end, GRID_X, E)
+    if kernel == "K6":
+        gen = torch.Generator(device="cpu").manual_seed(6)
+        idx = torch.randint(0, W * H, (300,), generator=gen)
+        S = bs.pick_sparse_s(300, nt)
+        spix = bs.spix_from_idx(idx.to(cuda), W, H, 16, S)[0]
+        sargs = (*args[:4], spix, GRID_X, E)
+        feat, aux = bs.blend_sparse_fwd(*sargs)
+        gout = torch.randn(feat.shape, generator=gen).to(cuda)
+        d1 = bs.blend_sparse_bwd(*sargs, gout, aux)
+        d2 = bs.blend_sparse_bwd(*sargs, gout, aux)
+        torch.cuda.synchronize()
+        assert torch.equal(d1, d2) and d1.any()
+        dref = bs.blend_sparse_bwd_reference(*sargs, gout, aux)
+        assert _col_err(d1, dref) <= 1e-4
+        return
+    kw = {"K1 no_dist": dict(no_dist=True), "K1 track": dict(track=True),
+          "K1 extras_only done0": dict(extras_only=True, done0=(
+              torch.rand((nt, 1, 256), generator=torch.Generator(
+                  device="cpu").manual_seed(2)) >= 0.1).to(torch.int32)
+              .to(cuda))}[kernel]
+    got = bv.blend_fwd(*args, **kw)
+    torch.cuda.synchronize()
+    ref = bv.blend_fwd_reference(*args, **kw)
+    assert torch.equal(got[1], ref[1]) and got[1][:, 0].any()
+    torch.testing.assert_close(got[0], ref[0], atol=3e-4, rtol=0)
+    if kernel == "K1 track":
+        assert torch.equal(got[2], ref[2]) and (got[2] >= 0).any()
+        torch.testing.assert_close(got[3], ref[3], atol=1e-6, rtol=0)
 
 
 @pytest.mark.cuda
