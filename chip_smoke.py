@@ -85,7 +85,10 @@ lines; any failure exits non-zero and prints no result:
    bit), K1/K2 `clip_rect` in full, no_dist, viewer and extras_only over
    the binning dilated by one tile (bit for bit the fresh binning's
    render and d_flat), K3/K4 full/viewer over 8 random tiles, and the
-   run-time feature widths E = 4 and 8 on K1, K2, K5/K6 and K7/K8;
+   run-time feature widths E = 4 and 8 on K1, K2, K5/K6 and K7/K8, and
+   E = 320 and the device's widest E (ops/blend_visits.width_limit, on a
+   1,000-gaussian scene at 128x96) on K1, K2, K5/K6 and K7/K8, a wider E
+   refused with the limit named;
 8. the padded and cached-superset paths at full width, launch counts
    reset just before their entry points and read just after:
    rasterize_padded_fwd (K7) at 1920x1080 on camera 0 and four orbit
@@ -126,6 +129,8 @@ DEVICE = "cuda"          # a CPU rehearsal of the script's flow sets "cpu"
 TOL = {"color": 3e-4, "depth": 3e-3, "normal": 3e-4, "median": 3e-3,
        "distortion": 3e-3, "final_T": 2e-5, "features": 5e-4, "m1m2": 3e-3}
 MID = dict(n=20_000, width=512, height=384)
+# the device's widest feature width runs on a smaller scene (phase 2)
+WIDE = dict(n=1_000, width=128, height=96)
 FULL = dict(n=300_000, width=1920, height=1080)
 # the geometry benchmark (bench.py:332-403): 976x728, four orbit cameras,
 # a seeded random target, lambda (dssim 0.2, dist 0 or 100, normal 0.05)
@@ -218,8 +223,8 @@ def row_errors(out_k, out_r, E, mode, agree):
 def frame_stages(p, cam, width, height, with_extras, n_extra=16):
     """The stages of one frame before K1, as calls over the state's
     activated tensors (activations are not part of any stage): returns
-    (preprocess(), bin(pre), pack(pre)); with_extras packs the first
-    n_extra feature channels."""
+    (preprocess(), bin(pre), pack(pre)); with_extras packs n_extra
+    feature channels (features_of)."""
     from instascene_tpu_torch.ops.binning import bin_gaussians
     from instascene_tpu_torch.ops.blend_visits import pack_flat_cols
     from instascene_tpu_torch.ops.preprocess import preprocess_gaussians
@@ -229,12 +234,23 @@ def frame_stages(p, cam, width, height, with_extras, n_extra=16):
     args = (p.xyz, p.scaling_activated(), p.rotation_normalized(), cm.w2v,
             cm.full_proj, cm.campos, width, height, opac)
     kw = dict(shs=p.features(), sh_degree=p.active_sh_degree, alive=p.alive)
-    extras = (p.seg_feature_normed()[:, :n_extra].contiguous()
-              if with_extras else None)
+    extras = features_of(p, n_extra) if with_extras else None
     return (lambda: preprocess_gaussians(*args, **kw),
             lambda pre: bin_gaussians(pre, width, height),
             lambda pre: pack_flat_cols(pre.T, pre.xy, pre.normal_view, opac,
                                        pre.color, extras))
+
+
+def features_of(p, n_extra):
+    """n_extra feature channels of the state: the first n_extra of its 16
+    normalised ones, or wider than that seeded random unit rows."""
+    import torch
+    if n_extra <= 16:
+        return p.seg_feature_normed()[:, :n_extra].contiguous()
+    gen = torch.Generator(device=p.device).manual_seed(n_extra)
+    f = torch.randn((p.xyz.shape[0], n_extra), generator=gen,
+                    device=p.device)
+    return f / f.norm(dim=1, keepdim=True)
 
 
 def frame_inputs(p, cam, width, height, with_extras, n_extra=16):
@@ -936,6 +952,11 @@ SEM_CLI_ITERS = 30
 # the JAX package's does; at 256 the covered tiles hold a few draws each.
 # A second run at the reference batch prints how many steps fall back.
 SEM_CLI_SPARSE_BATCH = 256
+# K5 before its walk took K1's schedule (heaviest tiles first, rows by
+# cp.async, slots evaluated ahead), as PERF.md's kernel table records it on
+# an H100 80GB HBM3 at 700 W: its time and bound on the 32k-draw frame and
+# its launches in the sparse CLI run at SEM_CLI_SPARSE_BATCH
+K5_BEFORE = {"ms": 1.0901, "bound_ms": 0.0151, "launches": 30}
 # K1 extras_only adds per contribution the done test and the weight (4)
 # and E features (2 each), no color; track is `full` plus the w > 0.1 test
 OPS_HIT_MODE.update({"extras_only": -6, "track": 26})
@@ -1221,6 +1242,12 @@ def compare_sparse(label, flat, b, grid_x, width, height, n_draws, E=16,
                         evals * OPS_EVAL + hits * (
                             OPS_HIT + 2 * E + OPS_HIT_MODE["extras_only"])),
                   evals=evals, hits=hits)
+        r5.update(walk_stats(b.tile_end - b.tile_start))
+        print(f"[kernel] {label} K5 E={E}: {r5['ms']:.4f} ms, bound "
+              f"{r5['bound_ms']:.4f} ms; before the redesign (PERF.md) "
+              f"{K5_BEFORE['ms']} ms, bound {K5_BEFORE['bound_ms']} ms, "
+              f"{K5_BEFORE['launches']} launches in the sparse CLI run; "
+              f"{hits} of {evals} evaluations contribute", flush=True)
         r6 = res["k6"]
         r6["ms"] = time_ms(lambda: bs.blend_sparse_bwd(*args, gout, aux), 20)
         r6["plain_ms"] = plain6
@@ -1934,9 +1961,13 @@ def mid_size_layouts_and_widths(p_mid, make_cam, dev):
     full/viewer modes and the run-time widths, at mid size, against the
     plain versions:
     K7/K8 (E=16 and 0), K1/K2 clip_rect in full, no_dist, viewer and
-    extras_only, K3/K4 full/viewer over 8 random tiles, and the run-time
+    extras_only, K3/K4 full/viewer over 8 random tiles, the run-time
     feature widths E=4 and 8 on K1 (full, extras_only ± done0), K2 (full,
-    extras_only), K5/K6 and K7/K8."""
+    extras_only), K5/K6 and K7/K8, and the widths above the old limit of
+    256 on K1 full, K2 full, K5/K6 and K7/K8: E = 320 at mid size, and the
+    device's limit (width_limit) on WIDE's smaller scene, whose ranges
+    are short (the plain backward adds its feature terms one width at a
+    time); a width past the limit must raise and name it."""
     import torch
     W, H = MID["width"], MID["height"]
     cam = make_cam(0, W, H)
@@ -1956,6 +1987,33 @@ def mid_size_layouts_and_widths(p_mid, make_cam, dev):
         compare_extras("mid-size", flat, b, gx, W, H, 2000, E=E)
         compare_sparse("mid-size", flat, b, gx, W, H, 2000, E=E)
         compare_padded("mid-size", flat, b, gx, E)
+    from instascene_tpu_torch.data.synthetic import make_bench_scene
+    from instascene_tpu_torch.models.gaussians import from_numpy
+    from instascene_tpu_torch.ops import blend_visits as bv
+    lim = bv.width_limit(dev)
+    print(f"[widths] the blend kernels take 0 <= E <= {lim} on this device "
+          f"(each library's widest: {bv.width_limits(dev)})", flush=True)
+    check(lim >= 1024, f"the device's width limit {lim} is below 1024")
+    st, mk = make_bench_scene(n=WIDE["n"], seed=0, profile="trained")
+    p_wide = from_numpy(st, device=dev)
+    for label, E, p, w, h, mk_, draws in (
+            ("mid-size", 320, p_mid, W, H, make_cam, 2000),
+            ("wide-limit", lim, p_wide, WIDE["width"], WIDE["height"], mk,
+             1000)):
+        flat, b, gx = frame_inputs(p, mk_(0, w, h), w, h, True, E)
+        compare_kernel(label, flat, b, gx, E, "full", exact=True)
+        compare_k2(label, flat, b, gx, E, "full")
+        compare_sparse(label, flat, b, gx, w, h, draws, E=E)
+        compare_padded(label, flat, b, gx, E)
+    wider = lim + 1
+    try:
+        bv.blend_fwd(torch.zeros((flat.shape[0], 21 + wider), device=dev),
+                     b.sorted_gid, b.tile_start, b.tile_end, gx, wider)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    print(f"[widths] E={wider}: {refused or 'not refused'}", flush=True)
+    check(f"E <= {lim}" in refused, f"E={wider} was not refused")
 
 
 def maps_of(blend):
@@ -2566,7 +2624,8 @@ def main() -> int:
         cr, ct = cli_ref["counts"], cli_tiles["counts"]
         print(f"[semantic-cli] K5/K6 launches with --sparse_px over "
               f"{SEM_CLI_ITERS} iterations: at {SEM_CLI_SPARSE_BATCH} draws "
-              f"per set (a reduced batch) K5 {ct['K5']}, K6 {ct['K6']}, "
+              f"per set (a reduced batch) K5 {ct['K5']} (before the "
+              f"redesign {K5_BEFORE['launches']}), K6 {ct['K6']}, "
               f"dense fallbacks {ct['sparse_fallback']}; at the reference's "
               f"{SEM['batch']} K5 {cr['K5']}, K6 {cr['K6']}, dense "
               f"fallbacks {cr['sparse_fallback']}", flush=True)

@@ -25,8 +25,9 @@
 // `clip_rect`: flat's 4 trailing rect columns gate each slot as in K1
 // (blend_fwd.cu); the output rows carry 4 zero columns for them (in
 // `extras_only` the wrapper pads d_flat to flat's width). E = 0 and 16 are
-// compiled as constants, any other E in [1, 256] runs the run-time-width
-// instantiation (blend_walk.cuh).
+// compiled as constants, any other E >= 1 runs the run-time-width
+// instantiation (blend_walk.cuh), up to the widest whose staging fits the
+// device's shared memory (csrc/smem.cuh).
 //
 // tile_ids [K] and tiles_per_view select tiles and pixel coordinates as in
 // blend_fwd.cu: block b walks tile tile_ids[b] and reads row b of gout,
@@ -99,7 +100,9 @@
 // element: up to 24 KB of requests in flight per block), and each thread
 // then adds the staged rows of its 4 (gaussian, column) sums in slot
 // order. A batch costs ~3 load latencies per chunk, and a 525-slot run
-// is 2-3 chunks.
+// is 2-3 chunks. Rows wider than 1,024 columns (the widest feature
+// widths) are summed one gaussian and 1,024 columns per block, the column
+// blocks on a second grid dimension.
 //
 // Rounding: see splat.cuh. The plain PyTorch version is
 // ops/blend_visits.py::blend_bwd_reference; per pixel it computes the same
@@ -118,19 +121,26 @@ constexpr int SEG_THREADS = 256;
 constexpr int SEG_PAIRS = 4;           // (gaussian, column) sums per thread
 constexpr int SEG_SMEM = 24 * 1024;    // staged indices and rows per block
 
-// Block b sums the gaussians [b·B, b·B + B), B = SEG_PAIRS · 256 / D: their
-// runs are one contiguous range of gid_order, staged CH slots at a time
-// (the indices, then the rows, by cp.async), and thread q owns the sums
+constexpr int SEG_COLS = SEG_PAIRS * SEG_THREADS;  // sums per block
+
+// Block b sums the gaussians [b·B, b·B + B), B = SEG_COLS / D: their runs
+// are one contiguous range of gid_order, staged CH slots at a time (the
+// indices, then the rows, by cp.async), and thread q owns the sums
 // (gaussian, column) = divmod(q + 256k, D), k < SEG_PAIRS, adding its
-// gaussian's staged rows in slot order.
+// gaussian's staged rows in slot order. WIDE (D > SEG_COLS): block (b, c)
+// sums one gaussian (B = 1) in the columns [c·SEG_COLS, c·SEG_COLS +
+// SEG_COLS) of D; nc below is the block's column count.
+template <bool WIDE>
 __global__ void __launch_bounds__(SEG_THREADS)
 segment_sum_kernel(const float* __restrict__ d_sorted,
                    const int* __restrict__ gid_order,
                    const int* __restrict__ run_start, int n, int D, int B,
                    int CH, float* __restrict__ d_flat) {
   extern __shared__ float seg_s[];
-  float* rows = seg_s;                        // [CH, D]
-  int* slot = (int*)(rows + CH * D);          // [CH]
+  const int c0 = WIDE ? blockIdx.y * SEG_COLS : 0;  // the block's columns
+  const int nc = WIDE ? min(SEG_COLS, D - c0) : D;
+  float* rows = seg_s;                        // [CH, nc]
+  int* slot = (int*)(rows + CH * (WIDE ? SEG_COLS : D));   // [CH]
   int* run = slot + CH;                       // [B + 1], the batch's runs
   const int t = threadIdx.x;
   const long long g0 = (long long)blockIdx.x * B;
@@ -143,11 +153,11 @@ segment_sum_kernel(const float* __restrict__ d_sorted,
 #pragma unroll
   for (int k = 0; k < SEG_PAIRS; ++k) {
     const int q = t + k * SEG_THREADS;
-    const int g = q < nb * D ? q / D : 0;
+    const int g = q < nb * nc ? q / nc : 0;
     acc[k] = 0.f;
-    col[k] = q - g * D;
-    r0[k] = q < nb * D ? run[g] : 0;      // an empty range past the batch
-    r1[k] = q < nb * D ? run[g + 1] : 0;
+    col[k] = q - g * nc;
+    r0[k] = q < nb * nc ? run[g] : 0;     // an empty range past the batch
+    r1[k] = q < nb * nc ? run[g + 1] : 0;
   }
   const int end = run[nb];
   for (int a = run[0]; a < end; a += CH) {
@@ -158,10 +168,10 @@ segment_sum_kernel(const float* __restrict__ d_sorted,
     __pipeline_wait_prior(0);
     __syncthreads();
     // every row of the chunk in flight at once
-    for (int i = t; i < m * D; i += SEG_THREADS) {
-      const int r = i / D;
+    for (int i = t; i < m * nc; i += SEG_THREADS) {
+      const int r = i / nc;
       __pipeline_memcpy_async(
-          rows + i, d_sorted + (size_t)slot[r] * D + (i - r * D),
+          rows + i, d_sorted + (size_t)slot[r] * D + c0 + (i - r * nc),
           sizeof(float));
     }
     __pipeline_commit();
@@ -172,14 +182,14 @@ segment_sum_kernel(const float* __restrict__ d_sorted,
     for (int k = 0; k < SEG_PAIRS; ++k) {
       const int hi = min(r1[k], a + m) - a;
       for (int r = max(r0[k], a) - a; r < hi; ++r)
-        acc[k] = acc[k] + rows[r * D + col[k]];
+        acc[k] = acc[k] + rows[r * nc + col[k]];
     }
     __syncthreads();   // the chunk is read before the next one is staged
   }
 #pragma unroll
   for (int k = 0; k < SEG_PAIRS; ++k) {
     const int q = t + k * SEG_THREADS;
-    if (q < nb * D) d_flat[g0 * D + q] = acc[k];
+    if (q < nb * nc) d_flat[g0 * D + c0 + q] = acc[k];   // WIDE: nb = 1
   }
 }
 
@@ -199,29 +209,33 @@ struct Args {
 };
 
 template <int ET, int MODE, bool CLIP>
-void launch_mode(const Args& a, int num_rows, cudaStream_t stream) {
+cudaError_t launch_mode(const Args& a, int num_rows, cudaStream_t stream) {
   const FlatRows src{a.flat, a.sorted_gid, a.tile_start, a.tile_end};
+  auto* kernel = blend_bwd_kernel<ET, MODE, CLIP, FlatRows>;
   const int D = 21 + a.n_extra + (CLIP ? RECT : 0);
   const int DO = MODE == B_EXTRAS ? a.n_extra : D;
-  const int batch = ET < 0 ? bwd_batch(D, DO) : BWD_BATCH;
-  const size_t smem = ET < 0 ? bwd_smem(D, DO) : 0;
-  blend_bwd_kernel<ET, MODE, CLIP, FlatRows><<<num_rows, P2, smem, stream>>>(
-      src, a.n_extra, batch, a.grid_x, a.tile_ids, a.tiles_per_view, a.gout,
-      a.saved, a.iout, a.d_sorted);
+  int batch = BWD_BATCH, group = GROUP;
+  size_t bytes = 0;
+  if (ET < 0) {
+    const cudaError_t err = bwd_staging(kernel, D, DO, batch, group, bytes);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<num_rows, P2, bytes, stream>>>(
+      src, a.n_extra, batch, group, a.grid_x, a.tile_ids, a.tiles_per_view,
+      a.gout, a.saved, a.iout, a.d_sorted);
+  return cudaGetLastError();
 }
 
 template <int ET, bool CLIP>
 cudaError_t launch_clip(int mode, const Args& a, int num_rows,
                         cudaStream_t stream) {
   if (mode == B_FULL)
-    launch_mode<ET, B_FULL, CLIP>(a, num_rows, stream);
-  else if (mode == B_NO_DIST)
-    launch_mode<ET, B_NO_DIST, CLIP>(a, num_rows, stream);
-  else if (mode == B_EXTRAS && ET != 0)
-    launch_mode<ET, B_EXTRAS, CLIP>(a, num_rows, stream);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+    return launch_mode<ET, B_FULL, CLIP>(a, num_rows, stream);
+  if (mode == B_NO_DIST)
+    return launch_mode<ET, B_NO_DIST, CLIP>(a, num_rows, stream);
+  if (mode == B_EXTRAS && ET != 0)
+    return launch_mode<ET, B_EXTRAS, CLIP>(a, num_rows, stream);
+  return cudaErrorInvalidValue;
 }
 
 template <int ET>
@@ -235,8 +249,8 @@ cudaError_t launch(int mode, bool clip, const Args& a, int num_rows,
 
 // Plain C entry points for ctypes. Each returns a cudaError_t (0 = launched).
 // blend_bwd_launch: num_rows blocks, as blend_fwd_launch; clip_rect 1:
-// flat has 21 + n_extra + 4 columns. n_extra: 0 <= E <= 256 (E > 0 in
-// extras_only).
+// flat has 21 + n_extra + 4 columns. n_extra: 0 <= E <= blend_bwd_max_width()
+// (E > 0 in extras_only).
 extern "C" int blend_bwd_launch(const float* flat, const int* sorted_gid,
                                 const int* tile_start, const int* tile_end,
                                 int num_rows, int grid_x, int n_extra,
@@ -252,9 +266,17 @@ extern "C" int blend_bwd_launch(const float* flat, const int* sorted_gid,
   const bool clip = clip_rect != 0;
   if (n_extra == 16) return (int)launch<16>(mode, clip, a, num_rows, st);
   if (n_extra == 0) return (int)launch<0>(mode, clip, a, num_rows, st);
-  if (n_extra > 0 && n_extra <= MAX_E)
-    return (int)launch<DYN_E>(mode, clip, a, num_rows, st);
+  if (n_extra > 0) return (int)launch<DYN_E>(mode, clip, a, num_rows, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The widest n_extra blend_bwd_launch takes on the current device: one row
+// and the partials of a group of one slot at `full` clip_rect's width.
+// -1 where the device cannot be queried.
+extern "C" int blend_bwd_max_width(void) {
+  const int left = smem::optin_left(
+      blend_bwd_kernel<DYN_E, B_FULL, true, FlatRows>);
+  return left > 0 ? bwd_max_width(left) : -1;
 }
 
 extern "C" int segment_sum_launch(const float* d_sorted, const int* gid_order,
@@ -262,11 +284,18 @@ extern "C" int segment_sum_launch(const float* d_sorted, const int* gid_order,
                                   float* d_flat, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n <= 0 || D == 0) return (int)cudaSuccess;
-  if (D < 0 || D > SEG_PAIRS * SEG_THREADS) return (int)cudaErrorInvalidValue;
-  const int B = SEG_PAIRS * SEG_THREADS / D;             // gaussians per block
-  const int CH = (SEG_SMEM / 4 - (B + 1)) / (D + 1);     // slots per chunk
-  const size_t smem = (size_t)(CH * D + CH + B + 1) * sizeof(float);
-  segment_sum_kernel<<<(unsigned)((n + B - 1) / B), SEG_THREADS, smem, st>>>(
-      d_sorted, gid_order, run_start, n, D, B, CH, d_flat);
+  if (D < 0) return (int)cudaErrorInvalidValue;
+  const bool wide = D > SEG_COLS;
+  const int DC = wide ? SEG_COLS : D;                    // columns per block
+  const int B = SEG_COLS / DC;                           // gaussians per block
+  const int CH = (SEG_SMEM / 4 - (B + 1)) / (DC + 1);    // slots per chunk
+  const size_t smem = (size_t)(CH * DC + CH + B + 1) * sizeof(float);
+  const dim3 grid((unsigned)((n + B - 1) / B), (unsigned)((D + DC - 1) / DC));
+  if (wide)
+    segment_sum_kernel<true><<<grid, SEG_THREADS, smem, st>>>(
+        d_sorted, gid_order, run_start, n, D, B, CH, d_flat);
+  else
+    segment_sum_kernel<false><<<grid, SEG_THREADS, smem, st>>>(
+        d_sorted, gid_order, run_start, n, D, B, CH, d_flat);
   return (int)cudaGetLastError();
 }

@@ -34,8 +34,9 @@
 // dilated at a nearby camera, ops/binning.py) then blends exactly as the
 // fresh binning's pairs: the gated slots contribute nothing, though they
 // keep their slot numbers (n_contrib counts them). Feature widths: E = 0
-// and 16 are compiled as constants; any other E in [1, 256] runs the
-// run-time-width instantiation (blend_walk.cuh), with the same values.
+// and 16 are compiled as constants; any other E >= 1 runs the run-time-width
+// instantiation (blend_walk.cuh), with the same values, up to the widest
+// whose rows fit the device's shared memory (csrc/smem.cuh).
 //
 // Two arguments select the tiles and their pixels, in every mode:
 //   * tile_ids [K] (K3; null: every tile): block b renders tile tile_ids[b]
@@ -124,14 +125,20 @@ struct Args {
 };
 
 template <int ET, int MODE, bool CLIP>
-void launch_mode(const Args& a, int num_rows, cudaStream_t stream) {
+cudaError_t launch_mode(const Args& a, int num_rows, cudaStream_t stream) {
   const FlatRows src{a.flat, a.sorted_gid, a.tile_start, a.tile_end};
+  auto* kernel = blend_fwd_kernel<ET, MODE, CLIP, FlatRows>;
   const int D = 21 + a.n_extra + (CLIP ? RECT : 0);
-  const int batch = ET < 0 ? fwd_batch(D) : FWD_BATCH;
-  const size_t smem = ET < 0 ? (size_t)2 * batch * D * sizeof(float) : 0;
-  blend_fwd_kernel<ET, MODE, CLIP, FlatRows><<<num_rows, P2, smem, stream>>>(
+  int batch = FWD_BATCH;
+  size_t bytes = 0;
+  if (ET < 0) {
+    const cudaError_t err = fwd_staging(kernel, D, batch, bytes);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<num_rows, P2, bytes, stream>>>(
       src, a.n_extra, batch, a.grid_x, a.order, a.tile_ids, a.tiles_per_view,
       a.done0, a.out, a.iout, a.track_ids, a.track_w);
+  return cudaGetLastError();
 }
 
 template <int ET>
@@ -141,7 +148,7 @@ cudaError_t launch(int mode, bool clip, const Args& a, int num_rows,
   if (mode == TRACK && (clip || a.track_ids == nullptr ||
                         a.track_w == nullptr))
     return cudaErrorInvalidValue;
-  void (*fn)(const Args&, int, cudaStream_t) =
+  cudaError_t (*fn)(const Args&, int, cudaStream_t) =
       mode == FULL      ? (clip ? launch_mode<ET, FULL, true>
                                 : launch_mode<ET, FULL, false>)
       : mode == VIEWER  ? (clip ? launch_mode<ET, VIEWER, true>
@@ -153,8 +160,7 @@ cudaError_t launch(int mode, bool clip, const Args& a, int num_rows,
       : mode == TRACK   ? launch_mode<ET, TRACK, false>
                         : nullptr;
   if (fn == nullptr) return cudaErrorInvalidValue;
-  fn(a, num_rows, stream);
-  return cudaGetLastError();
+  return fn(a, num_rows, stream);
 }
 
 }  // namespace
@@ -166,7 +172,7 @@ cudaError_t launch(int mode, bool clip, const Args& a, int num_rows,
 // 0 is off. done0 may be null (required
 // null outside extras_only); track_ids and track_w are read only in track
 // mode. clip_rect 1: flat has 21 + n_extra + 4 columns (not with track).
-// n_extra: 0 <= E <= 256.
+// n_extra: 0 <= E <= blend_fwd_max_width().
 extern "C" int blend_fwd_launch(const float* flat, const int* sorted_gid,
                                 const int* tile_start, const int* tile_end,
                                 int num_rows, int grid_x, int n_extra,
@@ -184,7 +190,15 @@ extern "C" int blend_fwd_launch(const float* flat, const int* sorted_gid,
   const bool clip = clip_rect != 0;
   if (n_extra == 16) return (int)launch<16>(mode, clip, a, num_rows, st);
   if (n_extra == 0) return (int)launch<0>(mode, clip, a, num_rows, st);
-  if (n_extra > 0 && n_extra <= MAX_E)
-    return (int)launch<DYN_E>(mode, clip, a, num_rows, st);
+  if (n_extra > 0) return (int)launch<DYN_E>(mode, clip, a, num_rows, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The widest n_extra blend_fwd_launch takes on the current device: one row
+// per buffer at clip_rect's width, beside track's static arrays (the
+// largest). -1 where the device cannot be queried.
+extern "C" int blend_fwd_max_width(void) {
+  const int left = smem::optin_left(
+      blend_fwd_kernel<DYN_E, TRACK, false, FlatRows>);
+  return left > 0 ? fwd_max_width(left) : -1;
 }

@@ -46,8 +46,9 @@
 // slots' columns, so the zero fill of the padding (~0.9 ms of HBM time)
 // is a floor of its own. chip_smoke.py computes both bounds per run.
 //
-// Feature widths: E = 0 and 16 are compiled as constants, any other E in
-// [1, 256] runs the run-time-width instantiation (blend_walk.cuh).
+// Feature widths: E = 0 and 16 are compiled as constants, any other E >= 1
+// runs the run-time-width instantiation (blend_walk.cuh), up to the widest
+// whose staging fits the device's shared memory (csrc/smem.cuh).
 
 #include <cuda_runtime.h>
 
@@ -58,35 +59,48 @@ namespace {
 using namespace walk;
 
 template <int ET>
-void launch_fwd(const PaddedRows& src, int num_tiles, int grid_x,
-                int n_extra, const long long* order, float* out, int* iout,
-                cudaStream_t stream) {
+cudaError_t launch_fwd(const PaddedRows& src, int num_tiles, int grid_x,
+                       int n_extra, const long long* order, float* out,
+                       int* iout, cudaStream_t stream) {
+  auto* kernel = blend_fwd_kernel<ET, FULL, false, PaddedRows>;
   const int D = 21 + n_extra;
-  const int batch = ET < 0 ? fwd_batch(D) : FWD_BATCH;
-  const size_t smem = ET < 0 ? (size_t)2 * batch * D * sizeof(float) : 0;
-  blend_fwd_kernel<ET, FULL, false, PaddedRows>
-      <<<num_tiles, P2, smem, stream>>>(src, n_extra, batch, grid_x, order,
-                                        nullptr, 0, nullptr, out, iout,
-                                        nullptr, nullptr);
+  int batch = FWD_BATCH;
+  size_t bytes = 0;
+  if (ET < 0) {
+    const cudaError_t err = fwd_staging(kernel, D, batch, bytes);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<num_tiles, P2, bytes, stream>>>(src, n_extra, batch, grid_x, order,
+                                           nullptr, 0, nullptr, out, iout,
+                                           nullptr, nullptr);
+  return cudaGetLastError();
 }
 
 template <int ET>
-void launch_bwd(const PaddedRows& src, int num_tiles, int grid_x,
-                int n_extra, const float* gout, const float* saved,
-                const int* iout, float* d_packed, cudaStream_t stream) {
+cudaError_t launch_bwd(const PaddedRows& src, int num_tiles, int grid_x,
+                       int n_extra, const float* gout, const float* saved,
+                       const int* iout, float* d_packed,
+                       cudaStream_t stream) {
+  auto* kernel = blend_bwd_kernel<ET, B_FULL, false, PaddedRows>;
   const int D = 21 + n_extra;
-  const int batch = ET < 0 ? bwd_batch(D, D) : BWD_BATCH;
-  const size_t smem = ET < 0 ? bwd_smem(D, D) : 0;
-  blend_bwd_kernel<ET, B_FULL, false, PaddedRows>
-      <<<num_tiles, P2, smem, stream>>>(src, n_extra, batch, grid_x, nullptr,
-                                        0, gout, saved, iout, d_packed);
+  int batch = BWD_BATCH, group = GROUP;
+  size_t bytes = 0;
+  if (ET < 0) {
+    const cudaError_t err = bwd_staging(kernel, D, D, batch, group, bytes);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<num_tiles, P2, bytes, stream>>>(src, n_extra, batch, group,
+                                           grid_x, nullptr, 0, gout, saved,
+                                           iout, d_packed);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry points for ctypes. Each returns a cudaError_t (0 = launched).
 // One block per tile; packed [num_tiles, 21 + n_extra, K], count[t] <= K
-// (the wrapper asserts it), 0 <= n_extra <= 256. K7's order [num_tiles]
+// (the wrapper asserts it), 0 <= n_extra <= blend_padded_max_width(). K7's
+// order [num_tiles]
 // int64: the tiles by count, largest first (block b walks tile order[b]).
 extern "C" int blend_fwd_padded_launch(const float* packed, const int* count,
                                        int num_tiles, int K, int grid_x,
@@ -97,14 +111,15 @@ extern "C" int blend_fwd_padded_launch(const float* packed, const int* count,
   if (order == nullptr) return (int)cudaErrorInvalidValue;
   const PaddedRows src{packed, count, K};
   if (n_extra == 16)
-    launch_fwd<16>(src, num_tiles, grid_x, n_extra, order, out, iout, st);
-  else if (n_extra == 0)
-    launch_fwd<0>(src, num_tiles, grid_x, n_extra, order, out, iout, st);
-  else if (n_extra > 0 && n_extra <= MAX_E)
-    launch_fwd<DYN_E>(src, num_tiles, grid_x, n_extra, order, out, iout, st);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return (int)launch_fwd<16>(src, num_tiles, grid_x, n_extra, order, out,
+                               iout, st);
+  if (n_extra == 0)
+    return (int)launch_fwd<0>(src, num_tiles, grid_x, n_extra, order, out,
+                              iout, st);
+  if (n_extra > 0)
+    return (int)launch_fwd<DYN_E>(src, num_tiles, grid_x, n_extra, order,
+                                  out, iout, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int blend_bwd_padded_launch(const float* packed, const int* count,
@@ -116,15 +131,26 @@ extern "C" int blend_bwd_padded_launch(const float* packed, const int* count,
   if (num_tiles <= 0) return (int)cudaSuccess;
   const PaddedRows src{packed, count, K};
   if (n_extra == 16)
-    launch_bwd<16>(src, num_tiles, grid_x, n_extra, gout, saved, iout,
-                   d_packed, st);
-  else if (n_extra == 0)
-    launch_bwd<0>(src, num_tiles, grid_x, n_extra, gout, saved, iout,
-                  d_packed, st);
-  else if (n_extra > 0 && n_extra <= MAX_E)
-    launch_bwd<DYN_E>(src, num_tiles, grid_x, n_extra, gout, saved, iout,
-                      d_packed, st);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return (int)launch_bwd<16>(src, num_tiles, grid_x, n_extra, gout, saved,
+                               iout, d_packed, st);
+  if (n_extra == 0)
+    return (int)launch_bwd<0>(src, num_tiles, grid_x, n_extra, gout, saved,
+                              iout, d_packed, st);
+  if (n_extra > 0)
+    return (int)launch_bwd<DYN_E>(src, num_tiles, grid_x, n_extra, gout,
+                                  saved, iout, d_packed, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The widest n_extra both entries take on the current device (K8's one row
+// and partials of a group of one slot bind first). -1 where the device
+// cannot be queried.
+extern "C" int blend_padded_max_width(void) {
+  const int lf = smem::optin_left(
+      blend_fwd_kernel<DYN_E, FULL, false, PaddedRows>);
+  const int lb = smem::optin_left(
+      blend_bwd_kernel<DYN_E, B_FULL, false, PaddedRows>);
+  if (lf <= 0 || lb <= 0) return -1;
+  const int wf = fwd_max_width(lf), wb = bwd_max_width(lb);
+  return wf < wb ? wf : wb;
 }

@@ -18,31 +18,41 @@
 // amortise the step's bookkeeping. Here each block owns one tile and each
 // thread one sampled slot (S rounded up to a warp; the padding threads hold
 // empty slots), and a thread's recurrence is a plain sequential loop, K1's
-// (csrc/blend_fwd.cu) own: the block stages its tile's pair rows in shared
-// memory per batch of 128 (the flat[sorted_gid[j]] gather fused), every
-// thread evaluates splat.cuh's terms, drops the contribution that would take
-// T below 1e-4 and latches, and the block leaves when all its threads have
-// latched (a block whose slots are all empty leaves at once). So a slot's
-// values are bit for bit those of K1 `extras_only` at its pixel (with or
-// without a done0 mask: a pixel's blend does not depend on its neighbours).
-// K6 walks its tile back to front from the largest n_contrib among its
-// slots, recovers T before each pair as T_after / (1 - alpha) from the
-// saved final T (as K2 does), and reduces w · gout over the slots per pair
-// across each warp and then in a fixed cross-warp order in shared memory:
-// no atomics, the same bits on every run. Pairs past every slot's
-// n_contrib get zero rows without a walk (the JAX kernel's `beyond` test).
-// The per-gaussian sum is the segment sum of csrc/blend_bwd.cu at D = E.
+// (csrc/blend_walk.cuh) own: every thread evaluates splat.cuh's terms,
+// drops the contribution that would take T below 1e-4 and latches, and the
+// block leaves when all its threads have latched (a block whose slots are
+// all empty leaves at once). So a slot's values are bit for bit those of
+// K1 `extras_only` at its pixel (with or without a done0 mask: a pixel's
+// blend does not depend on its neighbours). K6 walks its tile back to
+// front from the largest n_contrib among its slots, recovers T before each
+// pair as T_after / (1 - alpha) from the saved final T (as K2 does), and
+// reduces w · gout over the slots per pair across each warp and then in a
+// fixed cross-warp order in shared memory: no atomics, the same bits on
+// every run. Pairs past every slot's n_contrib get zero rows without a
+// walk (the JAX kernel's `beyond` test). The per-gaussian sum is the
+// segment sum of csrc/blend_bwd.cu at D = E.
 //
-// K6's schedule (its first design ran 1.65 ms on the 32k-draw frame, 70x
-// its bound): the blocks take the tiles longest range first (the wrapper's
-// stable argsort, as K1); it stages only columns 0-17, the span
-// splat.cuh::eval reads (not the colour or the features: 18 of 37 floats
-// at E = 16), row by row by cp.async into two buffers, the next batch in flight while
-// one is walked; it evaluates SPARSE_U pairs ahead of the T recurrence; and
-// at E = 16 it reduces the 16 columns with warp.cuh's reduce-scatter (16
-// shuffles per warp per pair, not 80 in 16 butterflies, the butterflies'
-// bits) into double-buffered partials of 8 pairs, one barrier per group,
-// after which every thread stores the group's rows in the output's order.
+// The schedule both share, K1's (blend_walk.cuh says why each piece is
+// there): the blocks take the tiles longest range first (block b walks
+// tile order[b], the wrapper's stable argsort; each writes only its own
+// tile's rows, so no output moves); the pair rows are staged by 4-byte
+// cp.async (warp.cuh::gather_rows: a warp per stretch of rows after one
+// coalesced load of their ids, no division per element) into two buffers
+// of 128 rows, the next batch in flight while one is walked, one barrier
+// per batch; and the evaluations (an IEEE division and an expf each) run
+// ahead of the recurrence, FWD_U slots in K5 and SPARSE_U pairs in K6, so
+// their latencies overlap. Only the evaluations move: T, the fma order of
+// the feature sums, the latch (which drops the rest of its group, as the
+// one-slot loop never reached them) and n_contrib keep their order, and
+// tests/test_torch_walk_schedule.py holds a float32 model of K5's walk bit
+// for bit against the one-slot loop. K5 stages all 37 columns of a row at
+// E = 16, as K1 does (staging columns 0-17 and reading a contribution's
+// features from flat measured 5 % slower there); K6 stages only columns
+// 0-17, the span splat.cuh::eval reads, and at E = 16 reduces the 16
+// columns with warp.cuh's reduce-scatter (16 shuffles per warp per pair,
+// not 80 in 16 butterflies, the butterflies' bits) into double-buffered
+// partials of 8 pairs, one barrier per group, after which every thread
+// stores the group's rows in the output's order.
 //
 // What bounds them on the H100: the bytes. On the semantic step's 976x728
 // frame a tile holds ~12 (up to S = 48) of its 256 pixels, so the FP32 work
@@ -52,15 +62,22 @@
 // 15 splat columns + E features per walked row, then spix, feat and aux).
 // The design keeps the gather fused (no packed copy), stops each block at
 // its last slot's latch (K5) or at its largest n_contrib (K6), and runs
-// blocks of 32-128 threads so that many of them fit an SM.
+// blocks of 32-128 threads so that many of them fit an SM. What was in the
+// way before the schedule: a heavy tile starting in a late wave and
+// walking alone at the end (ranges of 279 pairs on average, 4,341 at
+// most), a synchronous gather that divided per element and overlapped no
+// walk, and one evaluation at a time in each thread's chain.
 //
-// Feature widths: E = 16 is compiled as a constant; any other E in
-// [1, 256] runs the run-time-width instantiation (DYN_E): K5 accumulates a
-// slot's features in its own feat row (each thread owns its slot: no race,
-// the same order of additions) and its staged batch shrinks to fit 48 KB
-// of shared memory; K6 reads gout per feature and reduces the E columns in
-// a loop, one butterfly each, with a group of pairs per barrier whose
-// partials fit beside its rows (sparse_group).
+// Feature widths: E = 16 is compiled as a constant; any other E >= 1 runs
+// the run-time-width instantiation (DYN_E): K5 stages columns 0-17 and the
+// rows' ids, reads a contribution's E features from flat and accumulates
+// them in the slot's own feat row (each thread owns its slot: no race, the
+// same order of additions), so its rows take the same shared memory at any
+// E; K6 reads gout per feature and reduces the E columns in a loop, one
+// butterfly each, with a group of pairs per barrier whose partials fit the
+// budget of csrc/smem.cuh beside its rows (sparse_group). The widest E is
+// the one whose partials of a group of one pair fit the device
+// (sparse_max_width).
 //
 // Rounding: see splat.cuh. The plain PyTorch versions
 // (ops/blend_sparse.py::blend_sparse_fwd_reference, _bwd_reference) are
@@ -68,6 +85,7 @@
 
 #include <cuda_runtime.h>
 
+#include "smem.cuh"
 #include "splat.cuh"
 #include "warp.cuh"
 
@@ -76,51 +94,62 @@ namespace {
 using namespace splat;
 using namespace warp;
 
-constexpr int BATCH = 128;          // pair rows staged in shared memory
+constexpr int BATCH = 128;          // pair rows per buffer (two buffers)
 constexpr int MAX_THREADS = 128;    // S <= 128, as the JAX kernels take
 constexpr int MAX_WARPS = MAX_THREADS / 32;
 constexpr int DYN_E = -1;           // E given at run time
-constexpr int MAX_E = 256;
-constexpr int SMEM_BUDGET = 46 * 1024;
 constexpr int EVAL_COLS = OPA + 1;  // the span of columns eval reads
+constexpr int FWD_U = 4;            // K5's slots evaluated ahead
 constexpr int SPARSE_GROUP = 8;     // K6's pairs per barrier at E = 16
 constexpr int SPARSE_U = 2;         // K6's pairs evaluated ahead
+// K6's two buffers of staged rows (static)
+constexpr int K6_ROWS = 2 * BATCH * EVAL_COLS * (int)sizeof(float);
 
-// K5's pair rows staged per pass at run-time width
-int fwd_batch(int D) { return BATCH < SMEM_BUDGET / (4 * D) ? BATCH
-                                                          : SMEM_BUDGET / (4 * D); }
 // K6's pairs per barrier at run-time width: its double-buffered partials
-// fit beside the two buffers of rows
-int sparse_group(int E) {
+// fit `budget` bytes (1 at the widest E)
+int sparse_group(int E, int budget) {
   int g = SPARSE_GROUP;
-  while (g > 1 && 2 * g * MAX_WARPS * E * 4 >
-                      SMEM_BUDGET - 2 * BATCH * EVAL_COLS * 4)
-    g >>= 1;
+  while (g > 1 && 2 * g * MAX_WARPS * E * 4 > budget) g >>= 1;
   return g;
 }
+// K6's partials of a group of g pairs, in bytes
+size_t sparse_part_bytes(int E, int g) {
+  return (size_t)2 * g * MAX_WARPS * E * sizeof(float);
+}
 
+// K5: block b walks tile order[b] (the tiles longest range first) front to
+// back, its rows in two buffers of BATCH. At E = 16 a staged row holds all
+// 21 + E columns; at run-time width it holds columns 0-17 beside the row's
+// id, and a contribution reads its E features from flat (measured on the
+// H100: E = 8 0.645 ms against 0.667 with whole rows, PERF.md), so the
+// batch stays BATCH rows at any E.
 template <int ET>
 __global__ void __launch_bounds__(MAX_THREADS)
 sparse_fwd_kernel(const float* __restrict__ flat,
                   const int* __restrict__ sorted_gid,
                   const int* __restrict__ tile_start,
                   const int* __restrict__ tile_end,
+                  const long long* __restrict__ order,
                   const int* __restrict__ spix, int S, int grid_x,
-                  int n_extra, int batch,
-                  float* __restrict__ feat_out, float* __restrict__ aux_out) {
+                  int n_extra, float* __restrict__ feat_out,
+                  float* __restrict__ aux_out) {
   constexpr bool DYN = ET < 0;
   constexpr int ES = DYN ? 0 : ET;
   constexpr int NF = ES > 0 ? ES : 1;
   const int E = DYN ? n_extra : ET;
   const int D = 21 + E;
-  const int nbatch = DYN ? batch : BATCH;
-  __shared__ float rows_s[DYN ? 1 : BATCH * (21 + ES)];
-  extern __shared__ float rows_d[];
-  float* rows = DYN ? rows_d : rows_s;
+  constexpr bool ALL = !DYN;                 // whole rows staged
+  constexpr int RS = ALL ? 21 + ES : EVAL_COLS;   // staged columns per row
+  __shared__ float rows[2 * BATCH * RS];
+  __shared__ int gids_s[ALL ? 1 : 2 * BATCH];
+  int* gids = ALL ? nullptr : gids_s;
 
-  const int t = blockIdx.x;
+  const int t = (int)__ldg(order + blockIdx.x);
   const int i = threadIdx.x;
+  const int lane = i & 31;
+  const int warp = i >> 5;
   const int nthr = blockDim.x;
+  const int nw = nthr >> 5;
   const int sp = i < S ? spix[(size_t)t * S + i] : -1;
   const int spc = sp >= 0 ? sp : 0;
   const float pxf = (float)((t % grid_x) * TILE + spc % TILE);
@@ -142,28 +171,40 @@ sparse_fwd_kernel(const float* __restrict__ flat,
   }
   int last = 0;
 
-  for (int base = s; base < e; base += nbatch) {
-    // every slot latched: nothing later in the tile can change one; also
-    // the barrier that keeps the previous batch's rows until all read them
+  // the first batch in flight before the loop
+  if (s < e)
+    gather_rows(rows, RS, flat, D, RS, sorted_gid + s, min(BATCH, e - s),
+                warp, nw, lane, gids);
+  __pipeline_commit();
+  int buf = 0;
+  for (int base = s; base < e; base += BATCH) {
+    // this thread's copies of the batch have landed; the barrier makes
+    // every thread's visible and ends the walk of the previous batch (its
+    // buffer takes the next one). Every slot latched: nothing later in the
+    // tile can change one, so the block leaves.
+    __pipeline_wait_prior(0);
     if (__syncthreads_count(done) == nthr) break;
-    const int nb = min(nbatch, e - base);
-    for (int k = i; k < nb * D; k += nthr) {
-      const int r = k / D;
-      const int c = k - r * D;
-      rows[k] = flat[(size_t)sorted_gid[base + r] * D + c];
-    }
-    __syncthreads();
+    const int nb = min(BATCH, e - base);
+    const int next = base + BATCH;
+    if (next < e)
+      gather_rows(rows + (buf ^ 1) * BATCH * RS, RS, flat, D, RS,
+                  sorted_gid + next, min(BATCH, e - next), warp, nw, lane,
+                  ALL ? nullptr : gids + (buf ^ 1) * BATCH);
+    __pipeline_commit();
+    const float* rb = rows + buf * BATCH * RS;
+    const int* gb = ALL ? nullptr : gids + buf * BATCH;
+    buf ^= 1;
     if (done) continue;
-    for (int j = 0; j < nb; ++j) {
-      const float* g = rows + j * D;
-      const Terms q = eval(g, pxf, pyf);
-      if (!q.m) continue;
-      const float test_T = T * (1.0f - q.alpha);
-      if (test_T < T_DONE) {
-        done = true;
-        break;
-      }
-      const float w = q.alpha * T;
+
+    // the recurrence of pair j of the batch, given its alpha; true where
+    // the contribution would take T below 1e-4: the slot latches and the
+    // contribution is dropped
+    auto apply = [&](int j, float alpha) -> bool {
+      const float* g = ALL ? rb + j * RS
+                           : flat + (size_t)gb[j] * D;   // its features
+      const float test_T = T * (1.0f - alpha);
+      if (test_T < T_DONE) return true;
+      const float w = alpha * T;
       if constexpr (DYN) {
         for (int k = 0; k < E; ++k) fo[k] = fo[k] + w * g[EXT + k];
       } else {
@@ -172,6 +213,30 @@ sparse_fwd_kernel(const float* __restrict__ flat,
       }
       last = base - s + j + 1;
       T = test_T;
+      return false;
+    };
+    // FWD_U pairs evaluated, then their recurrence in pair order
+    int j = 0;
+    for (; j + FWD_U <= nb && !done; j += FWD_U) {
+      float al[FWD_U];
+      bool mk[FWD_U];
+#pragma unroll
+      for (int u = 0; u < FWD_U; ++u) {
+        const Terms q = eval(rb + (j + u) * RS, pxf, pyf);
+        al[u] = q.alpha;
+        mk[u] = q.m;
+      }
+#pragma unroll
+      for (int u = 0; u < FWD_U; ++u) {
+        if (mk[u] && apply(j + u, al[u])) {
+          done = true;
+          break;
+        }
+      }
+    }
+    for (; j < nb && !done; ++j) {
+      const Terms q = eval(rb + j * RS, pxf, pyf);
+      if (q.m && apply(j, q.alpha)) done = true;
     }
   }
   if (i < S) {
@@ -354,31 +419,56 @@ sparse_bwd_kernel(const float* __restrict__ flat,
 
 int threads_for(int S) { return (S + 31) / 32 * 32; }
 
+// K6 at run-time width: the partials of its group of pairs per barrier fit
+// the budget beside its static rows
+cudaError_t launch_bwd_dyn(const float* flat, const int* sorted_gid,
+                           const int* tile_start, const int* tile_end,
+                           const long long* order, int num_tiles, int grid_x,
+                           int n_extra, const int* spix, int S,
+                           const float* gout, const float* aux,
+                           float* d_sorted, cudaStream_t st) {
+  auto* kernel = sparse_bwd_kernel<DYN_E>;
+  const int window = smem::WINDOW - K6_ROWS;
+  const int budget =
+      smem::budget(kernel, sparse_part_bytes(n_extra, 1), window);
+  const int G = sparse_group(n_extra, budget);
+  const size_t bytes = sparse_part_bytes(n_extra, G);
+  if (bytes > (size_t)budget) return cudaErrorInvalidValue;   // too wide
+  const cudaError_t err = smem::allow(kernel, bytes, window);
+  if (err != cudaSuccess) return err;
+  kernel<<<num_tiles, threads_for(S), bytes, st>>>(
+      flat, sorted_gid, tile_start, tile_end, order, spix, S, grid_x,
+      n_extra, G, gout, aux, d_sorted);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points for ctypes. Each returns a cudaError_t (0 = launched).
-// One block per tile (num_tiles = spix's rows), threads_for(S) threads.
+// One block per tile (num_tiles = spix's rows), threads_for(S) threads;
+// order [num_tiles] int64: the tiles longest range first (block b walks
+// tile order[b]; ops/blend_visits.walk_order). n_extra: 1 <= E <=
+// sparse_max_width().
 extern "C" int sparse_fwd_launch(const float* flat, const int* sorted_gid,
                                  const int* tile_start, const int* tile_end,
-                                 int num_tiles, int grid_x, int n_extra,
-                                 const int* spix, int S, float* feat,
-                                 float* aux, void* stream) {
+                                 const long long* order, int num_tiles,
+                                 int grid_x, int n_extra, const int* spix,
+                                 int S, float* feat, float* aux,
+                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (num_tiles <= 0) return (int)cudaSuccess;
   if (S <= 0 || S > MAX_THREADS) return (int)cudaErrorInvalidValue;
-  if (n_extra == 16) {
+  if (order == nullptr) return (int)cudaErrorInvalidValue;
+  if (n_extra == 16)
     sparse_fwd_kernel<16><<<num_tiles, threads_for(S), 0, st>>>(
-        flat, sorted_gid, tile_start, tile_end, spix, S, grid_x, n_extra,
-        BATCH, feat, aux);
-  } else if (n_extra > 0 && n_extra <= MAX_E) {
-    const int batch = fwd_batch(21 + n_extra);
-    sparse_fwd_kernel<DYN_E><<<num_tiles, threads_for(S),
-                               (size_t)batch * (21 + n_extra) * 4, st>>>(
-        flat, sorted_gid, tile_start, tile_end, spix, S, grid_x, n_extra,
-        batch, feat, aux);
-  } else {
+        flat, sorted_gid, tile_start, tile_end, order, spix, S, grid_x,
+        n_extra, feat, aux);
+  else if (n_extra > 0)
+    sparse_fwd_kernel<DYN_E><<<num_tiles, threads_for(S), 0, st>>>(
+        flat, sorted_gid, tile_start, tile_end, order, spix, S, grid_x,
+        n_extra, feat, aux);
+  else
     return (int)cudaErrorInvalidValue;
-  }
   return (int)cudaGetLastError();
 }
 
@@ -397,14 +487,19 @@ extern "C" int sparse_bwd_launch(const float* flat, const int* sorted_gid,
     sparse_bwd_kernel<16><<<num_tiles, threads_for(S), 0, st>>>(
         flat, sorted_gid, tile_start, tile_end, order, spix, S, grid_x,
         n_extra, SPARSE_GROUP, gout, aux, d_sorted);
-  } else if (n_extra > 0 && n_extra <= MAX_E) {
-    const int G = sparse_group(n_extra);
-    sparse_bwd_kernel<DYN_E><<<num_tiles, threads_for(S),
-                               (size_t)2 * G * MAX_WARPS * n_extra * 4, st>>>(
-        flat, sorted_gid, tile_start, tile_end, order, spix, S, grid_x,
-        n_extra, G, gout, aux, d_sorted);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  if (n_extra > 0)
+    return (int)launch_bwd_dyn(flat, sorted_gid, tile_start, tile_end, order,
+                               num_tiles, grid_x, n_extra, spix, S, gout, aux,
+                               d_sorted, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The widest n_extra both entries take on the current device: K6's
+// partials of a group of one pair beside its rows (K5 stages the same
+// columns at any E). -1 where the device cannot be queried.
+extern "C" int sparse_max_width(void) {
+  const int left = smem::optin_left(sparse_bwd_kernel<DYN_E>);
+  return left > 0 ? left / (int)sparse_part_bytes(1, 1) : -1;
 }

@@ -40,14 +40,18 @@
 //
 // Template arguments:
 //   ET    the feature width E. 0 and 16 are compiled as constants (their
-//         features live in registers); DYN_E takes E at run time (1 <=
-//         E <= MAX_E): the forward accumulates a pixel's features in its
-//         own output column (each thread owns its column: no race, the
-//         same order of additions), the backward forms the E feature
-//         columns in a loop at the reduction, and the staged batch (and
-//         the backward's group of slots per barrier) shrinks so that rows
-//         and partials fit the 48 KB of shared memory a block gets without
-//         opting in.
+//         features live in registers); DYN_E takes E at run time (E >= 1):
+//         the forward accumulates a pixel's features in its own output
+//         column (each thread owns its column: no race, the same order of
+//         additions), the backward forms the E feature columns in a loop
+//         at the reduction, and the staged batch (and the backward's group
+//         of slots per barrier) shrinks so that rows and partials fit a
+//         shared-memory budget: the 48 KB a block gets without opting in
+//         while the smallest staging (one row per buffer, a group of one
+//         slot) fits it, else the device's opt-in limit less the kernel's
+//         static arrays (227 KB on the H100; smem.cuh). The widest E is
+//         the one whose smallest staging still fits that limit
+//         (fwd_max_width, bwd_max_width).
 //   MODE  the forward's (Fwd) or backward's (Bwd) mode.
 //   CLIP  clip_rect: the packed rows carry 4 trailing rect columns (rmin_x,
 //         rmax_x, rmin_y, rmax_y) and a pair contributes only where the
@@ -64,6 +68,7 @@
 
 #include <algorithm>
 
+#include "smem.cuh"
 #include "splat.cuh"
 #include "warp.cuh"
 
@@ -79,11 +84,7 @@ constexpr int BWD_BATCH = 128;   // pair rows staged per pass (backward)
 constexpr int GROUP = 8;         // backward slots per barrier (fixed E)
 constexpr int NW = P2 / 32;      // warps per block
 constexpr int DYN_E = -1;        // ET: the feature width is given at run time
-constexpr int MAX_E = 256;       // the widest E the run-time width takes
 constexpr int RECT = 4;          // clip_rect's trailing columns
-// dynamic shared memory of a run-time-width block: the 48 KB window less
-// the static arrays (TRACK's gid list, max_nc)
-constexpr int SMEM_BUDGET = 46 * 1024;
 constexpr int TRACK_K = 10;      // contributor slots per pixel
 constexpr float TRACK_W = 0.1f;  // a contribution is tracked when w > this
 
@@ -91,27 +92,54 @@ constexpr float TRACK_W = 0.1f;  // a contribution is tracked when w > this
 enum Fwd { FULL = 0, VIEWER = 1, NO_DIST = 2, EXTRAS = 3, TRACK = 4 };
 enum Bwd { B_FULL = 0, B_NO_DIST = 1, B_EXTRAS = 2 };
 
-// pair rows per buffer at run-time width: the forward's two buffers of
-// rows, the backward's rows and the double-buffered warp partials of a
-// group of slots
-inline int fwd_batch(int D) {
-  return std::min(FWD_BATCH, SMEM_BUDGET / (8 * D));
+// The run-time width's staging, for `budget` bytes of dynamic shared
+// memory (smem::budget). The forward's pair rows per buffer (two buffers):
+inline int fwd_batch(int D, int budget) {
+  return std::min(FWD_BATCH, budget / (8 * D));
 }
 // the backward's slots per barrier: GROUP where their double-buffered
 // partials take at most half the budget, else fewer (1 at the widest rows)
-__host__ __device__ constexpr int bwd_group(int DO) {
+inline int bwd_group(int DO, int budget) {
   int g = GROUP;
-  while (g > 1 && 2 * g * NW * DO * 4 > SMEM_BUDGET / 2) g >>= 1;
+  while (g > 1 && 2 * g * NW * DO * 4 > budget / 2) g >>= 1;
   return g;
 }
-inline int bwd_batch(int D, int DO) {
-  return std::min(BWD_BATCH,
-                  (SMEM_BUDGET / 4 - 2 * bwd_group(DO) * NW * DO) / D);
+// the backward's staged rows beside the partials of its group (< 1: the
+// rows do not fit the budget)
+inline int bwd_batch(int D, int DO, int budget) {
+  return std::min(BWD_BATCH, (budget / 4 - 2 * bwd_group(DO, budget) * NW *
+                                               DO) / D);
 }
-// dynamic shared memory of a run-time-width backward block
-inline size_t bwd_smem(int D, int DO) {
-  return (size_t)(bwd_batch(D, DO) * D + 2 * bwd_group(DO) * NW * DO) *
-         sizeof(float);
+// The run-time width's staging of a launch of `kernel` at row width D (the
+// backward's output rows DO): its rows per buffer (and slots per barrier)
+// and its dynamic shared memory, for the budget its smallest staging
+// selects (one row per buffer of the forward; one row and the partials of
+// a group of one slot of the backward; csrc/smem.cuh), the kernel opted in
+// where they pass the 48 KB window. cudaErrorInvalidValue where even that
+// staging does not fit the device.
+template <class K>
+cudaError_t fwd_staging(K* kernel, int D, int& batch, size_t& bytes) {
+  batch = fwd_batch(D, smem::budget(kernel, (size_t)2 * D * sizeof(float)));
+  if (batch < 1) return cudaErrorInvalidValue;
+  bytes = (size_t)2 * batch * D * sizeof(float);
+  return smem::allow(kernel, bytes);
+}
+template <class K>
+cudaError_t bwd_staging(K* kernel, int D, int DO, int& batch, int& group,
+                        size_t& bytes) {
+  const int budget =
+      smem::budget(kernel, (size_t)(D + 2 * NW * DO) * sizeof(float));
+  batch = bwd_batch(D, DO, budget);
+  group = bwd_group(DO, budget);
+  if (batch < 1) return cudaErrorInvalidValue;
+  bytes = (size_t)(batch * D + 2 * group * NW * DO) * sizeof(float);
+  return smem::allow(kernel, bytes);
+}
+// the widest E whose smallest staging fits `left` bytes, at the widest
+// rows a mode takes (clip_rect's D = 25 + E, and DO = D in the backward)
+inline int fwd_max_width(int left) { return left / (2 * 4) - 21 - RECT; }
+inline int bwd_max_width(int left) {
+  return left / ((1 + 2 * NW) * 4) - 21 - RECT;
 }
 
 // The inputs are read-only for the whole launch: the loads go through the
@@ -410,10 +438,12 @@ blend_fwd_kernel(const Rows src, int n_extra, int batch, int grid_x,
 
 // The backward of one tile: per slot, the gradient of Σ gout·out with
 // respect to the slot's packed row (see csrc/blend_bwd.cu). Block b reads
-// row b of gout, saved and iout.
+// row b of gout, saved and iout. batch: rows staged per pass, group: slots
+// per barrier (BWD_BATCH and GROUP at a fixed E).
 template <int ET, int MODE, bool CLIP, class Rows>
 __global__ void __launch_bounds__(P2)
-blend_bwd_kernel(const Rows src, int n_extra, int batch, int grid_x,
+blend_bwd_kernel(const Rows src, int n_extra, int batch, int group,
+                 int grid_x,
                  const int* __restrict__ tile_ids, int tiles_per_view,
                  const float* __restrict__ gout,
                  const float* __restrict__ saved,
@@ -432,7 +462,7 @@ blend_bwd_kernel(const Rows src, int n_extra, int batch, int grid_x,
   const int DO = GEOM ? D : E;               // output row's columns
   const int OC = 12 + E;
   const int nbatch = DYN ? batch : BWD_BATCH;
-  const int G = DYN ? bwd_group(DO) : GROUP;  // slots per barrier
+  const int G = DYN ? group : GROUP;          // slots per barrier
   __shared__ float rows_s[DYN ? 1 : BWD_BATCH * DS];
   // the warp partials [2][G][NW][DO] of two groups of slots
   __shared__ float part_s[DYN ? 1 : 2 * GROUP * NW * DOS];

@@ -86,7 +86,7 @@ def blend_bwd_padded_reference(packed, tile_count, grid_x: int,
 
 
 def _check(name, packed, tile_count, n_extra):
-    bv.check_width(name, n_extra)
+    bv.check_width(name, n_extra, packed.device)
     if packed.dtype != torch.float32 or packed.dim() != 3 \
             or packed.shape[1] != 21 + n_extra \
             or packed.shape[2] % PAD_ALIGN or not packed.is_contiguous():

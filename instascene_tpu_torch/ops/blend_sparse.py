@@ -135,9 +135,10 @@ def blend_sparse_fwd(flat, sorted_gid, tile_start, tile_end, spix,
                      grid_x: int, n_extra: int):
     """K5 → (feat [T, S, E] f32, aux [T, S, 2] f32: final T, n_contrib).
 
-    CUDA tensors launch csrc/blend_sparse.cu (and raise on anything it does
-    not take); CPU tensors run blend_sparse_fwd_reference. Forward only:
-    for gradients call `blend_sparse`."""
+    CUDA tensors launch csrc/blend_sparse.cu, its blocks in the tiles'
+    walk_order (and raise on anything it does not take); CPU tensors run
+    blend_sparse_fwd_reference. Forward only: for gradients call
+    `blend_sparse`."""
     if torch.is_grad_enabled() and flat.requires_grad:
         raise ValueError("blend_sparse_fwd is the forward kernel alone; call "
                          "blend_sparse() for gradients, or detach flat")
@@ -153,14 +154,15 @@ def blend_sparse_fwd(flat, sorted_gid, tile_start, tile_end, spix,
     dev = flat.device
     feat = torch.empty((nt, S, n_extra), dtype=torch.float32, device=dev)
     aux = torch.empty((nt, S, 2), dtype=torch.float32, device=dev)
+    order = bv.walk_order(bv.range_lengths(tile_start, tile_end))
     fn = bv._lib_fn("blend_sparse.cu", "sparse_fwd_launch",
-                    [bv._P] * 4 + [bv._I] * 3 + [bv._P, bv._I]
+                    [bv._P] * 5 + [bv._I] * 3 + [bv._P, bv._I]
                     + [bv._P] * 3)
     with torch.cuda.device(dev):
         err = fn(flat.data_ptr(), sorted_gid.data_ptr(),
-                 tile_start.data_ptr(), tile_end.data_ptr(), nt, grid_x,
-                 n_extra, spix.data_ptr(), S, feat.data_ptr(),
-                 aux.data_ptr(), bv._stream(dev))
+                 tile_start.data_ptr(), tile_end.data_ptr(),
+                 order.data_ptr(), nt, grid_x, n_extra, spix.data_ptr(), S,
+                 feat.data_ptr(), aux.data_ptr(), bv._stream(dev))
     if err != 0:
         raise RuntimeError(f"sparse_fwd kernel launch failed: cudaError "
                            f"{err}")

@@ -19,8 +19,9 @@ bounds them on the H100 and how the design answers that. K1's and K2's
 clip_rect mode (blend_visits.py:145-149, :458, :548) is a flag beside
 full, viewer, no_dist and extras_only: flat then carries 4 trailing rect
 columns (pack_flat_cols(rect=)) and a pair contributes only where its tile
-lies in its gaussian's rect. The kernels take any feature width
-0 <= E <= MAX_E (0 and 16 compiled as constants).
+lies in its gaussian's rect. The kernels take any feature width E >= 0
+whose rows fit the card's shared memory (0 and 16 compiled as constants;
+`width_limit` gives the widest, 3,393 on the H100).
 
 The TPU layout machinery (pair caps, the (chunk, tile) visit list and its
 SMEM budget) is gone: the inputs are the per-gaussian packed table `flat`
@@ -51,7 +52,6 @@ MD_SCALE = FAR_N / (FAR_N - NEAR_N)
 DMD_DD = FAR_N * NEAR_N / (FAR_N - NEAR_N)   # d(md)/d(depth) · depth²
 ALPHA_MIN = 1.0 / 255.0
 T_DONE = 1e-4
-MAX_E = 256         # the widest feature width the kernels take
 RECT = 4            # clip_rect's trailing rect columns
 # K1's and K2's modes; their C entries take the index
 MODES = ("full", "viewer", "no_dist", "extras_only", "track")
@@ -400,8 +400,7 @@ def blend_bwd_reference(flat, sorted_gid, tile_start, tile_end, grid_x: int,
         Ti = Ta / one_minus
         w = torch.where(cm, alpha * Ti, 0.0)
         if extras_only:
-            d_sorted[start[:na] + k] = torch.stack(
-                [w * gext[:na, e] for e in range(E)], dim=1).sum(dim=2)
+            d_sorted[start[:na] + k] = (w[:, None] * gext[:na]).sum(dim=2)
             T[:na] = torch.where(cm, Ti, Ta)
             if count_work:
                 n_hits += int(cm.sum())
@@ -453,9 +452,9 @@ def blend_bwd_reference(flat, sorted_gid, tile_start, tile_end, grid_x: int,
                 w * gnrm[:na, 0], w * gnrm[:na, 1], w * gnrm[:na, 2],
                 torch.where(cm, dopa, 0.0),
                 w * gcol[:na, 0], w * gcol[:na, 1], w * gcol[:na, 2]]
-        cols += [w * gext[:na, e] for e in range(E)]
-        d_sorted[start[:na] + k, :21 + E] = torch.stack(cols, dim=1).sum(
-            dim=2)
+        d_sorted[start[:na] + k, :21 + E] = torch.cat(
+            [torch.stack(cols, dim=1), w[:, None] * gext[:na]],
+            dim=1).sum(dim=2)
         S[:na] = S_a + torch.where(cm, dLdw * w, 0.0)
         T[:na] = torch.where(cm, Ti, Ta)
         if count_work:
@@ -468,16 +467,57 @@ def blend_bwd_reference(flat, sorted_gid, tile_start, tile_end, grid_x: int,
     return d_sorted, (n_evals, n_hits, n_slots)
 
 
-def check_width(name, n_extra):
-    """The kernels take 0 <= E <= MAX_E feature channels."""
-    if not 0 <= n_extra <= MAX_E:
-        raise ValueError(f"{name} kernel takes 0 <= E <= {MAX_E} feature "
-                         f"channels, got {n_extra}")
+# the C entries that give the widest E each library's kernels take
+_WIDTH_FNS = (("blend_fwd.cu", "blend_fwd_max_width"),
+              ("blend_bwd.cu", "blend_bwd_max_width"),
+              ("blend_padded.cu", "blend_padded_max_width"),
+              ("blend_sparse.cu", "sparse_max_width"))
+
+
+def width_limits(dev) -> dict:
+    """The widest feature width E each kernel library takes on CUDA device
+    dev, by its C entry: the widest whose smallest staging (one pair row
+    per buffer of the forwards; one row and the partials of a group of one
+    slot of the backwards) fits the device's opt-in shared memory per
+    block (csrc/smem.cuh). Asked once per device."""
+    dev = torch.device(dev)
+    if dev.type != "cuda":
+        raise ValueError(f"width_limits: {dev} runs no kernel")
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    lims = width_limits.cache.get(idx)
+    if lims is None:
+        cuda_build.build_all([src for src, _ in _WIDTH_FNS])  # in parallel
+        with torch.cuda.device(idx):
+            lims = {sym: _lib_fn(src, sym, [])() for src, sym in _WIDTH_FNS}
+        if min(lims.values()) < 1:
+            raise RuntimeError(f"width_limits: the shared memory of "
+                               f"cuda:{idx} could not be queried")
+        width_limits.cache[idx] = lims
+    return lims
+
+
+width_limits.cache = {}
+
+
+def width_limit(dev) -> int:
+    """The widest feature width E every blend kernel (K1-K8) takes on CUDA
+    device dev: the least of width_limits. 3,393 on the H100 (K2's and
+    K8's one row and partials of a group of one slot bind first)."""
+    return min(width_limits(dev).values())
+
+
+def check_width(name, n_extra, dev):
+    """The kernels on dev take 0 <= E <= width_limit(dev) feature
+    channels; a wider E raises and names the limit."""
+    lim = width_limit(dev)
+    if not 0 <= n_extra <= lim:
+        raise ValueError(f"{name} kernel takes 0 <= E <= {lim} feature "
+                         f"channels on {dev}, got {n_extra}")
 
 
 def _check_common(name, flat, sorted_gid, tile_start, tile_end, n_extra,
                   clip_rect=False):
-    check_width(name, n_extra)
+    check_width(name, n_extra, flat.device)
     D = 21 + n_extra + (RECT if clip_rect else 0)
     if flat.dtype != torch.float32 or flat.dim() != 2 \
             or flat.shape[1] != D or not flat.is_contiguous():

@@ -21,7 +21,10 @@ scene:
     bench.py's 128 tiles of view 1) in extras_only, full and viewer, K1
     tiles_per_view over the 5-view window (views 1-5), K1 clip_rect full
     and extras_only over camera 0's binning dilated by one tile, K5 and
-    K6 on 32k draws (S from pick_sparse_s).
+    K6 on 32k draws (S from pick_sparse_s), at E=16 and at E=8 (the
+    run-time width), and K5 and K6 at the sparse semantic CLI run's
+    reduced batch: its two single-view sets of 256 draws (512 pixels, S
+    from pick_sparse_s).
 Each time is the CUDA-event span of 20 back-to-back launches over 20,
 after a warm-up, so the host's enqueue overlaps the kernels. Each output
 gets the first 16 hex digits of the sha256 of its bytes: equal digests in
@@ -56,6 +59,7 @@ FRAMES = ((1920, 1080, 16, ("full", "viewer"), ()),
           (976, 728, 8, ("full",), ("full", "no_dist", "extras_only")))
 SEM_W, SEM_H, SEM_E = 976, 728, 16
 DRAWS = 32 * 1024          # the semantic step's batch of sampled pixels
+CLI_DRAWS = 2 * 256        # chip_smoke.py's sparse CLI run: 2 sets of 256
 N_MV, MV_K = 5, 128        # bench.py's window: views, tiles per view
 
 
@@ -196,19 +200,28 @@ def main() -> int:
         time_k1(f"K1 extras_only done0 E={E} {fr}", args_, extras_only=True,
                 done0=d0)
         time_k1(f"K1 track E={E} {fr}", args_, track=True)
-        S = bs.pick_sparse_s(DRAWS, nt)
-        gen = torch.Generator(device=dev).manual_seed(13)
-        idx = torch.randint(0, W * H, (DRAWS,), generator=gen, device=dev)
-        spix = bs.spix_from_idx(idx, W, H, 16, S)[0]
-        sargs = (flat, b.sorted_gid, b.tile_start, b.tile_end, spix, gx, E)
-        key = f"K5 S={S} E={E} {fr}"
-        ms[key] = span(lambda: bs.blend_sparse_fwd(*sargs))
-        feat, aux = bs.blend_sparse_fwd(*sargs)
-        sha[key] = digest(feat, aux)
-        gout = torch.randn(feat.shape, generator=gen, device=dev)
-        key = f"K6 S={S} E={E} {fr}"
-        ms[key] = span(lambda: bs.blend_sparse_bwd(*sargs, gout, aux))
-        sha[key] = digest(bs.blend_sparse_bwd(*sargs, gout, aux))
+
+        def time_sparse(tag, flat_e, E_, draws):
+            """K5 and K6 on `draws` uniform pixels of camera 0."""
+            S = bs.pick_sparse_s(draws, nt)
+            gen = torch.Generator(device=dev).manual_seed(13)
+            idx = torch.randint(0, W * H, (draws,), generator=gen,
+                                device=dev)
+            spix = bs.spix_from_idx(idx, W, H, 16, S)[0]
+            sargs = (flat_e, b.sorted_gid, b.tile_start, b.tile_end, spix,
+                     gx, E_)
+            key = f"K5 {tag}S={S} E={E_} {fr}"
+            ms[key] = span(lambda: bs.blend_sparse_fwd(*sargs))
+            feat, aux = bs.blend_sparse_fwd(*sargs)
+            sha[key] = digest(feat, aux)
+            gout = torch.randn(feat.shape, generator=gen, device=dev)
+            key = f"K6 {tag}S={S} E={E_} {fr}"
+            ms[key] = span(lambda: bs.blend_sparse_bwd(*sargs, gout, aux))
+            sha[key] = digest(bs.blend_sparse_bwd(*sargs, gout, aux))
+
+        time_sparse("", flat, E, DRAWS)
+        time_sparse(f"{CLI_DRAWS} draws ", flat, E, CLI_DRAWS)
+        time_sparse("", frame(0, W, H, 8)[0], 8, DRAWS)
         del flat, b, d0
 
         # K3 over bench.py's first tile set on view 1 (bench.py:258-263),

@@ -203,13 +203,20 @@ def test_rasterize_padded_fwd_matches_jax_on_goldens():
 
 
 @pytest.mark.parametrize("kernel", ["fwd", "bwd"])
-def test_padded_wrappers_refuse_what_the_kernels_do_not_take(kernel):
-    """The widths the kernels take are 0..256 (a wider E raises and names
-    the limit); the plain versions take any."""
+def test_padded_wrappers_refuse_what_the_kernels_do_not_take(kernel,
+                                                              monkeypatch):
+    """The widths the kernels take are 0..the device's limit (a wider E
+    raises and names the limit; here a device whose limit is 300, the
+    limit itself is asked of the card in test_torch_kernel.py); the plain
+    versions take any."""
     from instascene_tpu_torch.ops import blend_padded as bp
-    packed = torch.zeros((2, 21 + 300, 128))
+    from instascene_tpu_torch.ops import blend_visits as bv
+    monkeypatch.setattr(bv, "width_limit", lambda dev: 300)
     count = torch.zeros(2, dtype=torch.int32)
-    with pytest.raises(ValueError, match="E <= 256"):
-        bp._check(f"blend_{kernel}_padded", packed, count, 300)
+    bp._check(f"blend_{kernel}_padded", torch.zeros((2, 21 + 300, 128)),
+              count, 300)
+    with pytest.raises(ValueError, match="E <= 300"):
+        bp._check(f"blend_{kernel}_padded", torch.zeros((2, 21 + 301, 128)),
+                  count, 301)
     with pytest.raises(ValueError, match="K % 128"):
         bp._check("blend_fwd_padded", torch.zeros((2, 25, 100)), count, 4)

@@ -24,22 +24,22 @@ LATE_HEAVY = (1.0, 1.0, -1.0)
 
 
 def _port_binned(E, device="cpu", boost=1.0, view=2, dilate=0,
-                 clip_rect=False, shift=None):
-    """Preprocess + bin + pack of a 2000-gaussian SH-3 scene at 64x48 by
-    the port itself, seen from orbit camera `view`: dense enough that some
-    pixels latch done. E <= 16 feature channels (the first E of the
-    scene's 16). `boost` scales the surfels (12 makes the ray-splat branch
-    take part). dilate: the binning's rects dilated by that many tiles (a
-    superset pair list); clip_rect: flat carries the fresh rects; shift:
-    a vector added to every centre (LATE_HEAVY). Returns (flat,
-    BinningOut)."""
+                 clip_rect=False, shift=None, n=2000):
+    """Preprocess + bin + pack of an n-gaussian (2000) SH-3 scene at 64x48
+    by the port itself, seen from orbit camera `view`: dense enough that
+    some pixels latch done. E feature channels: the first E of the scene's
+    16, or above 16 seeded random unit rows. `boost` scales the surfels
+    (12 makes the ray-splat branch take part). dilate: the binning's rects
+    dilated by that many tiles (a superset pair list); clip_rect: flat
+    carries the fresh rects; shift: a vector added to every centre
+    (LATE_HEAVY). Returns (flat, BinningOut)."""
     from instascene_tpu_torch.data.synthetic import make_bench_scene
     from instascene_tpu_torch.models.gaussians import from_numpy
     from instascene_tpu_torch.ops.binning import bin_gaussians
     from instascene_tpu_torch.ops.blend_visits import pack_flat_cols
     from instascene_tpu_torch.ops.preprocess import preprocess_gaussians
     from instascene_tpu_torch.render import camera_mats
-    st, mk = make_bench_scene(n=2000, seed=4, profile="trained")
+    st, mk = make_bench_scene(n=n, seed=4, profile="trained")
     if shift is not None:
         st = dict(st, xyz=st["xyz"] + np.asarray(shift, np.float32))
     p = from_numpy(st, device=device)
@@ -49,9 +49,15 @@ def _port_binned(E, device="cpu", boost=1.0, view=2, dilate=0,
         p.xyz, p.scaling_activated() * boost, p.rotation_normalized(), cm.w2v,
         cm.full_proj, cm.campos, W, H, opac, shs=p.features(), sh_degree=3)
     b = bin_gaussians(pre, W, H, dilate_tiles=dilate)
+    if E > 16:
+        ext = np.random.default_rng(E).normal(size=(n, E)).astype(np.float32)
+        extras = torch.as_tensor(ext / np.linalg.norm(ext, axis=1,
+                                                      keepdims=True)).to(
+                                                          device)
+    else:
+        extras = p.seg_feature_normed()[:, :E].contiguous() if E else None
     flat = pack_flat_cols(pre.T, pre.xy, pre.normal_view, opac, pre.color,
-                          p.seg_feature_normed()[:, :E].contiguous()
-                          if E else None,
+                          extras,
                           rect=(pre.rect_min, pre.rect_max) if clip_rect
                           else None)
     return flat, b
@@ -135,12 +141,15 @@ def test_cuda_kernel_matches_plain(cuda, E, viewer):
 
 @pytest.mark.cuda
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
-    from instascene_tpu_torch.ops.blend_visits import blend_fwd
+    from instascene_tpu_torch.ops.blend_visits import blend_fwd, width_limit
     flat, gid, start, end = _port_inputs(16, cuda)
-    # any width up to 256 runs; a wider one raises and names the limit
-    with pytest.raises(ValueError, match="E <= 256"):
-        blend_fwd(torch.zeros((flat.shape[0], 21 + 257), device=cuda), gid,
-                  start, end, GRID_X, 257)
+    # any width up to the device's limit (at least 1024 on an H100) runs;
+    # a wider one raises and names the limit
+    lim = width_limit(cuda)
+    assert lim >= 1024
+    with pytest.raises(ValueError, match=f"E <= {lim}"):
+        blend_fwd(torch.zeros((flat.shape[0], 21 + lim + 1), device=cuda),
+                  gid, start, end, GRID_X, lim + 1)
     with pytest.raises(ValueError, match="flat must be"):
         blend_fwd(flat.double(), gid, start, end, GRID_X, 16)
     with pytest.raises(ValueError, match="sorted_gid"):
@@ -398,6 +407,29 @@ def _saved(out, E):
                        1).contiguous()
 
 
+def _check_k5(sargs, feat, aux):
+    """K5's feat and aux on the card against its plain version (n_contrib
+    exactly, T and features within 3e-4), and at every drawn pixel bit for
+    bit K1 extras_only with a done0 that frees the same pixels."""
+    from instascene_tpu_torch.ops import blend_sparse as bs
+    from instascene_tpu_torch.ops.blend_visits import blend_fwd
+    flat, gid, start, end, spix, grid_x, E = sargs
+    rfeat, raux = bs.blend_sparse_fwd_reference(*sargs)
+    assert torch.equal(aux[..., 1], raux[..., 1]) and aux[..., 1].any()
+    torch.testing.assert_close(aux, raux, atol=3e-4, rtol=0)
+    torch.testing.assert_close(feat, rfeat, atol=3e-4, rtol=0)
+    t_i, s_i = torch.nonzero(spix >= 0, as_tuple=True)
+    p_i = spix[t_i, s_i].long()
+    d0 = torch.ones((start.shape[0], 1, 256), dtype=torch.int32,
+                    device=flat.device)
+    d0[t_i, 0, p_i] = 0
+    out, iout = blend_fwd(flat, gid, start, end, grid_x, E, extras_only=True,
+                          done0=d0)
+    assert torch.equal(feat[t_i, s_i], out[t_i, 10:10 + E, p_i])
+    assert torch.equal(aux[t_i, s_i, 0], out[t_i, 9, p_i])
+    assert torch.equal(aux[t_i, s_i, 1], iout[t_i, 0, p_i].float())
+
+
 @pytest.mark.cuda
 def test_cuda_k3_k4_match_plain(cuda):
     """K1 and K2 extras_only over a list of 5 tiles (K3, K4) on the card:
@@ -531,13 +563,15 @@ def test_cuda_k5_k6_match_plain(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["K1 no_dist", "K1 extras_only done0",
-                                    "K1 track", "K6"])
+                                    "K1 track", "K5", "K6"])
 def test_cuda_heaviest_tiles_last_in_raster_order(cuda, kernel):
     """On a scene whose longest tiles come last in raster order (LATE_HEAVY,
     so the kernels walk them first): K1 no_dist, extras_only with a done0
-    mask and track, and K6 against their plain versions (iout and ids
-    exactly, rows within 3e-4, weights within 1e-6; K6 within 1e-4 of each
-    column's largest |value|, and bit for bit equal over two runs)."""
+    mask and track, K5 and K6 against their plain versions (iout and ids
+    exactly, rows within 3e-4, weights within 1e-6; K5's n_contrib exactly,
+    T and features within 3e-4, and bit for bit K1 extras_only with a
+    done0 that frees the drawn pixels; K6 within 1e-4 of each column's
+    largest |value|, and bit for bit equal over two runs)."""
     from instascene_tpu_torch.ops import blend_sparse as bs
     from instascene_tpu_torch.ops import blend_visits as bv
     E = 16
@@ -546,13 +580,16 @@ def test_cuda_heaviest_tiles_last_in_raster_order(cuda, kernel):
     nt = b.tile_start.shape[0]
     assert int(order[0]) >= nt - GRID_X and int(order[1]) >= nt - GRID_X
     args = (flat, b.sorted_gid, b.tile_start, b.tile_end, GRID_X, E)
-    if kernel == "K6":
+    if kernel in ("K5", "K6"):
         gen = torch.Generator(device="cpu").manual_seed(6)
         idx = torch.randint(0, W * H, (300,), generator=gen)
         S = bs.pick_sparse_s(300, nt)
         spix = bs.spix_from_idx(idx.to(cuda), W, H, 16, S)[0]
         sargs = (*args[:4], spix, GRID_X, E)
         feat, aux = bs.blend_sparse_fwd(*sargs)
+        if kernel == "K5":
+            _check_k5(sargs, feat, aux)
+            return
         gout = torch.randn(feat.shape, generator=gen).to(cuda)
         d1 = bs.blend_sparse_bwd(*sargs, gout, aux)
         d2 = bs.blend_sparse_bwd(*sargs, gout, aux)
@@ -816,3 +853,84 @@ def test_cuda_runtime_width_matches_plain(cuda, E):
     assert torch.equal(d1, d2)
     assert _col_err(d1, bs.blend_sparse_bwd_reference(*sargs, gs, aux)) \
         <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", ["E320", "limit"])
+def test_cuda_wide_widths_match_plain(cuda, width):
+    """Feature widths above the kernels' old limit of 256: E = 320 and the
+    device's own limit (width_limit, at least 1024 on an H100), on a
+    300-gaussian scene (short ranges: the plain backward adds its feature
+    terms one width at a time). K1 full and extras_only with a done0, K2
+    full and extras_only with the segment sum, K5/K6 on ~300 draws and
+    K7/K8 over the padded layout against their plain versions, at the
+    tolerances of the narrow widths' tests: iout exactly, rows within 3e-4,
+    K2/K6/K8 and d_flat within 1e-4 of each column's largest |value|, two
+    backward runs bit for bit equal; K5 bit for bit K1 extras_only at the
+    drawn pixels, K7 bit for bit K1 full."""
+    from instascene_tpu_torch.ops import blend_sparse as bs
+    from instascene_tpu_torch.ops import blend_visits as bv
+    from instascene_tpu_torch.ops.binning import padded_layout
+    from instascene_tpu_torch.ops.blend_padded import (
+        blend_bwd_padded, blend_bwd_padded_reference, blend_fwd_padded,
+        blend_fwd_padded_reference, pack_inputs)
+    E = 320 if width == "E320" else bv.width_limit(cuda)
+    assert E >= 320
+    flat, b = _port_binned(E, cuda, boost=12.0, n=300)
+    gid, n = b.sorted_gid, flat.shape[0]
+    nt = b.tile_start.shape[0]
+    runs = (b.gid_order, b.run_start)
+    cpu_runs = (runs[0].cpu(), runs[1].cpu())
+    args = (flat, gid, b.tile_start, b.tile_end, GRID_X, E)
+    gen = torch.Generator(device="cpu").manual_seed(31)
+    d0 = (torch.rand((nt, 1, 256), generator=gen) >= 0.2).to(
+        torch.int32).to(cuda)
+    for kw in ({}, dict(extras_only=True, done0=d0)):
+        out, iout = bv.blend_fwd(*args, **kw)
+        ref, iref = bv.blend_fwd_reference(*args, **kw)
+        assert torch.equal(iout, iref) and iout[:, 0].any()
+        torch.testing.assert_close(out, ref, atol=3e-4, rtol=0)
+        if not kw:
+            k1 = out
+        xo = dict(extras_only=True) if kw else {}
+        gout = torch.randn(out.shape, generator=gen).to(cuda)
+        d, f = _k2_twice(args, gout, _saved(out, E), iout, n, runs, gid, **xo)
+        dref = bv.blend_bwd_reference(*args, gout, _saved(out, E), iout, **xo)
+        fref = bv.reduce_per_gaussian(dref.cpu(), gid.cpu(), n, cpu_runs)
+        assert d.any()
+        assert _col_err(d, dref) <= 1e-4
+        assert _col_err(f.cpu(), fref) <= 1e-4
+
+    idx = torch.randint(0, W * H, (300,), generator=gen)
+    S = bs.pick_sparse_s(300, nt)
+    spix, _, _, ov = bs.spix_from_idx(idx.to(cuda), W, H, 16, S)
+    assert not bool(ov)
+    sargs = (flat, gid, b.tile_start, b.tile_end, spix, GRID_X, E)
+    feat, aux = bs.blend_sparse_fwd(*sargs)
+    _check_k5(sargs, feat, aux)
+    gs = torch.randn(feat.shape, generator=gen).to(cuda)
+    d1 = bs.blend_sparse_bwd(*sargs, gs, aux)
+    d2 = bs.blend_sparse_bwd(*sargs, gs, aux)
+    torch.cuda.synchronize()
+    assert torch.equal(d1, d2) and d1.any()
+    assert _col_err(d1, bs.blend_sparse_bwd_reference(*sargs, gs, aux)) \
+        <= 1e-4
+
+    idxp, count = padded_layout(b)
+    packed = pack_inputs(flat, idxp)
+    D = packed.shape[1]
+    out, iout = blend_fwd_padded(packed, count, GRID_X, E)
+    ref, iref = blend_fwd_padded_reference(packed, count, GRID_X, E)
+    assert torch.equal(iout, iref) and torch.equal(out, k1)
+    torch.testing.assert_close(out, ref, atol=3e-4, rtol=0)
+    gout = torch.randn(out.shape, generator=gen).to(cuda)
+    p1 = blend_bwd_padded(packed, count, GRID_X, E, gout, _saved(out, E),
+                          iout)
+    p2 = blend_bwd_padded(packed, count, GRID_X, E, gout, _saved(out, E),
+                          iout)
+    torch.cuda.synchronize()
+    assert torch.equal(p1, p2) and p1.any()
+    pref = blend_bwd_padded_reference(packed, count, GRID_X, E, gout,
+                                      _saved(out, E), iout)
+    assert _col_err(p1.permute(0, 2, 1).reshape(-1, D),
+                    pref.permute(0, 2, 1).reshape(-1, D)) <= 1e-4

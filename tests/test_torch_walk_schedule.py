@@ -11,6 +11,12 @@ modelled on the CPU:
   the one-slot loop, and equal to the plain version (blend_fwd_reference)
   in every output it computes with the same arithmetic.
 
+* K5's walk (csrc/blend_sparse.cu::sparse_fwd_kernel), the same schedule
+  over a tile's drawn pixels: its tiles in walk_order, empty slots
+  latched from the start, the block leaving at a batch boundary once every
+  slot has latched, FWD_U slots evaluated ahead of the recurrence — bit for
+  bit the one-slot loop and equal to blend_sparse_fwd_reference.
+
 No CUDA and no JAX: the kernel itself is held against the plain version on
 the card (tests/test_torch_kernel.py, chip_smoke.py), and the plain
 version against the JAX package by tests/test_torch_blend.py."""
@@ -188,3 +194,106 @@ def test_lookahead_walk_is_the_one_slot_loop_bit_for_bit(U, clip):
     assert events["latch_inside"] > 0 and events["dropped"] > 0
     assert median_early > 0
     assert events["gated"] > 0 if clip else events["gated"] == 0
+
+
+def _sparse_block(U, alpha, m, rows, live, events):
+    """K5's walk of one tile, as the kernel schedules it: one thread per
+    slot, its evaluations alpha, m [n, S]; empty slots (live False) start
+    latched; per batch of BATCH rows the block leaves once every slot has
+    latched, and each slot still walking takes the batch in groups of U
+    evaluated slots, then the recurrence in slot order (a latch drops the
+    rest of its group). Returns final T [S], features [S, E] and
+    n_contrib [S]."""
+    n, S = alpha.shape
+    T = np.ones(S, F)
+    feat = np.zeros((S, E), F)
+    last = np.zeros(S, np.int64)
+    done = ~live
+
+    def apply(i, j):
+        """The recurrence of slot i at pair j; True where it latches."""
+        test_T = T[i] * (F(1) - alpha[j, i])
+        if test_T < F(1e-4):
+            events["dropped"] += 1
+            return True
+        w = alpha[j, i] * T[i]
+        feat[i] = feat[i] + w * rows[j, 21:21 + E]
+        last[i] = j + 1
+        T[i] = test_T
+        return False
+
+    for base in range(0, n, BATCH):
+        if done.all():                 # __syncthreads_count(done) == S
+            events["left"] += 1
+            break
+        nb = min(BATCH, n - base)
+        for i in np.nonzero(~done)[0]:
+            j = 0
+            while j + U <= nb and not done[i]:
+                mk = [bool(m[base + j + u, i]) for u in range(U)]   # ahead
+                for u in range(U):
+                    if mk[u] and apply(i, base + j + u):
+                        done[i] = True
+                        events["latch_inside"] += u < U - 1
+                        break
+                j += U
+            while j < nb and not done[i]:
+                if m[base + j, i] and apply(i, base + j):
+                    done[i] = True
+                j += 1
+    return T, feat, last
+
+
+@pytest.mark.parametrize("U", [1, 2, 4], ids=["U1", "U2", "U4"])
+def test_k5_walk_is_the_one_slot_loop_bit_for_bit(U):
+    """K5's schedule in numpy float32 on a scene whose heaviest tiles come
+    last in raster order, ~300 draws (duplicates, and one tile left
+    without a draw): the tiles in walk_order (longest first), every slot's
+    features, final T and n_contrib bit for bit the one-slot loop's and the
+    plain version's (blend_sparse_fwd_reference); blocks leave before the
+    end of their range once all their slots have latched, a block without
+    a draw at once, and latches fall inside groups."""
+    from instascene_tpu_torch.ops import blend_sparse as bs
+    from instascene_tpu_torch.ops import blend_visits as bv
+    flat, b = _port_binned(E, boost=12.0, shift=LATE_HEAVY)
+    nt = b.tile_start.shape[0]
+    rng = np.random.default_rng(9)
+    idx = rng.integers(0, 64 * 48, 300)
+    idx[5:9] = idx[0]
+    tile = (idx // 64 // 16) * GRID_X + (idx % 64) // 16
+    idx = idx[tile != 1]                       # tile 1 draws nothing
+    S = bs.pick_sparse_s(300, nt)
+    spix = bs.spix_from_idx(torch.as_tensor(idx), 64, 48, 16, S)[0]
+    feat_r, aux_r = bs.blend_sparse_fwd_reference(
+        flat, b.sorted_gid, b.tile_start, b.tile_end, spix, GRID_X, E)
+    order = bv.walk_order(bv.range_lengths(b.tile_start, b.tile_end))
+    _check_order(b.tile_end - b.tile_start, order)
+    events = dict(dropped=0, latch_inside=0, left=0)
+    lengths = (b.tile_end - b.tile_start).numpy()
+    for t in order.tolist():                   # block b walks order[b]
+        s, e = int(b.tile_start[t]), int(b.tile_end[t])
+        sp = spix[t].long()
+        g = flat[b.sorted_gid[s:e].long()][:, :, None]
+        pix = sp.clamp(min=0)
+        X = ((t % GRID_X) * 16 + pix % 16).float()[None].expand(e - s, S)
+        Y = ((t // GRID_X) * 16 + pix // 16).float()[None].expand(e - s, S)
+        ev = bv._splat(g, X, Y)
+        args = (ev["alpha"].numpy(), ev["m"].numpy(), g[:, :, 0].numpy(),
+                (sp >= 0).numpy())
+        left = events["left"]
+        got = _sparse_block(U, *args, events)
+        one = _sparse_block(1, *args, dict(dropped=0, latch_inside=0,
+                                           left=0))
+        for a, c in zip(got, one):
+            assert a.tobytes() == c.tobytes()
+        assert got[0].tobytes() == aux_r[t, :, 0].numpy().tobytes()
+        assert got[1].tobytes() == feat_r[t].numpy().tobytes()
+        assert (got[2] == aux_r[t, :, 1].numpy()).all()
+        if t == 1:                             # no draw: leaves at once
+            assert not (sp >= 0).any() and events["left"] == left + 1
+            assert (got[0] == 1).all() and not got[1].any()
+    assert lengths[1] > 0 and events["dropped"] > 0
+    # blocks that leave before their range ends, besides the empty one
+    assert events["left"] > 1
+    if U > 1:
+        assert events["latch_inside"] > 0
