@@ -42,7 +42,20 @@ lines; any failure exits non-zero and prints no result:
    report at 10 and 30,
    a save and a checkpoint at 30, and a resume from the checkpoint. K1 and
    K2 must have launched; n_alive must grow, PSNR must rise, the PLY must
-   load back.
+   load back. Then the mesh export (mesh_phase) on that COLMAP scene and
+   the CLI's iteration-30 PLY: the port's extract_mesh CLI twice, bounded
+   (--sdf_trunc 0.06 --depth_trunc 6, the default voxel capped to the
+   512-voxel grid) and unbounded (--mesh_res 512), launch counts reset
+   just before each main and read just after (K1 full at least once per
+   view), printing the grid, the voxel and the seconds of each stage; each
+   mesh non-empty and finite, its faces indexing its vertices, its PLY's
+   size its header's; the bounded mesh's distance to view 0's rendered
+   surface printed beside how far the views' depth maps agree, and view
+   0's own fusion at the bounded voxel with its vertices on that surface
+   where it is smooth at a voxel's scale (median under 2 voxels); the
+   device marching bit for bit the CPU's on the bounded run's busiest
+   slab; rasterize_mesh of the bounded mesh from view 0, timed, with its
+   median depth error against surf_depth.
    Phase 2 also holds K1 `track` (E=0 and 16), K1 `extras_only` (E=16)
    without and with a ~2,000-pixel done0 mask (sampled pixels bit for bit
    `full`'s, the others T = 1, 0, n_contrib 0), K2 `extras_only` on
@@ -935,6 +948,301 @@ def cli_phase(st, make_cam, tmp):
     check(n_ply == n1, f"the PLY holds {n_ply}, the trainer {n1}")
     check(tr2.opt_state.count == CLI_ITERS + 1,
           "the resume did not take one more step")
+    return {"root": root, "model": model, "ply": ply}
+
+
+# ------------------------------------------------------------ mesh export
+# the bounded extraction's truncations for the orbit scene (cameras at
+# radius ~4 around the clusters): sdf_trunc a few voxels of the 512-voxel
+# grid, depth_trunc past the far side of the scene
+MESH_BOUNDED = ["--sdf_trunc", "0.06", "--depth_trunc", "6"]
+MESH_RES = 512
+# the surface check: the nearest vertex of view 0's own fusion lies within
+# this many voxels (median over the pixels where the surface is smooth at a
+# voxel's scale, smooth_pixels) of its surf_depth. The
+# 8-view mesh's distance to view 0's surface is printed, not checked: the
+# benchmark scene is a cloud of gaussians around the cameras, whose views'
+# median depths disagree by more than that (view_agreement)
+MESH_SURFACE_VOXELS = 2.0
+
+
+def read_mesh_ply(path):
+    """(verts [V,3] f32, faces [F,3] i32) of a binary mesh PLY as
+    write_mesh_ply writes it; fails unless the file's size is its header's
+    plus its records."""
+    with open(path, "rb") as f:
+        data = f.read()
+    end = data.index(b"end_header\n") + len(b"end_header\n")
+    lines = data[:end].decode("ascii").split("\n")
+    n = {ln.split()[1]: int(ln.split()[2]) for ln in lines
+         if ln.startswith("element")}
+    vrec = 15 if "property uchar red" in lines else 12
+    want = end + n["vertex"] * vrec + n["face"] * 13
+    check(len(data) == want, f"{path}: {len(data)} bytes, its header says "
+          f"{want}")
+    vdt = np.dtype([("xyz", "<f4", 3), ("rgb", "u1", vrec - 12)])
+    verts = np.frombuffer(data, vdt, n["vertex"], end)["xyz"]
+    fdt = np.dtype([("n", "u1"), ("idx", "<i4", 3)])
+    frec = np.frombuffer(data, fdt, n["face"], end + n["vertex"] * vrec)
+    check((frec["n"] == 3).all(), f"{path}: a face is not a triangle")
+    return np.ascontiguousarray(verts), np.ascontiguousarray(frec["idx"])
+
+
+def project(pts, cam):
+    """View-space z and continuous pixel coordinates (u, v) of world
+    points [N,3] in `cam`, with the TSDF fusion's pinhole (x/z · f +
+    size/2)."""
+    import torch
+    w2c = torch.as_tensor(cam.w2c, dtype=pts.dtype, device=pts.device)
+    pv = pts @ w2c[:3, :3].T + w2c[:3, 3]
+    z = pv[:, 2]
+    zc = torch.clamp(z, min=1e-6)
+    return (z, pv[:, 0] / zc * cam.focal_x + cam.width / 2,
+            pv[:, 1] / zc * cam.focal_y + cam.height / 2)
+
+
+def nearest_vertex_error(verts, cam, surf, pixels):
+    """|view z of the nearest vertex in each pixel − surf_depth| over the
+    `pixels` ([H,W] bool) that hold a vertex."""
+    import torch
+    W, H = cam.width, cam.height
+    z, u, v = project(verts, cam)
+    px, py = torch.round(u).long(), torch.round(v).long()
+    ok = (z > 1e-4) & (px >= 0) & (px < W) & (py >= 0) & (py < H)
+    nearest = torch.full((H * W,), float("inf"), device=verts.device)
+    nearest.scatter_reduce_(0, (py * W + px)[ok], z[ok].float(),
+                            reduce="amin")
+    nearest = nearest.reshape(H, W)
+    both = pixels & torch.isfinite(nearest)
+    return (nearest - surf)[both].abs()
+
+
+def smooth_pixels(surf, alpha, voxel, r=2):
+    """The pixels whose (2r+1)² neighbourhood is all alpha > 0.5 and spans
+    less than one voxel of depth: where a voxel (a few pixels wide at these
+    depths) can follow the rendered surface."""
+    import torch.nn.functional as F
+    fg = (alpha > 0.5).float()[None, None]
+    d = surf[None, None]
+    k = 2 * r + 1
+    hi = F.max_pool2d(d, k, 1, r)
+    lo = -F.max_pool2d(-d, k, 1, r)
+    full = -F.max_pool2d(-fg, k, 1, r)
+    return ((hi - lo < voxel) & (full > 0.5))[0, 0]
+
+
+def vertex_surface_error(verts, cam, surf):
+    """|vertex view z − surf_depth sampled bilinearly at its projection|,
+    over the vertices that project inside the image onto depth > 0."""
+    import torch
+    H, W = surf.shape
+    z, u, v = project(verts, cam)
+    ok = (z > 1e-4) & (u >= 0) & (u <= W - 1) & (v >= 0) & (v <= H - 1)
+    z, u, v = z[ok], u[ok], v[ok]
+    u0 = torch.clamp(torch.floor(u), 0, W - 2)
+    v0 = torch.clamp(torch.floor(v), 0, H - 2)
+    fu, fv = u - u0, v - v0
+    i = (v0 * W + u0).long()
+    d = surf.reshape(-1)
+    s = ((1 - fv) * ((1 - fu) * d[i] + fu * d[i + 1])
+         + fv * ((1 - fu) * d[i + W] + fu * d[i + W + 1]))
+    return (z - s)[s > 0].abs()
+
+
+def view_agreement(cams, pkgs, tol):
+    """For each view j > 0: the share of view 0's surface points (alpha >
+    0.5) projecting inside view j whose view-j z lies within tol of view
+    j's surf_depth there."""
+    import torch
+    c0, p0 = cams[0], pkgs[0]
+    H, W = c0.height, c0.width
+    dev = p0["surf_depth"].device
+    m = (p0["rend_alpha"][..., 0] > 0.5).reshape(-1)
+    d = p0["surf_depth"][..., 0].reshape(-1).double()
+    ys, xs = torch.meshgrid(torch.arange(H, device=dev),
+                            torch.arange(W, device=dev), indexing="ij")
+    pc = torch.stack([(xs.reshape(-1) - W / 2) / c0.focal_x * d,
+                      (ys.reshape(-1) - H / 2) / c0.focal_y * d, d], -1)[m]
+    c2w = torch.as_tensor(c0.c2w, device=dev)
+    pw = pc @ c2w[:3, :3].T + c2w[:3, 3]
+    out = []
+    for cj, pj in zip(cams[1:], pkgs[1:]):
+        z, u, v = project(pw, cj)
+        px, py = torch.round(u).long(), torch.round(v).long()
+        ok = (z > 1e-4) & (px >= 0) & (px < W) & (py >= 0) & (py < H)
+        dj = pj["surf_depth"][..., 0][py[ok], px[ok]].double()
+        out.append(((z[ok] - dj).abs() < tol).double().mean())
+    return out
+
+
+def mesh_phase(root, model, ply, dev):
+    """The port's extract_mesh CLI on the training CLI's COLMAP scene and
+    its densified PLY: bounded (the 512-voxel cap) and unbounded
+    (--mesh_res MESH_RES), launch counts reset just before each main and
+    read just after (K1 full once per view at least). Each mesh must be
+    non-empty and finite with faces indexing its vertices and a PLY whose
+    size is its header's. The bounded mesh's distance to view 0's rendered
+    surface is printed beside how far the views' depth maps agree; view
+    0's own fusion at the bounded voxel (tsdf_fusion_mesh on its maps)
+    must put its vertices on that surface. The device marching is held
+    against the same function on the CPU on the bounded run's busiest
+    slab, and rasterize_mesh renders the bounded mesh from view 0."""
+    import torch
+    from instascene_tpu_torch import extract_mesh
+    from instascene_tpu_torch.config import ModelParams, PipelineParams
+    from instascene_tpu_torch.data.dataset import Scene
+    from instascene_tpu_torch.mesh import marching, tsdf
+    from instascene_tpu_torch.models.gaussians import load_ply
+    from instascene_tpu_torch.ops.mesh_raster import rasterize_mesh
+    from instascene_tpu_torch.render import render
+    common = ["-s", root, "-m", model, "--ply_path", ply, "--device", DEVICE]
+    cams = Scene(ModelParams(source_path=root, model_path=model),
+                 load_images=False).get_train_cameras()
+    busiest = {"faces": -1}
+    orig = tsdf.marching_tetrahedra
+
+    def kept(field, *a, **kw):
+        v, f = orig(field, *a, **kw)
+        if len(f) > busiest["faces"]:
+            busiest.update(faces=len(f), field=field, args=a, kw=kw, v=v,
+                           f=f)
+        return v, f
+
+    runs = {}
+    for tag, flags in (("bounded", MESH_BOUNDED),
+                       ("unbounded", ["--unbounded", "--mesh_res",
+                                      str(MESH_RES)])):
+        tsdf.marching_tetrahedra = kept if tag == "bounded" else orig
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            out = extract_mesh.main(common + flags + [
+                "--output", f"fuse_{tag}.ply"])
+        finally:
+            tsdf.marching_tetrahedra = orig
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = counts()
+        verts, faces = read_mesh_ply(out["path"])
+        n_views = len(cams)
+        print(f"[mesh] {tag}: grid {out['grid']}, voxel {out['voxel']:.6g}; "
+              f"{len(verts)} vertices, {len(faces)} faces; main {wall:.2f} "
+              f"s host wall; stage seconds " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in out["seconds"].items())
+              + f"; K1 full launches {c['K1 full']} ({n_views} views)",
+              flush=True)
+        check(len(faces) > 0 and len(verts) > 0, f"the {tag} mesh is empty")
+        check(np.isfinite(verts).all(), f"the {tag} mesh is not finite")
+        check(faces.min() >= 0 and faces.max() < len(verts),
+              f"the {tag} mesh's faces index past its vertices")
+        check(c["K1 full"] >= n_views, f"the {tag} extraction launched K1 "
+              f"full {c['K1 full']} times for {n_views} views")
+        runs[tag] = {"seconds": out["seconds"], "wall_s": wall,
+                     "grid": list(out["grid"]), "voxel": out["voxel"],
+                     "verts": len(verts), "faces": len(faces),
+                     "k1_full_launches": c["K1 full"],
+                     "mesh": (verts, faces)}
+
+    # the device marching against the CPU's on the busiest bounded slab
+    field = busiest["field"]
+    t0 = time.perf_counter()
+    v_cpu, f_cpu = orig(field.cpu(), *busiest["args"], **busiest["kw"])
+    cpu_s = time.perf_counter() - t0
+    _, dev_ms = timed(lambda: orig(field, *busiest["args"],
+                                   **busiest["kw"]))
+    same = (torch.equal(busiest["f"].cpu(), f_cpu)
+            and torch.equal(busiest["v"].cpu(), v_cpu))
+    print(f"[mesh] marching on the busiest bounded slab {tuple(field.shape)}"
+          f": {len(f_cpu)} faces, {len(v_cpu)} vertices; device "
+          f"{dev_ms:.2f} ms, CPU {cpu_s * 1e3:.1f} ms; faces and vertices "
+          f"equal: {same}", flush=True)
+    check(same, "the device marching differs from the CPU's")
+
+    # the bounded mesh against view 0's rendered surface
+    cam = cams[0]
+    W, H = cam.width, cam.height
+    g = load_ply(ply, device=dev)
+    with torch.no_grad():
+        pkgs = [render(c, g, PipelineParams(), np.zeros(3, np.float32))
+                for c in cams]
+    surf = pkgs[0]["surf_depth"][..., 0]
+    alpha = pkgs[0]["rend_alpha"][..., 0]
+    verts, faces = runs["bounded"]["mesh"]
+    voxel = runs["bounded"]["voxel"]
+    vt = torch.as_tensor(verts, device=dev)
+    q = lambda e: ([float(torch.quantile(e, x)) / voxel for x in (0.5, 0.9)]
+                   if e.numel() else [float("nan")] * 2)
+    fg = alpha > 0.5
+    smooth = smooth_pixels(surf, alpha, voxel)
+    on_pixels = q(nearest_vertex_error(vt, cam, surf, fg))
+    on_smooth = q(nearest_vertex_error(vt, cam, surf, smooth))
+    agree = [float(v) for v in view_agreement(cams, pkgs, 2 * voxel)]
+    print(f"[mesh] bounded (8-view) vertices against view 0's surf_depth "
+          f"({W}x{H}): |nearest vertex z − surf_depth| over alpha > 0.5 "
+          f"pixels median {on_pixels[0]:.3f} voxels, p90 {on_pixels[1]:.3f}"
+          f"; over the {int(smooth.sum())} of {int(fg.sum())} whose 5x5 "
+          f"neighbourhood spans under a voxel median {on_smooth[0]:.3f}, "
+          f"p90 {on_smooth[1]:.3f}; the views disagree: of view 0's surface "
+          f"points inside view j, the share within 2 voxels of view j's "
+          f"surf_depth, j = 1..{len(cams) - 1}: "
+          + ", ".join(f"{a:.3f}" for a in agree), flush=True)
+    # view 0's own fusion at that voxel: where the surface is smooth at the
+    # voxel's scale its front sheet must lie on view 0's surf_depth (the
+    # fusion samples the maps where it projects). Its vertices also form the
+    # back of the truncation band, sdf_trunc behind (unobserved voxels read
+    # +1, as in the JAX package: ROADMAP C), so each vertex's own distance
+    # is printed, unchecked
+    own = {}
+    v0, _, _ = tsdf.tsdf_fusion_mesh(
+        [surf], [pkgs[0]["render"]], [cam.w2c], [np.array(
+            [cam.focal_x, cam.focal_y, W / 2, H / 2], np.float32)],
+        voxel_size=voxel, sdf_trunc=float(MESH_BOUNDED[1]),
+        depth_trunc=float(MESH_BOUNDED[3]), stats=own)
+    v0 = torch.as_tensor(v0, device=dev)
+    own_all = q(nearest_vertex_error(v0, cam, surf, fg))
+    on_own = q(nearest_vertex_error(v0, cam, surf, smooth))
+    per_vertex = q(vertex_surface_error(v0, cam, surf))
+    print(f"[mesh] view 0's own fusion (grid {own['grid']}, voxel "
+          f"{own['voxel']:.6g}, {len(v0)} vertices): |nearest vertex z − "
+          f"surf_depth| over the smooth pixels median {on_own[0]:.3f} "
+          f"voxels, p90 {on_own[1]:.3f}; over alpha > 0.5 median "
+          f"{own_all[0]:.3f}, p90 {own_all[1]:.3f}; |vertex z − surf_depth "
+          f"at its projection| median {per_vertex[0]:.3f}, p90 "
+          f"{per_vertex[1]:.3f}", flush=True)
+    check(bool(on_own[0] < MESH_SURFACE_VOXELS), f"view 0's own mesh lies "
+          f"{on_own[0]:.3f} voxels (median) off its smooth surface")
+    w2c = torch.as_tensor(cam.w2c.astype(np.float32), device=dev)
+
+    # rasterize_mesh of the bounded mesh from view 0
+    args = (vt, torch.as_tensor(faces, device=dev), w2c, torch.tensor(
+        [cam.focal_x, cam.focal_y, W / 2, H / 2], dtype=torch.float32,
+        device=dev), W, H)
+    out = rasterize_mesh(*args)
+    raster_ms = time_ms(lambda: rasterize_mesh(*args), 3)
+    hit = (out.face_id >= 0) & (alpha > 0.5)
+    derr = (out.depth - surf)[hit].abs()
+    dmed = float(derr.median())
+    print(f"[mesh] rasterize_mesh of the bounded mesh ({len(faces)} faces) "
+          f"from view 0 at {W}x{H}: {raster_ms:.2f} ms (median of 3); "
+          f"{int(hit.sum())} pixels hit with alpha > 0.5, |mesh depth − "
+          f"surf_depth| median {dmed:.5f} ({dmed / voxel:.3f} voxels)",
+          flush=True)
+    check(torch.isfinite(out.depth).all() and int(hit.sum()) > 0,
+          "rasterize_mesh hit nothing of view 0's surface")
+    for r in runs.values():
+        del r["mesh"]
+    return {"runs": runs, "marching_slab": {
+        "shape": list(field.shape), "faces": len(f_cpu), "device_ms": dev_ms,
+        "cpu_ms": cpu_s * 1e3},
+        "surface_voxels": {"median": on_pixels[0], "p90": on_pixels[1],
+                           "smooth_median": on_smooth[0],
+                           "smooth_p90": on_smooth[1],
+                           "smooth_pixels": int(smooth.sum()),
+                           "views_within_2_voxels": agree,
+                           "own_fusion_smooth": on_own,
+                           "own_fusion_all": own_all,
+                           "own_fusion_per_vertex": per_vertex},
+        "raster_ms": raster_ms, "raster_depth_median": dmed}
 
 
 # ---------------------------------------------------------------- semantic
@@ -2573,20 +2881,27 @@ def main() -> int:
     del p_train
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        cli_phase(st, make_cam, tmp)
+        cli = cli_phase(st, make_cam, tmp)
+        torch.cuda.synchronize()
+        train_counts = counts()
+        phase_s["training (steps and CLI)"] = time.perf_counter() - t_phase
+        print(f"[train] launches on the training path: train steps "
+              f"{step_counts}; with the CLI {train_counts}", flush=True)
+        check(train_counts["K1 no_dist"] > 0
+              and train_counts["K1 full"] > 0,
+              "the training path did not launch K1 in both its modes")
+        check(train_counts["K2 no_dist"] > 0
+              and train_counts["K2 full"] > 0,
+              "the training path did not launch K2 in both its modes")
+        check(train_counts["segment_sum"] > 0,
+              "the training path never launched the segment sum")
+
+        # ---- 5b. mesh export on the CLI's scene and densified PLY
+        t_phase = time.perf_counter()
+        mesh = mesh_phase(cli["root"], cli["model"], cli["ply"], dev)
+        phase_s["mesh export"] = time.perf_counter() - t_phase
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    torch.cuda.synchronize()
-    train_counts = counts()
-    phase_s["training (steps and CLI)"] = time.perf_counter() - t_phase
-    print(f"[train] launches on the training path: train steps "
-          f"{step_counts}; with the CLI {train_counts}", flush=True)
-    check(train_counts["K1 no_dist"] > 0 and train_counts["K1 full"] > 0,
-          "the training path did not launch K1 in both its modes")
-    check(train_counts["K2 no_dist"] > 0 and train_counts["K2 full"] > 0,
-          "the training path did not launch K2 in both its modes")
-    check(train_counts["segment_sum"] > 0,
-          "the training path never launched the segment sum")
 
     # ---- 6. the semantic frame's kernels at full width
     t_phase = time.perf_counter()
@@ -2673,13 +2988,15 @@ def main() -> int:
                 "bound_by": r["bound_by"], "library_ms": None}
 
     where_1080 = f"E=16, {FULL['width']}x{FULL['height']}"
+    mesh_k1 = sum(r["k1_full_launches"] for r in mesh["runs"].values())
     sg = k2_train["no_dist"]["segment_sum"]
     kernels = [
         dict(k1_entry("viewer", full[(16, "viewer")], where_1080,
                       serve["K1 viewer"]), max_abs_err=full_err),
         dict(k1_entry("full", full[(16, "full")], where_1080,
-                      serve["K1 full"] + train_counts["K1 full"]),
-             max_abs_err=full_err),
+                      serve["K1 full"] + train_counts["K1 full"]
+                      + mesh_k1),
+             max_abs_err=full_err, launches_mesh_export=mesh_k1),
         k1_entry("no_dist", k1_train, frame, train_counts["K1 no_dist"]),
         k2_entry("no_dist"), k2_entry("full"),
         {"name": "segment_sum", "route": "cuda",
@@ -2832,6 +3149,7 @@ def main() -> int:
         "jax_capped_chunks": sem_k["jax_capped_chunks"],
         "conic_cull_1080p": pad["conic"],
         "tracker_s_per_view": sem["tracker_s"],
+        "mesh_export": mesh,
         "semantic_cli_s": {k: sem_cli[k] for k in (
             "tracker renders", "spatial track", "training",
             "hdbscan export")},
