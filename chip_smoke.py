@@ -26,7 +26,16 @@ lines; any failure exits non-zero and prints no result:
    headless click-to-segment CLI (semantic_gui.main) at 1920x1080 — a depth
    preview (full blend), then two clicks → segment → save — then four more
    orbit frames through SegmentationEngine.render_view. Launch counts are
-   reset just before and read just after; K1 must have launched.
+   reset just before and read just after; K1 must have launched. Then the
+   editing actions on the same engine and scene, with their own counts:
+   click → saved PLY on the engine's clock (the frame rendered and cached
+   first; the PLY load not in it) with its stages (score and the features'
+   D2H, DBSCAN, write) beside PERF.md's 1 s limit, printed, not gated;
+   two single-prompt clicks leave one prompt; the convex-hull crop (its
+   PLY holds at least the feature mask and lies in its box); delete (the
+   gaussians drop by the mask, the frame changes) and reload (the frame
+   bit for bit the one before the edits); zoom and pan re-render. K1
+   viewer must launch;
 4. the training frame at 976x728 (the repo's geometry benchmark size, same
    scene without features): K1 no_dist, K2 in both modes and the segment
    sum against their plain versions, timed, with their bounds;
@@ -55,7 +64,10 @@ lines; any failure exits non-zero and prints no result:
    where it is smooth at a voxel's scale (median under 2 voxels); the
    device marching bit for bit the CPU's on the bounded run's busiest
    slab; rasterize_mesh of the bounded mesh from view 0, timed, with its
-   median depth error against surf_depth.
+   median depth error against surf_depth. Then the SIBR network viewer on
+   the CLI's trainer: a loopback client sends the first CLI view (976x728)
+   with train=True and one NetworkGUI.tick answers it, its image bytes bit
+   for bit render()'s of the same camera; K1 full must launch in the tick.
    Phase 2 also holds K1 `track` (E=0 and 16), K1 `extras_only` (E=16)
    without and with a ~2,000-pixel done0 mask (sampled pixels bit for bit
    `full`'s, the others T = 1, 0, n_contrib 0), K2 `extras_only` on
@@ -86,6 +98,12 @@ lines; any failure exits non-zero and prints no result:
    write output_dict.npy, sam/mask_sorted, a PLY with segfeat_0..15 that
    loads back finite and point_cloud_labels.ply; K1 extras_only and
    track, K2 extras_only and the segment sum must have launched in it.
+   On its scene and PLY, semantic_gui.main with --use_colmap_camera
+   --headless clicks view 0's most opaque pixel (the prompt bit for bit
+   render(viewer=True)'s feature there; a mask saved), and the returned
+   SegSplatting's render_views(save_mask=True) writes the 8 views' npy,
+   segfeat and segmask PNGs (each npy bit for bit render()'s features;
+   K1 viewer at least 8 times, with its own counts).
    Then the CLI three times more on that scene, each with its own counts:
    with --mv_tile_subsample 128 --sparse_px 1 at 256 draws per set (K3,
    K4, K5 and K6 must launch), the same at the reference's 32k draws
@@ -570,11 +588,11 @@ def golden_check(dev):
           "the card's rasterizer does not match tests/goldens/forward.npz")
 
 
-def main_path(p_full, tmp) -> int:
+def main_path(p_full, tmp):
     """Serve the scene through the headless CLI and the engine, with the
     launch counts reset just before and read just after; check what came
     out, then time the orbit frames. Returns the kernels' launches on the
-    path (counts())."""
+    path (counts()) and the engine."""
     import torch
     import instascene_tpu_torch.ops.blend_visits as bv
     from instascene_tpu_torch import semantic_gui
@@ -656,7 +674,120 @@ def main_path(p_full, tmp) -> int:
         float(np.median(r_ms)) - sum(st_med.values()))
     print("[main] render() stages, median ms: " + ", ".join(
         f"{k} {v:.4f}" for k, v in st_med.items()), flush=True)
-    return launches
+    return launches, engine
+
+
+# PERF.md §2's limit on click → saved PLY (printed beside it, not gated)
+CLICK_LIMIT_S = 1.0
+
+
+def edit_phase(engine, tmp):
+    """The engine's editing actions at full width on the serving path's
+    engine and scene, launch counts reset just before and read just after:
+    click → saved PLY on the engine's clock (the frame rendered and cached
+    first, as the window has it; the PLY load is not in it), single-prompt
+    clicks, the convex-hull crop, delete and reload (the reloaded frame bit
+    for bit the frame before the edits), then zoom and pan. K1 viewer must
+    launch."""
+    import torch
+    from instascene_tpu_torch.data.ply import read_ply
+    from instascene_tpu_torch.viewer.gui import OrbitCamera
+    out = os.path.join(tmp, "edits")
+    xy = [int(c) for c in CLICKS.split(",")]
+    clicks = list(zip(xy[0::2], xy[1::2]))
+    orbit = OrbitCamera(FULL["width"], FULL["height"], r=4.0)
+    cam = orbit.minicam()
+
+    reset_counts()
+    engine.reload()
+    engine.clear()
+    frame0 = engine.render_view(cam)
+    t0 = time.perf_counter()
+    engine.click(cam, *clicks[0])
+    mask = engine.segment_3d(out, 0)
+    click_s = time.perf_counter() - t0
+    stages = dict(engine.timings)
+    n_ply = len(read_ply(os.path.join(out, "segment_0.ply"))["vertex"])
+    print(f"[edit] click → saved PLY on the engine's clock: {click_s:.4f} s "
+          f"(limit {CLICK_LIMIT_S} s; PLY load not included): score and the "
+          f"features' D2H {stages['score']:.4f} s, DBSCAN "
+          f"{stages['dbscan']:.4f} s, write {stages['write']:.4f} s; "
+          f"{int(mask.sum())} gaussians, segment_0.ply holds {n_ply}",
+          flush=True)
+    check(0 < mask.sum() == n_ply, "click → segment saved no gaussians or a "
+          "different count")
+
+    engine.reload()
+    engine.clear()
+    for c in clicks:
+        engine.click(cam, *c, multi=False)
+    check(len(engine.chosen_features) == len(engine.prompt_colors) == 1,
+          f"{len(engine.chosen_features)} prompts after single clicks")
+    for c in clicks[1:]:
+        engine.click(cam, *c)
+    n_feat = int(engine.gaussian_mask().sum())
+    t0 = time.perf_counter()
+    inside = engine.segment_3d_convexhull(out, 1)
+    hull_s = time.perf_counter() - t0
+    hull_stages = dict(engine.timings)
+    v = read_ply(os.path.join(out, "segment_1.ply"))["vertex"]
+    pts = np.stack([v["x"], v["y"], v["z"]], -1)
+    box = np.load(os.path.join(out, "segment_1_bbox.npy"))
+    off = np.abs(pts - box[:3]) - box[3:] / 2
+    print(f"[edit] convex-hull crop of {len(engine.chosen_features)} prompts "
+          f"in {hull_s:.4f} s (score {hull_stages['score']:.4f}, DBSCAN "
+          f"{hull_stages['dbscan']:.4f}, hull {hull_stages['hull']:.4f}, "
+          f"write {hull_stages['write']:.4f}): feature mask {n_feat}, hull "
+          f"{int(inside.sum())} of {len(inside)}, PLY {len(v)}, box centre "
+          f"{box[:3].tolist()} extent {box[3:].tolist()}, farthest outside "
+          f"{float(off.max()):.3g}", flush=True)
+    check(len(v) == inside.sum() >= n_feat > 0,
+          "the hull's PLY does not hold the feature mask")
+    check(float(off.max()) <= 1e-5, "the hull's PLY leaves its box")
+    check(engine.params.n_alive() == inside.sum(),
+          "the engine does not hold the hull's crop")
+
+    engine.reload()
+    n0 = engine.params.n_alive()
+    dmask = engine.delete_3d(out, 2)
+    n1 = engine.params.n_alive()
+    f_del = engine.render_view(cam)
+    changed = int((f_del["rgb"] != frame0["rgb"]).any(-1).sum())
+    engine.reload()
+    f_back = engine.render_view(cam)
+    print(f"[edit] delete: n_alive {n0} → {n1} ({int(dmask.sum())} "
+          f"deleted), {changed} pixels changed; after reload the frame "
+          f"equals the first bit for bit: "
+          f"{all(np.array_equal(f_back[k], frame0[k]) for k in frame0)}",
+          flush=True)
+    check(dmask.sum() > 0 and n1 == n0 - dmask.sum(),
+          "delete did not drop the mask's gaussians")
+    check(changed > 0, "the frame after delete is the frame before it")
+    for k in frame0:
+        check(np.array_equal(f_back[k], frame0[k]),
+              f"the reloaded frame's {k} differs from the frame before the "
+              f"edits")
+
+    pose0 = orbit.pose
+    k1 = counts()["K1 viewer"]
+    orbit.scale(2)
+    orbit.pan(400.0, -200.0)
+    f_pan = engine.render_view(orbit.minicam())
+    torch.cuda.synchronize()
+    launches = counts()
+    print(f"[edit] zoom and pan: radius {orbit.radius:.4f}, centre "
+          f"{orbit.center.tolist()}; launches in the editing phase "
+          f"{ {k: n for k, n in launches.items() if n} }", flush=True)
+    check(not np.allclose(orbit.pose, pose0), "zoom and pan left the pose")
+    check(launches["K1 viewer"] == k1 + 1
+          and not np.array_equal(f_pan["rgb"], frame0["rgb"]),
+          "the panned view was not re-rendered")
+    check(launches["K1 viewer"] > 0, "the editing phase never launched K1 "
+          "viewer")
+    return {"click_to_ply_s": click_s, "click_stages_s": stages,
+            "hull_s": hull_s, "hull_stages_s": hull_stages,
+            "feature_mask": n_feat, "hull": int(inside.sum()),
+            "deleted": int(dmask.sum()), "launches": launches}
 
 
 def reset_counts():
@@ -948,7 +1079,77 @@ def cli_phase(st, make_cam, tmp):
     check(n_ply == n1, f"the PLY holds {n_ply}, the trainer {n1}")
     check(tr2.opt_state.count == CLI_ITERS + 1,
           "the resume did not take one more step")
-    return {"root": root, "model": model, "ply": ply}
+    return {"root": root, "model": model, "ply": ply, "trainer": tr}
+
+
+def network_phase(trainer):
+    """The SIBR network viewer on the training CLI's trainer: a loopback
+    client thread connects, sends the first CLI view at 976x728 with
+    train=True, and reads the reply while one NetworkGUI.tick serves it,
+    launch counts reset just before the tick and read just after. The
+    image bytes must equal render()'s of the same camera bit for bit;
+    K1 full must launch."""
+    import socket
+    import struct
+    import threading
+    import torch
+    from instascene_tpu_torch.render import render
+    from instascene_tpu_torch.viewer.network_gui import (
+        NetworkGUI, camera_from_message, camera_message, recv_exact)
+    msg = camera_message(trainer.cam_objs[0])
+    W, H = msg["resolution_x"], msg["resolution_y"]
+    reply, connected = {}, threading.Event()
+    gui = NetworkGUI("127.0.0.1", 0)
+    port = gui.listener.getsockname()[1]
+
+    def client():
+        with socket.create_connection(("127.0.0.1", port), timeout=120) as c:
+            connected.set()
+            n = struct.unpack("I", recv_exact(c, 4))[0]
+            reply["items"] = json.loads(recv_exact(c, n))
+            payload = json.dumps(msg).encode()
+            c.sendall(len(payload).to_bytes(4, "little") + payload)
+            reply["image"] = recv_exact(c, 3 * W * H)
+            n = int.from_bytes(recv_exact(c, 4), "little")
+            reply["verify"] = recv_exact(c, n).decode()
+            n = struct.unpack("I", recv_exact(c, 4))[0]
+            reply["metrics"] = json.loads(recv_exact(c, n))
+
+    th = threading.Thread(target=client, daemon=True)
+    th.start()
+    try:
+        check(connected.wait(60), "the viewer client did not connect")
+        reset_counts()
+        t0 = time.perf_counter()
+        gui.tick(trainer, trainer.pipe, trainer.dataset)
+        torch.cuda.synchronize()
+        tick_s = time.perf_counter() - t0
+        launches = counts()
+        th.join(120)
+        check(not th.is_alive() and len(reply) == 4,
+              "the viewer client did not get its reply")
+    finally:
+        gui.close()
+    # the camera receive() builds from the message, rendered directly
+    with torch.no_grad():
+        img = render(camera_from_message(msg), trainer.params, trainer.pipe,
+                     trainer.bg)["render"].cpu().numpy()
+    want = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+    got = np.frombuffer(reply["image"], np.uint8).reshape(H, W, 3)
+    print(f"[viewer] SIBR network viewer, one {W}x{H} camera round: tick "
+          f"{tick_s:.4f} s host wall (render and send); render items "
+          f"{reply['items']}; metrics {reply['metrics']}; bytes equal to "
+          f"render()'s: {np.array_equal(got, want)} (max |diff| "
+          f"{int(np.abs(got.astype(int) - want).max())}); launches "
+          f"{ {k: n for k, n in launches.items() if n} }", flush=True)
+    check(np.array_equal(got, want), "the network viewer's image is not "
+          "render()'s")
+    check(reply["verify"] == trainer.dataset.source_path
+          and reply["metrics"]["#"] == trainer.params.n_alive(),
+          f"the viewer's reply: {reply['verify']}, {reply['metrics']}")
+    check(launches["K1 full"] > 0, "the network viewer never launched K1 "
+          "full")
+    return {"tick_s": tick_s, "launches": launches}
 
 
 # ------------------------------------------------------------ mesh export
@@ -1937,7 +2138,89 @@ def semantic_cli_phase(st, make_cam, tmp):
           "the PLY's features do not load back finite")
     check(os.path.exists(labels_ply), "point_cloud_labels.ply missing")
     return {"instances": m3d.shape[1], "purity": purity,
-            "counts": cli_counts, "root": root, **tm}
+            "counts": cli_counts, "root": root, "ply": ply, "seg": seg,
+            **tm}
+
+
+def colmap_views_phase(sem_cli, tmp):
+    """COLMAP-camera browsing and the per-view exports on the semantic
+    CLI's scene and segfeat PLY: semantic_gui.main with
+    --use_colmap_camera --headless and a click on view 0's most opaque
+    pixel (the prompt bit for bit render(viewer=True)'s feature there, a
+    mask saved), then SegSplatting.render_views(save_mask=True) on the 8
+    views (8 npy, 8 segfeat and 8 segmask PNGs, each npy bit for bit
+    render(viewer=True)'s features), launch counts reset just before
+    render_views and read just after: K1 viewer at least once a view."""
+    import torch
+    from instascene_tpu_torch import semantic_gui
+    from instascene_tpu_torch.config import ModelParams, PipelineParams
+    from instascene_tpu_torch.data.dataset import Scene
+    from instascene_tpu_torch.models.gaussians import load_ply
+    from instascene_tpu_torch.render import render
+    root, ply, seg = sem_cli["root"], sem_cli["ply"], sem_cli["seg"]
+    cam0 = Scene(ModelParams(source_path=root, resolution=1),
+                 load_images=False).get_train_cameras()[0]
+    p = load_ply(ply, seg_feat_dim=16, load_seg_feat=True, device=DEVICE)
+    with torch.no_grad():
+        pkg = render(cam0, p, PipelineParams(), np.zeros(3, np.float32),
+                     viewer=True)
+    y, x = np.unravel_index(
+        int(pkg["rend_alpha"][..., 0].argmax()), pkg["rend_alpha"].shape[:2])
+    feat = pkg["seg_feature"]
+    feat = (feat / (torch.linalg.norm(feat, dim=-1, keepdim=True) + 1e-6)
+            ).cpu().numpy()[y, x]
+    out = os.path.join(tmp, "colmap_seg")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine = semantic_gui.main([
+        "-p", ply, "-s", root, "--use_colmap_camera", "--headless",
+        "--click", f"{x},{y}", "--score_threshold", SCORE_THRESHOLD,
+        "--out_dir", out, "--device", DEVICE])
+    gui_s = time.perf_counter() - t0
+    mask = np.load(os.path.join(out, "default", "segment_0_mask.npy"))
+    print(f"[colmap] semantic_gui --use_colmap_camera --headless, click at "
+          f"({x}, {y}) of {cam0.image_name} ({cam0.width}x{cam0.height}): "
+          f"{gui_s:.3f} s host wall (PLY and cameras loaded); "
+          f"{int(mask.sum())} gaussians segmented; prompt bit for bit "
+          f"render()'s: {np.array_equal(engine.chosen_features[0], feat)}",
+          flush=True)
+    check(np.array_equal(engine.chosen_features[0], feat),
+          "the COLMAP camera's prompt is not render()'s feature")
+    check(mask.sum() > 0, "the COLMAP-camera click segmented nothing")
+
+    rdir = os.path.join(seg.model_path, "render")
+    reset_counts()
+    t0 = time.perf_counter()
+    seg.render_views(save_mask=True)
+    torch.cuda.synchronize()
+    views_s = time.perf_counter() - t0
+    launches = counts()
+    names = [c.image_name for c in seg.cam_objs]
+    files = {sub: sorted(os.listdir(os.path.join(rdir, sub)))
+             for sub in ("segfeat", "segmask")}
+    same = []
+    for c in seg.cam_objs:
+        with torch.no_grad():
+            want = render(c, seg.params, seg.pipe, seg.bg,
+                          viewer=True)["seg_feature"].cpu().numpy()
+        same.append(np.array_equal(
+            np.load(os.path.join(rdir, "segfeat", f"{c.image_name}.npy")),
+            want))
+    print(f"[colmap] render_views(save_mask=True) on {len(names)} views in "
+          f"{views_s:.3f} s host wall; segfeat {len(files['segfeat'])} files, "
+          f"segmask {len(files['segmask'])}; npy bit for bit render()'s: "
+          f"{sum(same)} of {len(same)}; launches "
+          f"{ {k: n for k, n in launches.items() if n} }", flush=True)
+    check(len(names) == CLI_CAMS, f"{len(names)} views")
+    check(files["segfeat"] == sorted(
+        [f"{n}.npy" for n in names] + [f"{n}.png" for n in names])
+        and files["segmask"] == sorted(f"{n}.png" for n in names),
+        f"render_views wrote {files}")
+    check(all(same), "a view's npy is not render()'s features")
+    check(launches["K1 viewer"] >= len(names),
+          f"render_views launched K1 viewer {launches['K1 viewer']} times")
+    return {"gui_s": gui_s, "render_views_s": views_s,
+            "segmented": int(mask.sum()), "launches": launches}
 
 
 def semantic_cli_variant(root, out, tag, flags, must):
@@ -2861,11 +3144,15 @@ def main() -> int:
         t_phase = time.perf_counter()
         tmp = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
-            serve = main_path(p_full, tmp)
+            serve, engine = main_path(p_full, tmp)
+            phase_s["serving"] = time.perf_counter() - t_phase
+            # ---- 3b. the engine's editing actions on the same engine
+            t_phase = time.perf_counter()
+            edit = edit_phase(engine, tmp)
+            phase_s["editing"] = time.perf_counter() - t_phase
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
-        del p_full
-        phase_s["serving"] = time.perf_counter() - t_phase
+        del p_full, engine
 
         # ---- 4. the training frame's kernels
         t_phase = time.perf_counter()
@@ -2900,8 +3187,14 @@ def main() -> int:
         t_phase = time.perf_counter()
         mesh = mesh_phase(cli["root"], cli["model"], cli["ply"], dev)
         phase_s["mesh export"] = time.perf_counter() - t_phase
+
+        # ---- 5c. the SIBR network viewer on the CLI's trainer
+        t_phase = time.perf_counter()
+        net = network_phase(cli["trainer"])
+        phase_s["network viewer"] = time.perf_counter() - t_phase
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    del cli
 
     # ---- 6. the semantic frame's kernels at full width
     t_phase = time.perf_counter()
@@ -2923,6 +3216,11 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         sem_cli = semantic_cli_phase(st, make_cam, tmp)
+        # ---- 7b. COLMAP cameras and the per-view exports on its scene
+        t_views = time.perf_counter()
+        views = colmap_views_phase(sem_cli, tmp)
+        phase_s["COLMAP camera and render_views"] = (time.perf_counter()
+                                                     - t_views)
         cli_tiles = semantic_cli_variant(
             sem_cli["root"], os.path.join(tmp, "out_tiles_sparse"),
             "tile subsample + sparse",
@@ -2950,7 +3248,10 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     sem_counts = sem_cli["counts"]
-    phase_s["semantic CLI (4 runs)"] = time.perf_counter() - t_phase
+    del sem_cli["seg"]
+    phase_s["semantic CLI (4 runs)"] = (time.perf_counter() - t_phase
+                                        - phase_s["COLMAP camera and "
+                                                  "render_views"])
 
     # ---- 8. the padded and cached-superset paths at full width
     t_phase = time.perf_counter()
@@ -2990,13 +3291,21 @@ def main() -> int:
     where_1080 = f"E=16, {FULL['width']}x{FULL['height']}"
     mesh_k1 = sum(r["k1_full_launches"] for r in mesh["runs"].values())
     sg = k2_train["no_dist"]["segment_sum"]
+    viewer_paths = {"serving": serve["K1 viewer"],
+                    "editing": edit["launches"]["K1 viewer"],
+                    "render_views": views["launches"]["K1 viewer"]}
+    full_paths = {"serving": serve["K1 full"],
+                  "training": train_counts["K1 full"],
+                  "mesh_export": mesh_k1,
+                  "network_viewer": net["launches"]["K1 full"]}
     kernels = [
         dict(k1_entry("viewer", full[(16, "viewer")], where_1080,
-                      serve["K1 viewer"]), max_abs_err=full_err),
+                      sum(viewer_paths.values())), max_abs_err=full_err,
+             launches_by_path=viewer_paths),
         dict(k1_entry("full", full[(16, "full")], where_1080,
-                      serve["K1 full"] + train_counts["K1 full"]
-                      + mesh_k1),
-             max_abs_err=full_err, launches_mesh_export=mesh_k1),
+                      sum(full_paths.values())),
+             max_abs_err=full_err, launches_mesh_export=mesh_k1,
+             launches_by_path=full_paths),
         k1_entry("no_dist", k1_train, frame, train_counts["K1 no_dist"]),
         k2_entry("no_dist"), k2_entry("full"),
         {"name": "segment_sum", "route": "cuda",
@@ -3150,6 +3459,10 @@ def main() -> int:
         "conic_cull_1080p": pad["conic"],
         "tracker_s_per_view": sem["tracker_s"],
         "mesh_export": mesh,
+        "editing": {k: v for k, v in edit.items() if k != "launches"},
+        "network_viewer_tick_s": net["tick_s"],
+        "colmap_camera": {k: v for k, v in views.items()
+                          if k != "launches"},
         "semantic_cli_s": {k: sem_cli[k] for k in (
             "tracker renders", "spatial track", "training",
             "hdbscan export")},

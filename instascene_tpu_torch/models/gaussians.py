@@ -2,7 +2,8 @@
 
 Port of instascene_tpu/models/gaussians.py:32-121 (`GaussianParams` with
 its activations, `capacity`, `n_alive`, `one_up_sh_degree`, and
-`create_from_pcd`), :124-233 (`compact`, `save_ply`, `load_ply`) and
+`create_from_pcd`), :124-233 (`compact`, `save_ply`, `load_ply`),
+:238-296 (`crop_mask`, `crop_pts_with_convexhull`, `combine`) and
 :299-326 (`set_3d_feat`), plus
 `from_numpy`, which takes the JAX field names as numpy arrays so both
 packages can be fed one state. Fixed capacity with an `alive` mask, as in
@@ -244,6 +245,66 @@ def load_ply(path: str, max_sh_degree: int = 3, seg_feat_dim: int = 0,
         rotation=rotation, opacity=opac, alive=np.ones(n, bool),
         seg_feature=seg, active_sh_degree=max_sh_degree,
         max_sh_degree=max_sh_degree), device)
+
+
+# ---------------------------------------------------------------- instance ops
+
+def crop_mask(p: GaussianModel, mask, mode: str = "save") -> GaussianModel:
+    """Keep (mode='save') or remove (mode='delete') gaussians by a boolean
+    mask over compacted order: the compacted model with `alive` = the
+    kept mask."""
+    pc = compact(p)
+    keep = torch.as_tensor(np.asarray(mask, bool), device=pc.device)
+    if mode == "delete":
+        keep = ~keep
+    return pc.replace(alive=keep)
+
+
+def crop_pts_with_convexhull(p: GaussianModel, pts: np.ndarray,
+                             mode: str = "save", return_bbox: bool = False):
+    """Crop (mode='save') or delete the gaussians inside the convex hull of
+    `pts`, by scipy's Delaunay membership test on the host (float64 hull,
+    the compacted centres as queries). The optional bbox is (center [3],
+    rotation eye(3), extent [3]) of the axis-aligned box of the gaussians
+    inside, or None when none is. Returns the model, or (model, bbox)
+    with return_bbox."""
+    from scipy.spatial import Delaunay
+    pc = compact(p)
+    xyz = pc.xyz.detach().cpu().numpy()
+    inside = Delaunay(np.asarray(pts, np.float64)).find_simplex(xyz) >= 0
+    bbox = None
+    if return_bbox and inside.any():
+        sel = xyz[inside]
+        lo, hi = sel.min(axis=0), sel.max(axis=0)
+        bbox = ((lo + hi) / 2.0, np.eye(3), hi - lo)
+    out = crop_mask(pc, inside, mode=mode)
+    return (out, bbox) if return_bbox else out
+
+
+def combine(a: GaussianModel, b: GaussianModel,
+            load_seg_feat: bool = True) -> GaussianModel:
+    """`a`'s alive gaussians followed by `b`'s; `b`'s get the mean of
+    `a`'s normalised features (computed on the host in float32, as the
+    JAX package does)."""
+    a = compact(a)
+    b = compact(b)
+    cat = lambda x, y: torch.cat([x, y], dim=0)
+    seg = None
+    if a.seg_feature is not None and load_seg_feat:
+        feat = a.seg_feature.detach().cpu().numpy()
+        mean = (feat / (np.linalg.norm(feat, axis=-1, keepdims=True) + 1e-9)
+                ).mean(0)
+        seg_b = np.broadcast_to(mean, (b.capacity, len(mean))).astype(
+            np.float32)
+        seg = cat(a.seg_feature, torch.as_tensor(seg_b, device=a.device))
+    return GaussianModel(
+        xyz=cat(a.xyz, b.xyz), features_dc=cat(a.features_dc, b.features_dc),
+        features_rest=cat(a.features_rest, b.features_rest),
+        scaling=cat(a.scaling, b.scaling),
+        rotation=cat(a.rotation, b.rotation),
+        opacity=cat(a.opacity, b.opacity), alive=cat(a.alive, b.alive),
+        seg_feature=seg, active_sh_degree=a.active_sh_degree,
+        max_sh_degree=a.max_sh_degree)
 
 
 def set_3d_feat(p: GaussianModel, seg3d_masks: np.ndarray, seg_feat_dim: int,

@@ -352,7 +352,10 @@ class GeometryTrainer:
 
     def train(self, iterations: Optional[int] = None, test_iterations=(),
               save_iterations=(), log_every: int = 10, first_iter: int = 0,
-              checkpoint_iterations=(), progress: bool = True):
+              checkpoint_iterations=(), progress: bool = True,
+              on_iteration: Optional[Callable[[int], None]] = None):
+        """Run iterations first_iter+1..iterations; `on_iteration(it)` is
+        called at the end of each (the CLI's network viewer)."""
         from .checkpoint import save_checkpoint
         iterations = iterations or self.opt.iterations
         t_last = time.perf_counter()
@@ -369,4 +372,6 @@ class GeometryTrainer:
                 self.save(it)
             if it in checkpoint_iterations:
                 save_checkpoint(self, self.scene.model_path, it)
+            if on_iteration is not None:
+                on_iteration(it)
         return self

@@ -11,7 +11,7 @@ done masks), :517-691 (`semantic_train_step`, with the sparse-pixel branch
 and its dense fallback), :694-907 and :990-1103 (`SegSplatting`:
 `robust_semantic_priors`, `_precompute_binning`, `_precompute_sampling`,
 `_camera_bundles`, `_max_labels`, `train_segfeat`, `save`) and
-:1163-1177 (`export_segment_results`).
+:1110-1160 (`render_views`) and :1163-1177 (`export_segment_results`).
 
 Stage 1 renders every training view with contributor tracking (K1 track)
 and runs the spatial-track mask clustering on the host (output_dict.npy,
@@ -45,8 +45,8 @@ What differs from the JAX package:
   * the sparse path's overflow test is a host read and a Python branch
     (JAX's lax.cond); the 3D loss draws from its sampler pack, so the
     sparse path needs no visibility mask.
-Camera-batch data parallelism (--dp) and `render_views` wait for later
-slices (ROADMAP A12).
+Camera-batch data parallelism (--dp) waits for a later slice (ROADMAP
+A.5).
 """
 
 from __future__ import annotations
@@ -769,6 +769,63 @@ class SegSplatting:
                             "point_cloud.ply")
         gmod.save_ply(self.params, path)
         return path
+
+    def render_views(self, save_mask: bool = False, view_idx=()):
+        """Per-view feature exports (reference train_semantic.py:353-428)
+        under <model_path>/render: segfeat/<name>.npy (the view's raw
+        [H,W,E] features from render(viewer=True), K1 `viewer`; a file
+        already there is read instead) and segfeat/<name>.png (their PCA
+        colours); with save_mask, segmask/<name>.png colours each pixel by
+        its best per-instance mean-feature match (score >= 0.75, else
+        black; colours from numpy's default_rng(0))."""
+        from ..render import render
+        from ..semantic.export import pca_proj_matrix
+        from ..utils.image import write_png
+
+        save_dir = os.path.join(self.model_path, "render")
+        os.makedirs(os.path.join(save_dir, "segfeat"), exist_ok=True)
+        os.makedirs(os.path.join(save_dir, "segmask"), exist_ok=True)
+        if self.scene is None:
+            self._load_scene()
+        to8 = lambda rgb01: np.uint8(np.clip(rgb01, 0, 1) * 255.0)
+
+        feats = self.params.seg_feature.detach().cpu().numpy()
+        inst_feats = inst_colors = None
+        if save_mask:
+            inst_feats = np.stack(
+                [feats[self.seg3d_masks[:, k]].mean(0)
+                 for k in range(self.seg3d_masks.shape[1])])
+            rng = np.random.default_rng(0)
+            inst_colors = rng.random((len(inst_feats), 3)) * 0.7 + 0.3
+
+        views = (self.cam_objs if not view_idx
+                 else [self.cam_objs[i] for i in view_idx])
+        proj = None
+        for cam_obj in views:
+            name = cam_obj.image_name
+            npy = os.path.join(save_dir, "segfeat", f"{name}.npy")
+            if os.path.exists(npy):
+                feat = np.load(npy)
+            else:
+                with torch.no_grad():
+                    pkg = render(cam_obj, self.params, self.pipe, self.bg,
+                                 viewer=True)
+                feat = pkg["seg_feature"].cpu().numpy()
+                np.save(npy, feat)
+            if proj is None:
+                proj = pca_proj_matrix(feats)
+            fn = feat / (np.linalg.norm(feat, axis=-1, keepdims=True) + 1e-6)
+            write_png(os.path.join(save_dir, "segfeat", f"{name}.png"),
+                      to8(fn @ proj * 0.5 + 0.5))
+            if save_mask:
+                infn = inst_feats / (np.linalg.norm(
+                    inst_feats, axis=1, keepdims=True) + 1e-6)
+                score = fn @ infn.T                       # [H,W,K]
+                best = score.argmax(-1)
+                ok = np.take_along_axis(
+                    score, best[..., None], axis=-1)[..., 0] >= 0.75
+                write_png(os.path.join(save_dir, "segmask", f"{name}.png"),
+                          to8(inst_colors[best] * ok[..., None]))
 
     def export_segment_results(self, iteration: int,
                                score_threshold: float = 0.9,

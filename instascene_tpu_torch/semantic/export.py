@@ -3,8 +3,9 @@ labelling) and feature-map visualisation.
 
 Port of instascene_tpu/semantic/export.py:15-128 (`generate_semantic_colors`,
 `voxel_downsample`, `hdbscan_labels`, `export_segment_results`) and
-:131-160 (`feature_to_rgb` with a precomputed projection,
-`pca_proj_matrix`; the JAX function's sklearn-PCA branch is not ported).
+:131-160 (`feature_to_rgb`, `pca_proj_matrix`). Where JAX's
+`feature_to_rgb` calls sklearn's PCA, this port calls its own
+`pca_fit_transform` (the same components and signs).
 
 The JAX package calls sklearn's HDBSCAN and NearestNeighbors; the GPU
 machine has no sklearn, so `hdbscan` here is sklearn's algorithm
@@ -436,12 +437,28 @@ def export_segment_results(positions: np.ndarray, feats: np.ndarray,
     return None
 
 
-def feature_to_rgb(featmap: np.ndarray, pca_proj: np.ndarray) -> np.ndarray:
-    """[H,W,E] feature map → uint8 RGB through an [E,3] PCA projection."""
+def pca_fit_transform(x: np.ndarray, n_components: int = 3) -> np.ndarray:
+    """sklearn's PCA(n_components).fit_transform(x) written out, so the
+    port needs no sklearn: the centred data on its top components, each
+    component's largest-magnitude coefficient made positive (svd_flip
+    with u_based_decision=False, sklearn >= 1.5)."""
+    c = x - x.mean(axis=0)
+    c64 = c.astype(np.float64)
+    eigvals, eigvecs = np.linalg.eigh(c64.T @ c64)
+    comp = eigvecs[:, np.argsort(-eigvals)[:n_components]].T
+    top = np.argmax(np.abs(comp), axis=1)
+    comp *= np.sign(comp[np.arange(len(comp)), top])[:, None]
+    return (c @ comp.T.astype(x.dtype)).astype(x.dtype)
+
+
+def feature_to_rgb(featmap: np.ndarray,
+                   pca_proj: Optional[np.ndarray] = None) -> np.ndarray:
+    """[H,W,E] feature map → uint8 RGB through an [E,3] PCA projection, or
+    through the map's own PCA when `pca_proj` is None."""
     h, w, e = featmap.shape
     flat = featmap.reshape(-1, e)
     flat = flat / (np.linalg.norm(flat, axis=1, keepdims=True) + 1e-9)
-    low = flat @ pca_proj
+    low = flat @ pca_proj if pca_proj is not None else pca_fit_transform(flat)
     low = (low.reshape(h, w, 3) * 0.5 + 0.5).clip(0, 1)
     return (low * 255).astype(np.uint8)
 

@@ -1,16 +1,19 @@
-"""Click-to-segment CLI, headless path.
+"""Click-to-segment CLI.
 
 Port of the root semantic_gui.py:17-100 (`main`), run as
 
-    python -m instascene_tpu_torch.semantic_gui -p scene.ply --headless \\
-        --click 320,240[,x2,y2...] [--width 800 --height 600]
+    python -m instascene_tpu_torch.semantic_gui -p scene.ply [--headless \
+        --click 320,240[,x2,y2...]] [--width 800 --height 600] \
+        [--use_colmap_camera -s <colmap scene>]
 
-Same flags. With --click it renders the orbit view (viewer blend), picks
-the feature under each click, segments the matching gaussians and saves
+Same flags. Without --headless it opens the dearpygui window
+(viewer/gui.py::run_gui; dearpygui must be installed). With --headless and
+--click it renders the view (the orbit camera, or the scene's first COLMAP
+training camera with --use_colmap_camera), picks the feature under each
+click, segments the matching gaussians and saves
 <out_dir>/<interactive_note>/segment_0.ply; without clicks it writes
 preview PNGs of --render_mode. `--device` picks the device (default cuda;
-there is no CPU fallback). The interactive window and --use_colmap_camera
-(which needs the COLMAP loader) wait for later slices.
+there is no CPU fallback).
 """
 
 from __future__ import annotations
@@ -50,17 +53,11 @@ def main(argv=None):
                         help="torch device to render on")
     args = parser.parse_args(argv if argv is not None else sys.argv[1:])
 
-    if args.use_colmap_camera:
-        raise SystemExit("--use_colmap_camera needs the COLMAP loader, which "
-                         "is not ported yet")
-    if not args.headless:
-        raise SystemExit("the interactive window is not ported yet; use "
-                         "--headless")
-
     from .config import PipelineParams
     from .models.gaussians import load_ply
     from .utils.image import write_png
-    from .viewer.gui import OrbitCamera, SegmentationEngine, compose_frame
+    from .viewer.gui import (OrbitCamera, SegmentationEngine, compose_frame,
+                             run_gui)
 
     params = load_ply(args.ply_path, max_sh_degree=3,
                       seg_feat_dim=args.seg_feat_dim, load_seg_feat=True,
@@ -71,7 +68,27 @@ def main(argv=None):
     engine = SegmentationEngine(params, PipelineParams(),
                                 score_threshold=args.score_threshold)
 
-    mini = OrbitCamera(args.width, args.height, r=args.camera_radius).minicam()
+    train_cameras = None
+    if args.use_colmap_camera:
+        if not args.source_path:
+            raise SystemExit("--use_colmap_camera requires --source_path")
+        # the scene's COLMAP cameras, without their images
+        from .config import ModelParams
+        from .data.dataset import Scene
+        scene = Scene(ModelParams(source_path=args.source_path,
+                                  resolution=args.downscale_ratio),
+                      load_images=False)
+        train_cameras = scene.get_train_cameras()
+
+    if not args.headless:
+        run_gui(engine, args.width, args.height, args.interactive_note,
+                train_cameras=train_cameras)
+        return engine
+    if train_cameras:
+        mini = train_cameras[0]
+    else:
+        mini = OrbitCamera(args.width, args.height,
+                           r=args.camera_radius).minicam()
     coords = [float(x) for x in args.click.split(",") if x]
     for i in range(0, len(coords) - 1, 2):
         engine.click(mini, int(coords[i]), int(coords[i + 1]))

@@ -5,9 +5,11 @@
 
 Port of train.py:18-137. The same flags; `--device` (default CUDA) picks
 where it trains. Not served yet, and refused with the item that brings
-them: --dp and --profile_trace (ROADMAP A12). The network viewer (A10) is
-skipped, with or without --disable_viewer; TensorBoard logging waits for
-A12 (losses and evaluations are printed).
+them: --dp and --profile_trace (ROADMAP A12). Without --disable_viewer the
+SIBR network viewer listens on --ip:--port and is served once per
+iteration (viewer/network_gui.py); when the address cannot be bound,
+training goes on without it. TensorBoard logging waits for A12 (losses
+and evaluations are printed).
 """
 
 from __future__ import annotations
@@ -72,9 +74,6 @@ def main(argv=None):
     scene = Scene(dataset)
     print(f"Output folder: {scene.model_path}", flush=True)
     save_cfg_args(scene.model_path, args)
-    if not args.disable_viewer:
-        print("network viewer not ported yet (ROADMAP A10): training "
-              "without it", flush=True)
 
     trainer = GeometryTrainer(dataset, opt, pipe, scene, device=args.device)
     first_iter = 0
@@ -84,10 +83,24 @@ def main(argv=None):
          first_iter) = load_checkpoint(args.start_checkpoint, trainer.device)
         print(f"Resumed from {args.start_checkpoint} at iter {first_iter}",
               flush=True)
-    trainer.train(opt.iterations, test_iterations=args.test_iterations,
-                  save_iterations=args.save_iterations,
-                  checkpoint_iterations=args.checkpoint_iterations,
-                  first_iter=first_iter, progress=not args.quiet)
+    gui = None
+    if not args.disable_viewer:
+        from .viewer.network_gui import NetworkGUI
+        try:
+            gui = NetworkGUI(args.ip, args.port)
+        except OSError:
+            pass        # the address is taken: train without the viewer
+    try:
+        trainer.train(
+            opt.iterations, test_iterations=args.test_iterations,
+            save_iterations=args.save_iterations,
+            checkpoint_iterations=args.checkpoint_iterations,
+            first_iter=first_iter, progress=not args.quiet,
+            on_iteration=(lambda it: gui.tick(trainer, pipe, dataset))
+            if gui is not None else None)
+    finally:
+        if gui is not None:
+            gui.close()
     print("\nTraining complete.", flush=True)
     return trainer
 
