@@ -110,6 +110,27 @@ lines; any failure exits non-zero and prints no result:
    (K3/K4 must launch; the sparse steps that fall back to the dense path
    are printed beside the K5/K6 launches) and with --mv_merged 1 (K1/K2
    tiles_per_view must launch), each with a PLY that loads back finite.
+   Then the host residue (residue_phase), each path with its own counts:
+   the native COLMAP library (native/colmap_io.cpp, built by g++) loads
+   and parses the training CLI's points3D.bin bit for bit as the Python
+   parse; the geometry CLI on a NeRF-synthetic scene (8 train and 2 test
+   RGBA views at 800x800 rendered by K1 full, no points3d.ply) with
+   --eval, a report at iteration 30 and --profile_trace over iterations
+   10-19: the reader writes its 100k-point cloud, and the trace's kernel
+   events of K1 no_dist, K2 no_dist and the segment sum, with their median
+   device times, are as many as the launch counter counted in the window;
+   scripts/eval_scene's geometry half (100 iterations on the training
+   CLI's scene; train PSNR above the initial model's) and semantic half
+   (20 iterations on the semantic CLI's scene, the true clusters as
+   ground truth; >= 2 instances, a finite mIoU); scripts/align_coords on
+   the 300k PLY (rest-SH coefficients from seed 1) by (25, -40, 65)
+   degrees, whose 1080p K1 full render from the rotated camera matches the
+   original's (colour and alpha within 1e-4 on all but 2e-3 of the
+   pixels, n_contrib on all but 1.5e-2: the rotation re-rounds every
+   projection in float32); render_video's frames on an
+   8-frame 1080p ellipse path, each bit for bit render()'s; and
+   scripts/generate_masks --from_dir on the semantic scene's masks given
+   as npy, each PNG decoding to its labels.
    Each phase prints its seconds;
    Phase 2 also holds, at mid size, K7/K8 over the padded layout (E=16 and
    0; bit for bit K1/K2 `full` on the same binning, d(packed) twice bit for
@@ -144,6 +165,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -3038,6 +3060,455 @@ def padded_superset_phase(st, make_cam, dev):
     return res
 
 
+# ---- slice 11: the host residue on the card (residue_phase)
+# NeRF-synthetic's 800x800 width; its 100 train and 200 test views cut to
+# 8 and 2, rendered from the 300k serving scene (K1 full, RGB + alpha)
+BLENDER = dict(width=800, height=800, train=8, test=2, fov=1.2, iters=30,
+               window=(10, 20))
+EVAL_ITERS = dict(geometry=100, semantic=20)
+ALIGN_DEGREES = (25.0, -40.0, 65.0)
+# the rotated scene from the rotated camera re-rounds every projection in
+# float32, so a splat near the 1/255 alpha cut or the T floor enters or
+# leaves a pixel: the share of 1080p pixels whose colour or alpha moves by
+# more than ALIGN_ATOL, and the share whose n_contrib changes, stay under
+# these (measured on an NVIDIA H100 80GB HBM3 at 700 W: 4.3e-4, 9.1e-4
+# and 6.1e-3)
+ALIGN_ATOL, ALIGN_SHARE, ALIGN_NCONTRIB_SHARE = 1e-4, 2e-3, 1.5e-2
+VIDEO_FRAMES = 8
+
+
+def native_check(colmap_root):
+    """The port's native COLMAP library (native/colmap_io.cpp, g++) loads
+    and parses points3D.bin bit for bit as the Python parse does."""
+    from instascene_tpu_torch.data import colmap, native
+    lib = native.get_lib()
+    check(lib is not None, "the native COLMAP library did not build or load")
+    with open(os.path.join(colmap_root, "sparse", "0", "points3D.bin"),
+              "rb") as f:
+        data = f.read()
+    t0 = time.perf_counter()
+    got = native.points3d_parse_native(data)
+    t1 = time.perf_counter()
+    want = colmap.parse_points3D(data)
+    t2 = time.perf_counter()
+    check(got is not None and all(a.dtype == b.dtype and np.array_equal(a, b)
+                                  for a, b in zip(got, want)),
+          "the native points3D parse differs from the Python parse")
+    print(f"[residue] native library {lib._name}: points3D.bin "
+          f"({len(data)} bytes, {len(want[0])} points) parsed in "
+          f"{t1 - t0:.4f} s natively, {t2 - t1:.4f} s in Python, bit for bit",
+          flush=True)
+    return {"points": len(want[0]), "native_s": t1 - t0, "python_s": t2 - t1}
+
+
+def blender_cameras():
+    """BLENDER's views on the serving orbit (square, fovx = fovy)."""
+    from instascene_tpu_torch.cameras import Camera
+    from instascene_tpu_torch.data.synthetic import look_at
+    n = BLENDER["train"] + BLENDER["test"]
+    cams = []
+    for i in range(n):
+        ang = 2 * np.pi * i / n
+        R, t = look_at(np.array([4.0 * np.cos(ang), 4.0 * np.sin(ang), 1.5]),
+                       np.zeros(3))
+        cams.append(Camera(uid=i, colmap_id=i, R=R.T, T=t,
+                           fovx=BLENDER["fov"], fovy=BLENDER["fov"],
+                           image_name=f"r_{i}", width=BLENDER["width"],
+                           height=BLENDER["height"]))
+    return cams
+
+
+def write_blender_scene(p, cams, root, dev):
+    """A NeRF-synthetic scene: RGBA PNGs of K1 full renders (colour, and
+    rend_alpha as alpha) and transforms_{train,test}.json with OpenGL
+    camera-to-world matrices; no points3d.ply."""
+    import torch
+    from instascene_tpu_torch.config import PipelineParams
+    from instascene_tpu_torch.render import render
+    from instascene_tpu_torch.utils.image import write_png
+    to8 = lambda x: (x.clamp(0, 1) * 255 + 0.5).to(torch.uint8)
+    splits = {"train": cams[:BLENDER["train"]],
+              "test": cams[BLENDER["train"]:]}
+    for split, group in splits.items():
+        os.makedirs(os.path.join(root, split))
+        frames = []
+        for k, cam in enumerate(group):
+            with torch.no_grad():
+                pkg = render(cam, p, PipelineParams(),
+                             torch.zeros(3, device=dev))
+            rgba = torch.cat([to8(pkg["render"]), to8(pkg["rend_alpha"])],
+                             dim=-1)
+            name = f"{split}/r_{k}"
+            write_png(os.path.join(root, name + ".png"), rgba.cpu().numpy())
+            c2w = np.linalg.inv(np.asarray(cam.w2v, np.float64))
+            c2w[:3, 1:3] *= -1                        # COLMAP → OpenGL axes
+            frames.append({"file_path": "./" + name,
+                           "transform_matrix": c2w.tolist()})
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": BLENDER["fov"], "frames": frames}, f)
+
+
+_KERNEL_NAME = re.compile(r"blend_(fwd|bwd)_kernel<\s*(-?\d+)\s*,\s*(\d+)\s*,"
+                          r"\s*(true|false)\s*,[^>]*FlatRows")
+
+
+def trace_kernels(path):
+    """The kernel events of a torch.profiler Chrome trace: {name: [device
+    µs of each launch]}."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            out.setdefault(e["name"], []).append(float(e["dur"]))
+    return out
+
+
+def launch_key(name):
+    """The launch counter's key of a traced kernel name: K1/K2 (with K3/K4,
+    the same instantiations over a tile list) by mode, the segment sum;
+    None for any other kernel."""
+    from instascene_tpu_torch.ops import blend_visits as bv
+    if "segment_sum_kernel" in name:
+        return "segment_sum"
+    m = _KERNEL_NAME.search(name)
+    if m is None:
+        return None
+    kind, _, mode, clip = m.groups()
+    modes = bv.MODES if kind == "fwd" else bv.BWD_MODES
+    return (f"K{1 if kind == 'fwd' else 2} {modes[int(mode)]}"
+            + (" clip_rect" if clip == "true" else ""))
+
+
+def blender_phase(p, tmp, dev):
+    """The geometry CLI on a NeRF-synthetic scene with --eval, a report at
+    the last iteration and --profile_trace over BLENDER's window: the
+    reader writes its 100k-point cloud, TensorBoard is optional, and the
+    trace holds the card's kernels of the window, as many as the launch
+    counter counted over those iterations."""
+    import torch
+    from instascene_tpu_torch import train
+    from instascene_tpu_torch.data.ply import read_ply
+    from instascene_tpu_torch.utils import profiling
+    root = os.path.join(tmp, "nerf_synthetic", "orbit")
+    t0 = time.perf_counter()
+    write_blender_scene(p, blender_cameras(), root, dev)
+    t1 = time.perf_counter()
+    trace_dir, out = os.path.join(tmp, "trace"), os.path.join(tmp, "bl_out")
+    start, end = BLENDER["window"]
+    orig, marks = profiling.TraceWindow.tick, {}
+
+    def tick(self, it):
+        if it == self.start:
+            marks["start"] = counts()
+        orig(self, it)
+        if it == self.end:
+            marks["end"] = counts()
+
+    profiling.TraceWindow.tick = tick
+    reset_counts()
+    try:
+        tr = train.main(["-s", root, "-m", out, "--eval", "--iterations",
+                         str(BLENDER["iters"]), "--test_iterations",
+                         str(BLENDER["iters"]), "--profile_trace", trace_dir,
+                         "--profile_window", str(start), str(end),
+                         "--disable_viewer", "--quiet", "--device", DEVICE])
+        torch.cuda.synchronize()
+    finally:
+        profiling.TraceWindow.tick = orig
+    launches = counts()
+    t2 = time.perf_counter()
+    n_cloud = len(read_ply(os.path.join(root, "points3d.ply"))["vertex"])
+    report = tr.reports[BLENDER["iters"]]
+    tb_files = [f for f in os.listdir(out) if f.startswith("events.out")]
+    print(f"[blender] scene written in {t1 - t0:.1f} s ({BLENDER['train']} "
+          f"train + {BLENDER['test']} test RGBA views at "
+          f"{BLENDER['width']}x{BLENDER['height']}); train.main "
+          f"{BLENDER['iters']} iterations in {t2 - t1:.1f} s host wall; "
+          f"cloud {n_cloud} points; report: " + ", ".join(
+              f"{k} PSNR {v['psnr']:.3f}" for k, v in report.items())
+          + f"; TensorBoard event files {len(tb_files)}; launches {launches}",
+          flush=True)
+    check(n_cloud == 100_000, f"the reader wrote {n_cloud} points, not 100k")
+    check(set(report) == {"test", "train"} and all(
+        np.isfinite(v["psnr"]) for v in report.values()),
+        f"the report at {BLENDER['iters']} is not finite: {report}")
+    check(launches["K1 no_dist"] > 0 and launches["K2 no_dist"] > 0
+          and launches["K1 full"] > 0, "the Blender CLI did not launch K1 "
+          "no_dist, K2 no_dist and K1 full (the report)")
+
+    path = os.path.join(trace_dir, f"trace_{start}_{end}.json")
+    check(os.path.exists(path), f"no trace at {path}")
+    kernels = trace_kernels(path)
+    check(kernels, "the trace holds no device kernel events")
+    traced, names = {}, {}
+    for name, durs in kernels.items():
+        key = launch_key(name)
+        if key is not None:
+            traced.setdefault(key, []).extend(durs)
+            names.setdefault(key, name)
+    window = {k: marks["end"][k] - marks["start"][k] for k in marks["end"]
+              if marks["end"][k] != marks["start"][k]}
+    trace_ms = {k: float(np.median(v)) / 1e3 for k, v in traced.items()}
+    n_events = sum(len(v) for v in kernels.values())
+    print(f"[blender] trace {path}: {n_events} kernel events of "
+          f"{len(kernels)} kernels; the port's by launch key "
+          f"{ {k: len(v) for k, v in traced.items()} }, the counter over "
+          f"iterations {start}-{end - 1} {window}; median device ms "
+          + ", ".join(f"{k} {v:.4f}" for k, v in trace_ms.items())
+          + "; traced names: " + "; ".join(
+              f"{k}: {v[:90]}" for k, v in names.items()), flush=True)
+    for k in ("K1 no_dist", "K2 no_dist", "segment_sum"):
+        check(window.get(k, 0) > 0, f"{k} did not launch in the window")
+    check({k: len(v) for k, v in traced.items()} == window,
+          "the trace's kernels and the launch counter disagree")
+    return {"scene_s": t1 - t0, "cli_s": t2 - t1, "cloud": n_cloud,
+            "psnr": {k: v["psnr"] for k, v in report.items()},
+            "tensorboard_event_files": len(tb_files), "launches": launches,
+            "window_launches": window, "trace_median_ms": trace_ms,
+            "trace_kernel_events": n_events}
+
+
+def eval_scene_phase(colmap_root, sem_root, clusters, tmp):
+    """scripts/eval_scene: the geometry half on the training CLI's COLMAP
+    scene, the semantic half on the semantic CLI's scene with the true
+    clusters as ground truth; each with its own launch counts."""
+    import torch
+    from instascene_tpu_torch.config import (ModelParams, OptimizationParams,
+                                             PipelineParams)
+    from instascene_tpu_torch.data.dataset import Scene
+    from instascene_tpu_torch.pipelines.train import GeometryTrainer
+    from instascene_tpu_torch.scripts import eval_scene
+    args = ModelParams(source_path=colmap_root, model_path=os.path.join(
+        tmp, "initial"), eval=True)
+    tr0 = GeometryTrainer(args, OptimizationParams(), PipelineParams(),
+                          Scene(args), device=DEVICE)
+    psnr0 = tr0.evaluate(split="train")["psnr"]
+    del tr0
+    runs = {}
+    gt = os.path.join(tmp, "gt_instances.npy")
+    np.save(gt, clusters)
+    for half, src, flags in (
+            ("geometry", colmap_root,
+             ["--geometry_iters", str(EVAL_ITERS["geometry"]),
+              "--skip_semantic"]),
+            ("semantic", sem_root,
+             ["--skip_geometry", "--semantic_iters",
+              str(EVAL_ITERS["semantic"]), "--gt_instances", gt])):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = eval_scene.main(["-s", src, "-m", os.path.join(tmp, half),
+                               "--device", DEVICE] + flags)
+        torch.cuda.synchronize()
+        runs[half] = {"results": res, "s": time.perf_counter() - t0,
+                      "launches": counts()}
+        print(f"[eval_scene] {half} half in {runs[half]['s']:.1f} s; "
+              f"launches {runs[half]['launches']}", flush=True)
+    geo, sem = runs["geometry"]["results"], runs["semantic"]["results"]
+    print(f"[eval_scene] train PSNR {psnr0:.3f} before, {geo['train_psnr']}"
+          f" after {EVAL_ITERS['geometry']} iterations", flush=True)
+    check(np.isfinite(geo["train_psnr"]) and geo["train_psnr"] > psnr0,
+          f"eval_scene's train PSNR {geo['train_psnr']} is not above the "
+          f"initial {psnr0}")
+    check(runs["geometry"]["launches"]["K1 no_dist"] > 0,
+          "the geometry half never launched K1 no_dist")
+    check(sem["n_instances"] >= 2 and np.isfinite(sem["instance_miou"]),
+          f"the semantic half: {sem}")
+    for k in ("K1 track", "K1 extras_only", "K2 extras_only"):
+        check(runs["semantic"]["launches"][k] > 0,
+              f"the semantic half never launched {k}")
+    return {"initial_train_psnr": psnr0, **runs}
+
+
+def align_phase(st, tmp, dev):
+    """scripts/align_coords on the 300k, SH-3, 16-channel PLY (its rest-SH
+    coefficients drawn from seed 1 so the rotation moves them): the
+    rotated scene from the rotated camera renders as the original (K1 full
+    at 1080p)."""
+    import torch
+    from instascene_tpu_torch.models.gaussians import (from_numpy, load_ply,
+                                                       save_ply)
+    from instascene_tpu_torch.ops.rasterize import (CameraMats,
+                                                    RasterizeConfig,
+                                                    rasterize)
+    from instascene_tpu_torch.scripts import align_coords
+    from instascene_tpu_torch.utils.sh_rotation import euler_deg_to_rotmat
+    rest = np.random.default_rng(1).normal(
+        0, 0.1, st["features_rest"].shape).astype(np.float32)
+    ply = os.path.join(tmp, "align", "model.ply")
+    save_ply(from_numpy({**st, "features_rest": rest}, "cpu"), ply)
+    t0 = time.perf_counter()
+    out = align_coords.main(["--scene_dir", os.path.dirname(ply),
+                             "--degrees", ",".join(map(str, ALIGN_DEGREES)),
+                             "--ply", ply])
+    t1 = time.perf_counter()
+    R4 = np.eye(4)
+    R4[:3, :3] = euler_deg_to_rotmat(ALIGN_DEGREES)
+    W, H = FULL["width"], FULL["height"]
+    from instascene_tpu_torch.viewer.gui import OrbitCamera
+    cam = OrbitCamera(W, H, r=4.0)
+    cam.orbit(400.0, 60.0)
+    cam = cam.minicam()
+    w2v = np.asarray(cam.w2v, np.float64)
+    proj = np.asarray(cam.full_proj, np.float64) @ np.linalg.inv(w2v)
+
+    def frame(path, w2v_np):
+        p = load_ply(path, seg_feat_dim=16, load_seg_feat=True, device=dev)
+        f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        mats = CameraMats(f(w2v_np), f(proj @ w2v_np),
+                          f(np.linalg.inv(w2v_np)[:3, 3]))
+        with torch.no_grad():
+            return rasterize(p.xyz, p.scaling_activated(),
+                             p.rotation_normalized(),
+                             p.opacity_activated()[:, 0], mats,
+                             torch.zeros(3, device=dev),
+                             RasterizeConfig(W, H), shs=p.features(),
+                             sh_degree=3, alive=p.alive).blend
+
+    reset_counts()
+    a, b = frame(ply, w2v), frame(out["ply"], w2v @ R4.T)
+    torch.cuda.synchronize()
+    launches = counts()
+    errs = {}
+    for k in ("color", "alpha", "final_T", "normal", "depth",
+              "median_depth"):
+        d = (getattr(a, k) - getattr(b, k)).abs()
+        d = d.amax(dim=-1) if d.dim() == 3 else d
+        errs[k] = {"max": float(d.max()), "median": float(d.median()),
+                   "share_over_atol": float((d > ALIGN_ATOL).float().mean())}
+    ncm = float((a.n_contrib != b.n_contrib).float().mean())
+    ncd = int((a.n_contrib - b.n_contrib).abs().max())
+    print(f"[align] align_coords.main in {t1 - t0:.2f} s; {W}x{H} K1 full "
+          f"(launches {launches['K1 full']}) original vs rotated: "
+          + "; ".join(f"{k} max {v['max']:.3g}, median {v['median']:.3g}, "
+                      f"share over {ALIGN_ATOL:g} {v['share_over_atol']:.3g}"
+                      for k, v in errs.items())
+          + f"; n_contrib mismatch share {ncm:.3g}, largest difference "
+          f"{ncd}", flush=True)
+    check(float(a.alpha.mean()) > 0.05, "the aligned view is empty")
+    for k in ("color", "alpha"):
+        check(errs[k]["share_over_atol"] <= ALIGN_SHARE,
+              f"align: {k} moves by more than {ALIGN_ATOL} on "
+              f"{errs[k]['share_over_atol']} of the pixels")
+    check(ncm <= ALIGN_NCONTRIB_SHARE, f"align: n_contrib differs on {ncm} "
+          "of the pixels")
+    check(launches["K1 full"] == 2, f"align: K1 full launched "
+          f"{launches['K1 full']} times, not 2")
+    return {"script_s": t1 - t0, "errors": errs, "n_contrib_mismatch": ncm,
+            "n_contrib_largest_difference": ncd, "launches": launches}
+
+
+def video_phase(p, make_cam, dev):
+    """render_video's frames (viewer/render_paths.video_frame) along an
+    ellipse path at 1080p, each bit for bit render()'s for its camera. The
+    path is built as the reference's render script builds it: the training
+    cameras' axes turned to OpenGL's, the ellipse, and its frames turned
+    back to COLMAP's (path_to_minicams takes COLMAP camera-to-world)."""
+    import torch
+    from instascene_tpu_torch.config import PipelineParams
+    from instascene_tpu_torch.render import render
+    from instascene_tpu_torch.viewer.render_paths import (
+        generate_ellipse_path, path_to_minicams, video_frame)
+    W, H = FULL["width"], FULL["height"]
+    gl = np.diag([1.0, -1.0, -1.0])
+    poses = np.stack([np.linalg.inv(np.asarray(make_cam(i, W, H).w2v,
+                                               np.float64))[:3]
+                      for i in range(16)])
+    poses[:, :, :3] = poses[:, :, :3] @ gl
+    path = generate_ellipse_path(poses, n_frames=VIDEO_FRAMES)
+    path[:, :, :3] = path[:, :, :3] @ gl
+    cams = path_to_minicams(path, W, H, 1.2, 0.95)
+    pipe = PipelineParams()
+    reset_counts()
+    t0 = time.perf_counter()
+    frames = [video_frame(p, pipe, c) for c in cams]
+    t1 = time.perf_counter()
+    launches = counts()
+    cover = []
+    for c, fr in zip(cams, frames):
+        with torch.no_grad():
+            want = render(c, p, pipe, torch.zeros(3, device=dev))["render"]
+        want = (np.clip(want.cpu().numpy(), 0, 1) * 255).astype(np.uint8)
+        check(fr.shape == (H, W, 3) and np.array_equal(fr, want),
+              "a video frame differs from render()'s")
+        cover.append(float((fr.max(axis=-1) > 0).mean()))
+    print(f"[video] {VIDEO_FRAMES} ellipse-path frames at {W}x{H} in "
+          f"{t1 - t0:.2f} s host wall (D2H included), bit for bit "
+          f"render()'s; non-black share per frame "
+          + ", ".join(f"{c:.3f}" for c in cover)
+          + f"; launches {launches}", flush=True)
+    check(min(cover) > 0.05, "a video frame is nearly empty")
+    check(launches["K1 full"] == VIDEO_FRAMES,
+          f"the frames launched K1 full {launches['K1 full']} times")
+    return {"s": t1 - t0, "cover": cover, "launches": launches}
+
+
+def masks_phase(sem_root, tmp):
+    """scripts/generate_masks --from_dir: the semantic scene's sam/mask
+    maps, given as npy, written back as 16-bit PNGs that decode to the
+    same labels."""
+    from instascene_tpu_torch.scripts import generate_masks
+    from instascene_tpu_torch.utils.image import read_image
+    src, scene = os.path.join(tmp, "mask_npy"), os.path.join(tmp, "masks")
+    os.makedirs(src)
+    os.makedirs(os.path.join(scene, "images"))
+    labels = {}
+    mask_dir = os.path.join(sem_root, "sam", "mask")
+    for name in sorted(os.listdir(mask_dir)):
+        base = name.split(".")[0]
+        labels[base] = read_image(os.path.join(mask_dir, name))[..., 0]
+        np.save(os.path.join(src, base + ".npy"), labels[base])
+        open(os.path.join(scene, "images", name), "wb").close()
+    t0 = time.perf_counter()
+    out = generate_masks.main(["-s", scene, "--from_dir", src])
+    t1 = time.perf_counter()
+    for base, lab in labels.items():
+        got = read_image(os.path.join(out, base + ".png"))
+        check(got.dtype == np.uint16 and np.array_equal(got[..., 0], lab),
+              f"generate_masks: {base}.png does not decode to its labels")
+    print(f"[masks] {len(labels)} label maps converted in {t1 - t0:.2f} s, "
+          f"each bit for bit", flush=True)
+    return {"maps": len(labels), "s": t1 - t0}
+
+
+def residue_phase(st, make_cam, colmap_root, sem_root, dev):
+    """Slice 11's paths on the card, each with its own launch counts: the
+    native COLMAP library, the Blender CLI with its profile trace,
+    eval_scene, align_coords, the video frames and generate_masks."""
+    import torch
+    from instascene_tpu_torch.models.gaussians import from_numpy
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_residue_")
+    secs = {}
+    try:
+        t = time.perf_counter()
+        nat = native_check(colmap_root)
+        secs["native"] = time.perf_counter() - t
+        p = from_numpy(st, dev)
+        t = time.perf_counter()
+        bl = blender_phase(p, tmp, dev)
+        secs["blender CLI"] = time.perf_counter() - t
+        t = time.perf_counter()
+        ev = eval_scene_phase(colmap_root, sem_root, make_cam.clusters, tmp)
+        secs["eval_scene"] = time.perf_counter() - t
+        t = time.perf_counter()
+        al = align_phase(st, tmp, dev)
+        secs["align_coords"] = time.perf_counter() - t
+        t = time.perf_counter()
+        vid = video_phase(p, make_cam, dev)
+        secs["video frames"] = time.perf_counter() - t
+        t = time.perf_counter()
+        mk = masks_phase(sem_root, tmp)
+        secs["generate_masks"] = time.perf_counter() - t
+        del p
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res = {"seconds": secs, "native": nat, "blender": bl, "eval_scene": ev,
+           "align": al, "video": vid, "masks": mk}
+    print(json.dumps({"residue_phase": res}, default=float), flush=True)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3192,6 +3663,10 @@ def main() -> int:
         t_phase = time.perf_counter()
         net = network_phase(cli["trainer"])
         phase_s["network viewer"] = time.perf_counter() - t_phase
+        # the COLMAP scene stays for phase 7c (native reader, eval_scene)
+        colmap_keep = tempfile.mkdtemp(prefix="chip_smoke_colmap_")
+        colmap_root = shutil.copytree(
+            cli["root"], os.path.join(colmap_keep, "data", "orbit", "scene"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     del cli
@@ -3245,13 +3720,19 @@ def main() -> int:
         cli_merged = semantic_cli_variant(
             sem_cli["root"], os.path.join(tmp, "out_merged"), "merged",
             ["--mv_merged", "1"], ("K1 tiles_per_view", "K2 tiles_per_view"))
+        phase_s["semantic CLI (4 runs)"] = (time.perf_counter() - t_phase
+                                            - phase_s["COLMAP camera and "
+                                                      "render_views"])
+        # ---- 7c. slice 11's host residue on the two CLIs' scenes
+        t_phase = time.perf_counter()
+        residue = residue_phase(st, make_cam, colmap_root, sem_cli["root"],
+                                dev)
+        phase_s["host residue"] = time.perf_counter() - t_phase
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(colmap_keep, ignore_errors=True)
     sem_counts = sem_cli["counts"]
     del sem_cli["seg"]
-    phase_s["semantic CLI (4 runs)"] = (time.perf_counter() - t_phase
-                                        - phase_s["COLMAP camera and "
-                                                  "render_views"])
 
     # ---- 8. the padded and cached-superset paths at full width
     t_phase = time.perf_counter()
@@ -3288,16 +3769,32 @@ def main() -> int:
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": None}
 
+    def traced(entry, key):
+        # the Blender CLI's profile trace: median device ms of the key's
+        # launches in its window (800x800, another frame than `ms`'s)
+        return dict(entry, trace_median_ms_blender=trace_ms.get(key),
+                    launches_by_path=no_dist_paths[key])
+
     where_1080 = f"E=16, {FULL['width']}x{FULL['height']}"
     mesh_k1 = sum(r["k1_full_launches"] for r in mesh["runs"].values())
     sg = k2_train["no_dist"]["segment_sum"]
     viewer_paths = {"serving": serve["K1 viewer"],
                     "editing": edit["launches"]["K1 viewer"],
                     "render_views": views["launches"]["K1 viewer"]}
+    bl, ev = residue["blender"], residue["eval_scene"]
     full_paths = {"serving": serve["K1 full"],
                   "training": train_counts["K1 full"],
                   "mesh_export": mesh_k1,
-                  "network_viewer": net["launches"]["K1 full"]}
+                  "network_viewer": net["launches"]["K1 full"],
+                  "blender_cli": bl["launches"]["K1 full"],
+                  "eval_scene": ev["geometry"]["launches"]["K1 full"],
+                  "align_coords": residue["align"]["launches"]["K1 full"],
+                  "video_frames": residue["video"]["launches"]["K1 full"]}
+    no_dist_paths = {
+        k: {"training": train_counts[k], "blender_cli": bl["launches"][k],
+            "eval_scene": ev["geometry"]["launches"][k]}
+        for k in ("K1 no_dist", "K2 no_dist", "segment_sum")}
+    trace_ms = bl["trace_median_ms"]
     kernels = [
         dict(k1_entry("viewer", full[(16, "viewer")], where_1080,
                       sum(viewer_paths.values())), max_abs_err=full_err,
@@ -3306,17 +3803,21 @@ def main() -> int:
                       sum(full_paths.values())),
              max_abs_err=full_err, launches_mesh_export=mesh_k1,
              launches_by_path=full_paths),
-        k1_entry("no_dist", k1_train, frame, train_counts["K1 no_dist"]),
-        k2_entry("no_dist"), k2_entry("full"),
-        {"name": "segment_sum", "route": "cuda",
-         "source": "instascene_tpu_torch/csrc/blend_bwd.cu",
-         "replaces": "instascene_tpu/ops/blend_visits.py:729",
-         "mode": f"d_flat of K2 no_dist, {frame}",
-         "launches": train_counts["segment_sum"],
-         "max_abs_err": sg["max_abs_err"], "ms": sg["ms"],
-         "plain_ms": sg["plain_ms"], "bound_ms": sg["bound_ms"],
-         "bound_by": sg["bound_by"], "library_ms": sg["library_ms"],
-         "longest_run": k2_train["no_dist"]["longest_run"]}]
+        traced(k1_entry("no_dist", k1_train, frame, sum(
+            no_dist_paths["K1 no_dist"].values())), "K1 no_dist"),
+        traced(dict(k2_entry("no_dist"), launches=sum(
+            no_dist_paths["K2 no_dist"].values())), "K2 no_dist"),
+        k2_entry("full"),
+        traced({"name": "segment_sum", "route": "cuda",
+                "source": "instascene_tpu_torch/csrc/blend_bwd.cu",
+                "replaces": "instascene_tpu/ops/blend_visits.py:729",
+                "mode": f"d_flat of K2 no_dist, {frame}",
+                "launches": sum(no_dist_paths["segment_sum"].values()),
+                "max_abs_err": sg["max_abs_err"], "ms": sg["ms"],
+                "plain_ms": sg["plain_ms"], "bound_ms": sg["bound_ms"],
+                "bound_by": sg["bound_by"], "library_ms": sg["library_ms"],
+                "longest_run": k2_train["no_dist"]["longest_run"]},
+               "segment_sum")]
     sframe = (f"{SEM['width']}x{SEM['height']}, {len(st['xyz'])} gaussians, "
               f"E=16")
     x0, xp = sem_k["done0"], sem_k["plain"]
@@ -3470,7 +3971,8 @@ def main() -> int:
             tag: {k: r[k] for k in ("training", "hdbscan export")}
             for tag, r in (("tiles+sparse", cli_tiles),
                            ("tiles+sparse, reference batch", cli_ref),
-                           ("merged", cli_merged))}}), flush=True)
+                           ("merged", cli_merged))},
+        "host_residue_s": residue["seconds"]}, default=float), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

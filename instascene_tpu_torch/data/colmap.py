@@ -1,10 +1,11 @@
 """COLMAP sparse-reconstruction readers and writers (binary and text).
 
 Port of instascene_tpu/data/colmap.py:35-241: the same camera model table,
-records and readers, pure numpy. points3D.bin is walked once for its
-variable-length tracks and then read as one structured array; the binary
-writers emit the same bytes as the JAX package's. The optional native C++
-points3D walker (native/colmap_io.cpp) is not ported.
+records and readers, numpy. points3D.bin goes through the native C++
+walker (native/colmap_io.cpp via data/native.py) when it builds; otherwise
+it is walked once in Python for its variable-length tracks and then read
+as one structured array. The binary writers emit the same bytes as the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -122,9 +123,20 @@ def read_images_binary(path: str) -> Dict[int, ColmapImage]:
 
 
 def read_points3D_binary(path: str):
-    """Returns (xyz [N,3] f64, rgb [N,3] u8, errors [N,1] f64)."""
+    """Returns (xyz [N,3] f64, rgb [N,3] u8, errors [N,1] f64). The
+    records are variable-length (each carries its track), so the walk is
+    sequential: native/colmap_io.cpp does it when it builds
+    (data/native.py), parse_points3D otherwise."""
     with open(path, "rb") as f:
         data = f.read()
+    from .native import points3d_parse_native
+    parsed = points3d_parse_native(data)
+    return parsed if parsed is not None else parse_points3D(data)
+
+
+def parse_points3D(data: bytes):
+    """A points3D.bin buffer parsed in Python: one walk over the records'
+    track lengths, then one structured read."""
     (num,) = struct.unpack_from("<Q", data, 0)
     offsets = np.empty(num, np.int64)
     pos = 8

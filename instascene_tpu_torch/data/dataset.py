@@ -1,22 +1,24 @@
-"""Scene readers: COLMAP, and the Scene that assembles cameras, the initial
-point cloud and the output directory.
+"""Scene readers: COLMAP and Blender (NeRF-synthetic), and the Scene that
+assembles cameras, the initial point cloud and the output directory.
 
-Port of instascene_tpu/data/dataset.py:24-115 (`CameraInfo`,
-`BasicPointCloud`, `SceneInfo`, `get_nerfpp_norm`, `read_colmap_scene`
-with the llffhold-8 eval split) and :165-204 (`Scene`, with the same
-model_path layout output/<parent>/<scene>/<model_path>). The Blender
-(NeRF-synthetic) reader is not ported yet: such a scene raises.
+Port of instascene_tpu/data/dataset.py (`CameraInfo`, `BasicPointCloud`,
+`SceneInfo`, `get_nerfpp_norm`, `read_colmap_scene` with the llffhold-8
+eval split, `read_blender_scene`, and `Scene` with the same model_path
+layout output/<parent>/<scene>/<model_path>, COLMAP first).
 """
 
 from __future__ import annotations
 
+import json
 import os
 from dataclasses import dataclass
+from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
 
-from ..cameras import Camera, focal2fov, get_world2view, load_camera
+from ..cameras import (Camera, focal2fov, fov2focal, get_world2view,
+                       load_camera)
 from .colmap import (load_sparse_model, qvec2rotmat, read_points3D_binary,
                      read_points3D_text)
 from .ply import read_point_cloud, write_point_cloud
@@ -119,9 +121,58 @@ def read_colmap_scene(path: str, images: Optional[str], eval_split: bool,
                      ply_path=ply_path)
 
 
+def read_blender_scene(path: str, white_background: bool, eval_split: bool,
+                       extension: str = ".png") -> SceneInfo:
+    """transforms_{train,test}.json (reference dataset_readers.py:193-271):
+    OpenGL camera-to-world matrices turned to COLMAP axes, each image's
+    size from its file, FovY from camera_angle_x. Without eval_split the
+    test frames join the training ones. Without points3d.ply, 100,000
+    random points in [-1.3, 1.3]³ (numpy default_rng(0)) are written
+    there first. As in the JAX package, white_background is not applied
+    here and RGBA images keep their alpha band (load_camera)."""
+    from ..utils.image import image_size
+
+    def read_transforms(fname):
+        cam_infos = []
+        with open(os.path.join(path, fname)) as f:
+            contents = json.load(f)
+        fovx = contents["camera_angle_x"]
+        for idx, frame in enumerate(contents["frames"]):
+            image_path = os.path.join(path, frame["file_path"] + extension)
+            c2w = np.array(frame["transform_matrix"])
+            c2w[:3, 1:3] *= -1  # OpenGL → COLMAP axes
+            w2c = np.linalg.inv(c2w)
+            w, h = image_size(image_path)
+            cam_infos.append(CameraInfo(
+                uid=idx, R=np.transpose(w2c[:3, :3]), T=w2c[:3, 3],
+                FovY=focal2fov(fov2focal(fovx, w), h), FovX=fovx,
+                image_path=image_path, image_name=Path(image_path).stem,
+                width=w, height=h))
+        return cam_infos
+
+    train = read_transforms("transforms_train.json")
+    test = (read_transforms("transforms_test.json")
+            if os.path.exists(os.path.join(path, "transforms_test.json"))
+            else [])
+    if not eval_split:
+        train, test = train + test, []
+
+    ply_path = os.path.join(path, "points3d.ply")
+    if not os.path.exists(ply_path):
+        rng = np.random.default_rng(0)
+        xyz = rng.random((100_000, 3)) * 2.6 - 1.3
+        write_point_cloud(ply_path, xyz, rng.random((100_000, 3)))
+    pts, colors, normals = read_point_cloud(ply_path)
+    return SceneInfo(point_cloud=BasicPointCloud(pts, colors, normals),
+                     train_cameras=train, test_cameras=test,
+                     nerf_normalization=get_nerfpp_norm(train),
+                     ply_path=ply_path)
+
+
 class Scene:
-    """Cameras + initial point cloud + model output dir for a COLMAP scene
-    (the model_path layout output/<parent>/<scene>/<model_path>)."""
+    """Cameras + initial point cloud + model output dir for a COLMAP or a
+    Blender scene (the model_path layout
+    output/<parent>/<scene>/<model_path>)."""
 
     def __init__(self, args, load_images: bool = True,
                  resolution_scales=(1.0,), output_root: str = "output"):
@@ -132,9 +183,8 @@ class Scene:
         if os.path.exists(os.path.join(sp, "sparse")):
             self.scene_info = read_colmap_scene(sp, args.images, args.eval)
         elif os.path.exists(os.path.join(sp, "transforms_train.json")):
-            raise NotImplementedError(
-                "Blender (NeRF-synthetic) scenes are not ported yet (ROADMAP "
-                "A1); convert the scene to COLMAP or use the JAX package")
+            self.scene_info = read_blender_scene(sp, args.white_background,
+                                                 args.eval)
         else:
             raise ValueError(f"Could not recognize scene type at {sp}")
 

@@ -1,7 +1,8 @@
-"""Training losses: L1, SSIM, PSNR, the photometric loss.
+"""Training losses: L1, L2, cosine, SSIM, PSNR, the photometric loss and
+edge-aware smoothness.
 
-Port of instascene_tpu/losses.py:16-103 (`l1_loss`, `ssim`, `psnr`,
-`photometric_loss`): SSIM with an 11×11 gaussian window (σ 1.5),
+Port of instascene_tpu/losses.py:16-115 (`l1_loss`, `l2_loss`, `cos_loss`,
+`ssim`, `psnr`, `photometric_loss`, `smooth_loss`): SSIM with an 11×11 gaussian window (σ 1.5),
 C1 = 0.01², C2 = 0.03², zero-padded SAME blurs, as the reference's
 F.conv2d. Here the separable blur is two depthwise convolutions, run
 without TF32 (cuDNN's default would round the inputs to ~3 digits).
@@ -19,6 +20,16 @@ import torch.nn.functional as F
 
 def l1_loss(pred, gt):
     return torch.mean(torch.abs(pred - gt))
+
+
+def l2_loss(pred, gt):
+    return torch.mean((pred - gt) ** 2)
+
+
+def cos_loss(pred, gt):
+    """1 − the per-pixel dot product over the last (channel) axis,
+    averaged."""
+    return torch.mean(1.0 - torch.sum(pred * gt, dim=-1))
 
 
 @functools.lru_cache()
@@ -72,3 +83,15 @@ def photometric_loss(image, gt_image, lambda_dssim: float):
     ll1 = l1_loss(image, gt_image)
     return ((1.0 - lambda_dssim) * ll1
             + lambda_dssim * (1.0 - ssim(image, gt_image)), ll1)
+
+
+def smooth_loss(disp, img):
+    """Edge-aware disparity smoothness (reference loss_utils.py:35-42).
+    disp [H,W,1] or [H,W]; img [H,W,3] channels-last."""
+    d = disp[..., 0] if disp.dim() == 3 else disp
+    gdx = torch.abs(d[1:-1, :-2] + d[1:-1, 2:] - 2 * d[1:-1, 1:-1])
+    gdy = torch.abs(d[:-2, 1:-1] + d[2:, 1:-1] - 2 * d[1:-1, 1:-1])
+    gix = torch.mean(torch.abs(img[1:-1, :-2] - img[1:-1, 2:]), dim=-1) * 0.5
+    giy = torch.mean(torch.abs(img[:-2, 1:-1] - img[2:, 1:-1]), dim=-1) * 0.5
+    return (torch.mean(gdx * torch.exp(-gix))
+            + torch.mean(gdy * torch.exp(-giy)))

@@ -1,8 +1,10 @@
 """Spherical harmonics evaluation, degrees 0-3.
 
-Port of instascene_tpu/ops/sh.py:14-80 (`RGB2SH`, `num_sh_coeffs`,
-`eval_sh`, `sh_to_color`): same constants, same `+0.5, clamp at 0`
-convention.
+Port of instascene_tpu/ops/sh.py:14-103 (`RGB2SH`, `SH2RGB`,
+`num_sh_coeffs`, `eval_sh`, `sh_to_color`, `eval_sh_np`): same constants,
+same `+0.5, clamp at 0` convention. `eval_sh` is arithmetic and slicing
+only, so it serves numpy arrays too (`eval_sh_np`, in float64 for the SH
+rotation blocks).
 """
 
 from __future__ import annotations
@@ -22,13 +24,18 @@ def RGB2SH(rgb):
     return (rgb - 0.5) / C0
 
 
+def SH2RGB(sh):
+    return sh * C0 + 0.5
+
+
 def num_sh_coeffs(degree: int) -> int:
     return (degree + 1) ** 2
 
 
-def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+def eval_sh(deg: int, sh, dirs):
     """sh [..., K, 3] with K >= (deg+1)^2 (extra coefficients ignored);
-    dirs [..., 3] unit view directions. Returns [..., 3] raw SH color."""
+    dirs [..., 3] unit view directions (torch tensors or numpy arrays).
+    Returns [..., 3] raw SH color."""
     result = C0 * sh[..., 0, :]
     if deg > 0:
         x = dirs[..., 0:1]
@@ -56,6 +63,9 @@ def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
                           + C3[5] * z * (xx - yy) * sh[..., 14, :]
                           + C3[6] * x * (xx - 3 * yy) * sh[..., 15, :])
     return result
+
+
+eval_sh_np = eval_sh      # the JAX package's numpy mirror, same expression
 
 
 def sh_to_color(deg: int, sh: torch.Tensor, means3d: torch.Tensor,

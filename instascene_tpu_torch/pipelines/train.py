@@ -5,7 +5,9 @@ Port of instascene_tpu/pipelines/train.py:36-151 (`rays_from_cam`,
 :207-262 and :287-304 (`CameraTensors`, `camera_tensors`,
 `GeometryTrainer` and its `_cfg` rule) and :433-636 (the camera stack,
 `step` with the SH, λ and densification schedules, `evaluate`,
-`training_report`, `save`, `train`).
+`training_report` with its TensorBoard scalars and images, `save`,
+`train`, which also carries the root train.py loop's TensorBoard scalars
+and profile window, train.py:87-136).
 
 One step: render → photometric (L1 + SSIM) + distortion + normal
 consistency (+ the optional mono-normal prior) → gradients by torch
@@ -13,7 +15,7 @@ autograd, whose blend backward is K2, and of the zero t_offset tap →
 densification stats + Adam. The TPU scheduling around the JAX step (pair
 caps and their autotune, the slow-roll watchdog, device scalars) has no
 counterpart: buffers follow each frame's pair total. Camera-batch data
-parallelism (--dp) and TensorBoard logging wait for a later slice.
+parallelism (--dp) waits for a later slice (ROADMAP A.1).
 """
 
 from __future__ import annotations
@@ -300,9 +302,8 @@ class GeometryTrainer:
         return metrics
 
     def _eval(self, ct, obj) -> dict:
-        m = eval_step(self.params, ct, self.bg, self._cfg(obj),
-                      float(self.pipe.depth_ratio))
-        return {"l1": float(m["l1"]), "psnr": float(m["psnr"])}
+        return eval_step(self.params, ct, self.bg, self._cfg(obj),
+                         float(self.pipe.depth_ratio))
 
     def evaluate(self, cameras: Optional[List[int]] = None,
                  split: str = "train") -> dict:
@@ -310,13 +311,18 @@ class GeometryTrainer:
         objs = self.cam_objs if split == "train" else self.test_cam_objs
         idxs = cameras if cameras is not None else range(len(cams))
         res = [self._eval(cams[i], objs[i]) for i in idxs]
-        return {"l1": float(np.mean([r["l1"] for r in res])),
-                "psnr": float(np.mean([r["psnr"] for r in res]))}
+        return {"l1": float(np.mean([float(r["l1"]) for r in res])),
+                "psnr": float(np.mean([float(r["psnr"]) for r in res]))}
 
-    def training_report(self, iteration: int) -> dict:
+    def training_report(self, iteration: int, tb=None,
+                        is_first_test_iter: bool = False,
+                        max_tb_views: int = 5) -> dict:
         """L1/PSNR over all test cameras (the --eval split) and the train
-        cameras [idx % n_train for idx in 5, 10, ..., 25], printed (reference
-        train.py:222-279; its TensorBoard images wait for a later slice)."""
+        cameras [idx % n_train for idx in 5, 10, ..., 25], printed and,
+        with a TensorBoard writer `tb`, logged with image grids of each
+        config's first max_tb_views views (+ the ground truth at the first
+        test iteration) (reference train.py:222-279)."""
+        from ..utils.tb import log_eval_images, log_eval_scalars
         results = {}
         n_train = len(self.cams)
         configs = [("test", self.test_cams, self.test_cam_objs,
@@ -326,11 +332,19 @@ class GeometryTrainer:
         for name, cams, objs, idxs in configs:
             if not idxs or not cams:
                 continue
-            r = [self._eval(cams[i], objs[i]) for i in idxs]
-            res = {"l1": float(np.mean([x["l1"] for x in r])),
-                   "psnr": float(np.mean([x["psnr"] for x in r]))}
+            l1s, psnrs = [], []
+            for k, i in enumerate(idxs):
+                m = self._eval(cams[i], objs[i])
+                l1s.append(float(m["l1"]))
+                psnrs.append(float(m["psnr"]))
+                if tb is not None and k < max_tb_views:
+                    log_eval_images(tb, iteration, name, objs[i].image_name,
+                                    m, with_gt=is_first_test_iter)
+            res = {"l1": float(np.mean(l1s)), "psnr": float(np.mean(psnrs))}
             print(f"\n[ITER {iteration}] Evaluating {name}: "
                   f"L1 {res['l1']:.4f} PSNR {res['psnr']:.2f}", flush=True)
+            log_eval_scalars(tb, iteration, name, res["l1"], res["psnr"],
+                             int(self.params.n_alive()))
             results[name] = res
         return results
 
@@ -353,20 +367,32 @@ class GeometryTrainer:
     def train(self, iterations: Optional[int] = None, test_iterations=(),
               save_iterations=(), log_every: int = 10, first_iter: int = 0,
               checkpoint_iterations=(), progress: bool = True,
-              on_iteration: Optional[Callable[[int], None]] = None):
+              on_iteration: Optional[Callable[[int], None]] = None,
+              tb=None, tracer=None):
         """Run iterations first_iter+1..iterations; `on_iteration(it)` is
-        called at the end of each (the CLI's network viewer)."""
+        called at the end of each (the CLI's network viewer). With a
+        TensorBoard writer `tb`, every 10th step's losses and host time and
+        the reports go to it; a utils/profiling.TraceWindow `tracer` is
+        ticked at the top of each iteration and closed at the end."""
+        from ..utils.tb import log_train_scalars
         from .checkpoint import save_checkpoint
         iterations = iterations or self.opt.iterations
         t_last = time.perf_counter()
         for it in range(first_iter + 1, iterations + 1):
+            if tracer is not None:
+                tracer.tick(it)
+            t_step = time.perf_counter()
             metrics = self.step(it)
+            if tb is not None and it % 10 == 0:
+                log_train_scalars(tb, it, metrics,
+                                  time.perf_counter() - t_step)
             if progress and it % log_every == 0:
                 now = time.perf_counter()
                 self.log(it, metrics, (now - t_last) / log_every)
                 t_last = now
             if it in test_iterations:
-                self.reports[it] = self.training_report(it)
+                self.reports[it] = self.training_report(
+                    it, tb, is_first_test_iter=it == min(test_iterations))
             if it in save_iterations:
                 print(f"\n[ITER {it}] Saving Gaussians", flush=True)
                 self.save(it)
@@ -374,4 +400,6 @@ class GeometryTrainer:
                 save_checkpoint(self, self.scene.model_path, it)
             if on_iteration is not None:
                 on_iteration(it)
+        if tracer is not None:
+            tracer.close()      # also a trace left open mid-window
         return self

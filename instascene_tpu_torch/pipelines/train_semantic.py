@@ -46,7 +46,7 @@ What differs from the JAX package:
     (JAX's lax.cond); the 3D loss draws from its sampler pack, so the
     sparse path needs no visibility mask.
 Camera-batch data parallelism (--dp) waits for a later slice (ROADMAP
-A.5).
+A.1).
 """
 
 from __future__ import annotations
@@ -75,6 +75,7 @@ from ..ops.rasterize import (CameraMats, RasterizeConfig,
 from ..semantic.contrastive import (contrastive_loss, sample_from_ids,
                                     sample_valid_pixels, valid_ids_pack)
 from ..semantic.spatial_track import GausCluster
+from ..utils.profiling import TraceWindow
 from .train import camera_tensors
 
 
@@ -523,7 +524,7 @@ class SegSplatting:
                  dp: int = 0, device=None):
         if dp:
             raise NotImplementedError("--dp (camera-batch data parallelism) "
-                                      "is not ported yet: ROADMAP A12")
+                                      "is not ported yet: ROADMAP A.1")
         self.device = resolve_device(device)
         self.dataset = dataset
         self.opt = opt
@@ -544,6 +545,9 @@ class SegSplatting:
         self.rng = random.Random(0)
         self.generator = torch.Generator(device=self.device).manual_seed(0)
         self.timings = {}          # stage → host seconds
+        # the CLI's --profile_trace dir and [start, end) iterations
+        self.profile_trace = None
+        self.profile_window = (100, 120)
 
     def _load_scene(self):
         from ..data.dataset import Scene
@@ -725,8 +729,10 @@ class SegSplatting:
             return scfg_of[wh]
 
         stack = []
+        tracer = TraceWindow(self.profile_trace, *self.profile_window)
         t0 = time.perf_counter()
         for it in range(1, iterations + 1):
+            tracer.tick(it)
             if not stack:
                 stack = list(range(len(self.cams)))
             ci = stack.pop(self.rng.randint(0, len(stack) - 1))
@@ -751,6 +757,7 @@ class SegSplatting:
                       flush=True)
             if it % save_every == 0 or it == iterations:
                 self.save(it)
+        tracer.close()          # also a trace left open mid-window
         self.last_loss = float(loss)
         self.timings["training"] = time.perf_counter() - t0
         if opt.sparse_px:

@@ -1,15 +1,17 @@
 """2DGS geometry training CLI, flag-compatible with the root train.py:
 
-    python -m instascene_tpu_torch.train -s <colmap scene> [-m out] [--eval]
-        [--device cpu] ...
+    python -m instascene_tpu_torch.train -s <COLMAP or Blender scene>
+        [-m out] [--eval] [--profile_trace DIR] [--device cpu] ...
 
 Port of train.py:18-137. The same flags; `--device` (default CUDA) picks
-where it trains. Not served yet, and refused with the item that brings
-them: --dp and --profile_trace (ROADMAP A12). Without --disable_viewer the
-SIBR network viewer listens on --ip:--port and is served once per
-iteration (viewer/network_gui.py); when the address cannot be bound,
-training goes on without it. TensorBoard logging waits for A12 (losses
-and evaluations are printed).
+where it trains. --dp is refused with the item that brings it (ROADMAP
+A.1). Without --disable_viewer the SIBR network viewer listens on
+--ip:--port and is served once per iteration (viewer/network_gui.py); when
+the address cannot be bound, training goes on without it. Losses and
+evaluations are printed, and logged to TensorBoard in the output folder
+when tensorboard is installed. --profile_trace DIR writes a torch.profiler
+trace of iterations [start, end) of --profile_window to
+DIR/trace_<start>_<end>.json (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -56,10 +58,7 @@ def main(argv=None):
     args = parser().parse_args(argv if argv is not None else sys.argv[1:])
     if args.dp:
         raise NotImplementedError("--dp (camera-batch data parallelism) is "
-                                  "not ported yet: ROADMAP A12")
-    if args.profile_trace:
-        raise NotImplementedError("--profile_trace is not ported yet: "
-                                  "ROADMAP A12")
+                                  "not ported yet: ROADMAP A.1")
     args.save_iterations.append(args.iterations)
     dataset = ModelParams.extract(args)
     opt = OptimizationParams.extract(args)
@@ -70,6 +69,8 @@ def main(argv=None):
 
     from .data.dataset import Scene
     from .pipelines.train import GeometryTrainer
+    from .utils.profiling import TraceWindow
+    from .utils.tb import maybe_summary_writer
 
     scene = Scene(dataset)
     print(f"Output folder: {scene.model_path}", flush=True)
@@ -90,6 +91,7 @@ def main(argv=None):
             gui = NetworkGUI(args.ip, args.port)
         except OSError:
             pass        # the address is taken: train without the viewer
+    tb = maybe_summary_writer(scene.model_path)
     try:
         trainer.train(
             opt.iterations, test_iterations=args.test_iterations,
@@ -97,10 +99,13 @@ def main(argv=None):
             checkpoint_iterations=args.checkpoint_iterations,
             first_iter=first_iter, progress=not args.quiet,
             on_iteration=(lambda it: gui.tick(trainer, pipe, dataset))
-            if gui is not None else None)
+            if gui is not None else None, tb=tb,
+            tracer=TraceWindow(args.profile_trace, *args.profile_window))
     finally:
         if gui is not None:
             gui.close()
+        if tb is not None:
+            tb.close()
     print("\nTraining complete.", flush=True)
     return trainer
 

@@ -13,8 +13,10 @@ output/<parent>/<scene>/<model_path> (or at -m when it is absolute).
 take the root CLI's values: --mv_tile_subsample K (K random tiles per view
 of the every-10th-step window, K3/K4), --mv_merged 1 (the window in one
 merged launch each way) and --sparse_px 1 (only the drawn pixels blend,
-K5/K6). Refused with the item that brings them: --dp and --profile_trace
-(ROADMAP A12).
+K5/K6). --profile_trace DIR writes a torch.profiler trace of contrastive
+iterations [start, end) of --profile_window to DIR/trace_<start>_<end>.json
+(utils/profiling.py). --dp is refused with the item that brings it
+(ROADMAP A.1).
 """
 
 from __future__ import annotations
@@ -43,15 +45,15 @@ def main(argv=None):
     """Priors, contrastive training and the export; returns the
     SegSplatting."""
     args = parser().parse_args(argv if argv is not None else sys.argv[1:])
-    if args.profile_trace:
-        raise NotImplementedError("--profile_trace is not ported yet: "
-                                  "ROADMAP A12")
     from .pipelines.train_semantic import SegSplatting
 
     segsplat = SegSplatting(ModelParams.extract(args),
                             OptimizationParams.extract(args),
                             PipelineParams.extract(args),
                             dp=args.dp, device=args.device)
+    if args.profile_trace:
+        segsplat.profile_trace = args.profile_trace
+        segsplat.profile_window = tuple(args.profile_window)
     segsplat.robust_semantic_priors()
     segsplat.train_segfeat()
     print("\nTraining complete.", flush=True)

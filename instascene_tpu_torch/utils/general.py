@@ -1,11 +1,14 @@
 """General helpers: the logit, the exponential learning-rate schedule,
-quaternion rotations.
+quaternion rotations, a step timer.
 
-Port of instascene_tpu/utils/general.py:16-77 (`inverse_sigmoid`,
-`get_expon_lr_func`, `build_rotation`).
+Port of instascene_tpu/utils/general.py:16-77 and :102-117
+(`inverse_sigmoid`, `get_expon_lr_func`, `build_rotation_np`,
+`build_rotation`, `StepTimer`).
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -36,6 +39,25 @@ def get_expon_lr_func(lr_init, lr_final, lr_delay_steps=0, lr_delay_mult=1.0,
     return helper
 
 
+def build_rotation_np(q: np.ndarray) -> np.ndarray:
+    """[N, 4] quaternions (w, x, y, z), normalized first → [N, 3, 3] in
+    q's dtype (numpy)."""
+    norm = np.sqrt((q * q).sum(axis=-1, keepdims=True))
+    q = q / np.maximum(norm, 1e-12)
+    r, x, y, z = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
+    R = np.zeros((q.shape[0], 3, 3), dtype=q.dtype)
+    R[:, 0, 0] = 1 - 2 * (y * y + z * z)
+    R[:, 0, 1] = 2 * (x * y - r * z)
+    R[:, 0, 2] = 2 * (x * z + r * y)
+    R[:, 1, 0] = 2 * (x * y + r * z)
+    R[:, 1, 1] = 1 - 2 * (x * x + z * z)
+    R[:, 1, 2] = 2 * (y * z - r * x)
+    R[:, 2, 0] = 2 * (x * z - r * y)
+    R[:, 2, 1] = 2 * (y * z + r * x)
+    R[:, 2, 2] = 1 - 2 * (x * x + y * y)
+    return R
+
+
 def build_rotation(q: torch.Tensor) -> torch.Tensor:
     """[..., 4] quaternion (w, x, y, z), normalized first → [..., 3, 3]."""
     q = q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True),
@@ -47,3 +69,21 @@ def build_rotation(q: torch.Tensor) -> torch.Tensor:
         2 * (x * z - r * y), 2 * (y * z + r * x), 1 - 2 * (x * x + y * y),
     ], dim=-1)
     return R.reshape(q.shape[:-1] + (3, 3))
+
+
+class StepTimer:
+    """Wall-clock step timer with an exponential moving average."""
+
+    def __init__(self, alpha=0.1):
+        self.alpha = alpha
+        self.ema = None
+        self._t0 = None
+
+    def start(self):
+        self._t0 = time.perf_counter()
+
+    def stop(self) -> float:
+        dt = time.perf_counter() - self._t0
+        self.ema = dt if self.ema is None else (
+            self.alpha * dt + (1 - self.alpha) * self.ema)
+        return dt

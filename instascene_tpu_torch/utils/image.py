@@ -1,5 +1,5 @@
-"""Image files: PNG encode/decode with the standard library, and image
-loading as float arrays.
+"""Image files: PNG encode/decode with the standard library, image
+loading as float arrays, and the viewer's colour maps.
 
 The JAX package reads and writes images with PIL (utils/general.py:85-99
 `pil_to_array`, semantic_gui.py:86-96). This port encodes and decodes PNG
@@ -8,6 +8,10 @@ filter type (0-4), 8-bit gray, gray+alpha, RGB and RGBA, and 16-bit gray
 (instance label maps, as PIL writes a uint16 array), no interlace. Other
 formats, palette PNGs, and any resize go through PIL when it is importable,
 and otherwise raise naming the file.
+
+`colormap`, `render_net_image` and `mask_to_rgb` port
+instascene_tpu/utils/image.py:11-50 with the tables of utils/colormaps.py in
+place of matplotlib.
 """
 
 from __future__ import annotations
@@ -165,6 +169,17 @@ def read_image(path: str) -> np.ndarray:
     return arr[..., None] if arr.ndim == 2 else arr
 
 
+def image_size(path: str):
+    """(width, height) of an image file: a PNG's from its header, anything
+    else through PIL."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] == _SIG and head[12:16] == b"IHDR":
+        return struct.unpack(">II", head[16:24])
+    arr = read_image(path)
+    return arr.shape[1], arr.shape[0]
+
+
 def load_image(path: str, resolution=None, resize_nearest: bool = False,
                scale: bool = True) -> np.ndarray:
     """Image file → float32 [H, W, C] in [0, 1] (raw values when
@@ -186,3 +201,55 @@ def load_image(path: str, resolution=None, resize_nearest: bool = False,
         arr = np.array(im)
         arr = arr[..., None] if arr.ndim == 2 else arr
     return arr.astype(np.float32) / 255.0 if scale else arr
+
+
+def colormap(img) -> np.ndarray:
+    """[H,W] → [H,W,3] float32 through turbo, clipped to [0, 1] first."""
+    from .colormaps import TURBO, lookup
+    x = np.clip(np.asarray(img, np.float32), 0, 1)
+    return lookup(TURBO, x).astype(np.float32)
+
+
+def as_numpy(x) -> np.ndarray:
+    """A tensor (on any device) or an array-like as a numpy array."""
+    return (x.detach().cpu().numpy() if hasattr(x, "detach")
+            else np.asarray(x))
+
+
+def render_net_image(render_pkg: dict, render_items, render_mode, camera
+                     ) -> np.ndarray:
+    """The viewer's output map (reference image_utils.py:47-75): render
+    (default), alpha, normal, depth or edge/curvature (turbo), by name or by
+    index into render_items. Returns [H,W,3] float in [0, 1]."""
+    output = render_items[render_mode].lower() if isinstance(
+        render_mode, int) else str(render_mode).lower()
+    if output == "alpha":
+        net = np.repeat(as_numpy(render_pkg["rend_alpha"]), 3, axis=-1)
+    elif output == "normal":
+        net = as_numpy(render_pkg["rend_normal"]) * 0.5 + 0.5
+    elif output == "depth":
+        d = as_numpy(render_pkg["surf_depth"])[..., 0]
+        net = colormap(d / max(float(d.max()), 1e-6))
+    elif output in ("edge", "curvature"):
+        d = as_numpy(render_pkg["surf_depth"])[..., 0]
+        gy, gx = np.gradient(d)
+        mag = np.sqrt(gx ** 2 + gy ** 2)
+        net = colormap(mag / max(float(mag.max()), 1e-6))
+    else:
+        net = as_numpy(render_pkg["render"])
+    return np.clip(net, 0, 1)
+
+
+def mask_to_rgb(mask) -> np.ndarray:
+    """Instance label map → uint8 RGB, hsv resampled to the label count
+    (utils/contrastive_utils.py:119-125), normalized as matplotlib's
+    Normalize(0, max label) does: integer maps of at most 2 bytes in
+    float32, wider ones in float64."""
+    from .colormaps import hsv_lut, lookup
+    mask = np.asarray(mask)
+    num = int(mask.max()) + 1
+    vmax = max(num - 1, 1)
+    x = mask.astype(np.promote_types(mask.dtype, np.float32)
+                    if mask.dtype.kind in "biu" else mask.dtype)
+    x /= (np.float32 if vmax < 2 ** 16 else np.float64)(vmax)
+    return np.uint8(lookup(hsv_lut(max(num, 2)), x) * 255.0)

@@ -1,15 +1,17 @@
-"""Novel-view camera paths (numpy).
+"""Novel-view camera paths (numpy) and video export.
 
-Port of instascene_tpu/viewer/render_paths.py:1-143 (`pad_poses`,
-`unpad_poses`, `view_matrix`, `focus_point_fn`, `transform_poses_pca`,
-`generate_ellipse_path`, `path_to_minicams`): the same numpy arithmetic, so
-the results equal the JAX package's. The mesh extractor's bounding sphere
-uses `focus_point_fn`. `render_video` is not ported: it writes through
-imageio (ROADMAP A.4).
+Port of instascene_tpu/viewer/render_paths.py (`pad_poses`, `unpad_poses`,
+`view_matrix`, `focus_point_fn`, `transform_poses_pca`,
+`generate_ellipse_path`, `path_to_minicams`, `render_video`): the same
+numpy arithmetic, so the results equal the JAX package's. The mesh
+extractor's bounding sphere uses `focus_point_fn`. `render_video` writes
+through imageio, imported where it is called, as in the JAX package;
+`video_frame` is its per-frame work.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List
 
 import numpy as np
@@ -123,3 +125,42 @@ def path_to_minicams(path_c2w: np.ndarray, width: int, height: int,
         cams.append(MiniCam(width, height, fovy, fovx, 0.01, 100.0, w2v=w2v,
                             full_proj=(proj @ w2v).astype(np.float32)))
     return cams
+
+
+def video_frame(gaussians, pipe, cam, bg=(0, 0, 0),
+                mode: str = "render") -> np.ndarray:
+    """One frame of render_video: render() of `cam` as uint8 [H,W,3] —
+    the colour, the surface depth over its maximum, or the normal map."""
+    import torch
+    from ..render import render
+    with torch.no_grad():
+        pkg = render(cam, gaussians, pipe, torch.as_tensor(
+            np.asarray(bg, np.float32), device=gaussians.device))
+    if mode == "render":
+        frame = pkg["render"].cpu().numpy()
+    elif mode == "depth":
+        d = pkg["surf_depth"].cpu().numpy()[..., 0]
+        frame = np.repeat((d / max(d.max(), 1e-6))[..., None], 3, -1)
+    elif mode == "normal":
+        frame = pkg["rend_normal"].cpu().numpy() * 0.5 + 0.5
+    else:
+        raise ValueError(mode)
+    return (np.clip(frame, 0, 1) * 255).astype(np.uint8)
+
+
+def render_video(gaussians, pipe, cams: List[MiniCam], out_path: str,
+                 bg=(0, 0, 0), fps: int = 30, mode: str = "render") -> str:
+    """Render a camera path to a video through imageio (the reference's
+    create_videos): an mp4, or a GIF beside it where imageio has no ffmpeg
+    plugin. Returns the path written."""
+    import imageio
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    try:
+        writer = imageio.get_writer(out_path, fps=fps)
+    except (ValueError, ImportError):
+        out_path = os.path.splitext(out_path)[0] + ".gif"
+        writer = imageio.get_writer(out_path, duration=1000.0 / fps)
+    for cam in cams:
+        writer.append_data(video_frame(gaussians, pipe, cam, bg, mode))
+    writer.close()
+    return out_path

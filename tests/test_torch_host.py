@@ -16,10 +16,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_imports_no_jax():
-    """The port package (every module) imports neither jax nor the JAX
-    package, nor sklearn, networkx or tqdm (the GPU machine has none of
-    them; torch itself may load tqdm here, so only what the port adds
-    counts for those)."""
+    """The port package (every module, the scripts too) imports neither
+    jax nor the JAX package, nor, at import time, sklearn, networkx, tqdm,
+    matplotlib, imageio, tensorboard or PIL (optional: the GPU machine
+    may lack them; torch itself may load some of them, so only what the
+    port adds counts for those)."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import numpy, scipy, torch\n"
@@ -29,7 +30,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', "
         "'instascene_tpu') or (k not in before and k.split('.')[0] in "
-        "('sklearn', 'networkx', 'tqdm'))]\n"
+        "('sklearn', 'networkx', 'tqdm', 'matplotlib', 'imageio', "
+        "'tensorboard', 'PIL'))]\n"
         "assert not bad, bad\n"
         "print('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
