@@ -131,6 +131,26 @@ lines; any failure exits non-zero and prints no result:
    8-frame 1080p ellipse path, each bit for bit render()'s; and
    scripts/generate_masks --from_dir on the semantic scene's masks given
    as npy, each PNG decoding to its labels.
+   Then data parallelism (dp_phase), each path with its own counts: a
+   gloo world of 2 whose ranks share cuda:0 (NCCL refuses two ranks on
+   one GPU; with 2+ cards the same again over NCCL, one rank per card, at
+   most 4): the DP geometry step at 976x728 in both recipes and the DP
+   semantic step (3 steps each, orbit camera r on rank r), each step held
+   against the single-process mean of the cameras' gradients (loss rtol
+   1e-4, parameters 5e-3, stats and the semantic gradient 2e-3 and 3e-3
+   of their largest), the ranks bit for bit equal, K1/K2 in the step's
+   mode and the segment sum launched on every rank; the tile-slab sharded
+   render at 1920x1024, E=16, `full` and `viewer`, against render() of
+   the slabs rendered in one process (bit for bit) and render() of the
+   whole frame (colour and alpha within 1e-4 on all but 2e-3 of the
+   pixels, n_contrib on all but 1.5e-2, as the rotated frame's, for
+   each slab past the first; the features' and the shares over 1e-5,
+   1e-4 and 1e-3 printed);
+   the sharded KNN of the 300k centres (rtol 1e-4); then train.main --dp 1
+   (one NCCL rank) with the training CLI's flags, its iteration-30 PLY
+   byte for byte the CLI's, train_semantic.main --dp 1 on the semantic
+   scene (>= 2 instances, a finite segfeat PLY), and --dp 2 on one card
+   refused with the device count named.
    Each phase prints its seconds;
    Phase 2 also holds, at mid size, K7/K8 over the padded layout (E=16 and
    0; bit for bit K1/K2 `full` on the same binning, d(packed) twice bit for
@@ -325,13 +345,11 @@ def stage_ms(p, cam, width, height):
             "pack": time_ms(lambda: pack(pre), 3)}
 
 
-def time_ms(fn, reps, warm=True):
-    """Median of `reps` CUDA-event timings of fn() (after one warm-up call
-    unless warm=False: the plain versions, whose launches an earlier call
-    already warmed)."""
+def time_ms(fn, reps):
+    """Median of `reps` CUDA-event timings of fn(), after one warm-up
+    call."""
     import torch
-    if warm:
-        fn()
+    fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -365,9 +383,10 @@ def compare_kernel(label, flat, b, grid_x, E, mode, exact, timing=False):
     kw = dict(viewer=mode == "viewer", no_dist=mode == "no_dist")
     out_k, iout_k = blend_fwd(*args, **kw)
     torch.cuda.synchronize()
-    out_r, iout_r, n_eval, n_hit = blend_fwd_reference(
-        *args, count_work=True, **kw)
-    torch.cuda.synchronize()
+    # one call, work counts included: it is both the reference and the
+    # plain version's time
+    (out_r, iout_r, n_eval, n_hit), plain_ms = timed(
+        lambda: blend_fwd_reference(*args, count_work=True, **kw))
     nc_k, nc_r = iout_k[:, 0], iout_r[:, 0]
     agree = nc_k == nc_r
     n_pix = agree.numel()
@@ -399,8 +418,7 @@ def compare_kernel(label, flat, b, grid_x, E, mode, exact, timing=False):
     res = {"max_abs_err": max(e for e, _ in errs.values()), "mism": mism}
     if timing:
         res["ms"] = time_ms(lambda: blend_fwd(*args, **kw), 20)
-        res["plain_ms"] = time_ms(
-            lambda: blend_fwd_reference(*args, **kw), 1)
+        res["plain_ms"] = plain_ms
         res.update(k1_bound(flat, b, E, mode, n_eval, n_hit))
         res.update(walk_stats(b.tile_end - b.tile_start))
     return res
@@ -1528,9 +1546,9 @@ def compare_extras(label, flat, b, grid_x, width, height, n_sampled,
     for tag, mask in (("", None), (" done0", d0)):
         out_k, iout_k = bv.blend_fwd(*args, extras_only=True, done0=mask)
         torch.cuda.synchronize()
-        out_r, iout_r, n_eval, n_hit = bv.blend_fwd_reference(
-            *args, extras_only=True, done0=mask, count_work=True)
-        torch.cuda.synchronize()
+        (out_r, iout_r, n_eval, n_hit), plain_ms = timed(
+            lambda: bv.blend_fwd_reference(*args, extras_only=True,
+                                           done0=mask, count_work=True))
         check(torch.equal(iout_k, iout_r),
               f"{label} extras_only{tag}: iout differs from the plain version")
         eT = float((out_k[:, 9] - out_r[:, 9]).abs().max())
@@ -1562,8 +1580,7 @@ def compare_extras(label, flat, b, grid_x, width, height, n_sampled,
         if timing:
             r["ms"] = time_ms(lambda: bv.blend_fwd(
                 *args, extras_only=True, done0=mask), 20)
-            r["plain_ms"] = time_ms(lambda: bv.blend_fwd_reference(
-                *args, extras_only=True, done0=mask), 1, warm=False)
+            r["plain_ms"] = plain_ms    # one call, work counts included
             r.update(k1_bound(flat, b, E, "extras_only", n_eval, n_hit,
                               extra_bytes=0 if mask is None
                               else mask.numel() * 4))
@@ -1584,9 +1601,8 @@ def compare_track(label, flat, b, grid_x, E, timing=False):
     out, iout, ids, w = bv.blend_fwd(*args, track=True)
     full, ifull = bv.blend_fwd(*args)
     torch.cuda.synchronize()
-    _, _, rids, rw, n_eval, n_hit = bv.blend_fwd_reference(
-        *args, track=True, count_work=True)
-    torch.cuda.synchronize()
+    (_, _, rids, rw, n_eval, n_hit), plain_ms = timed(
+        lambda: bv.blend_fwd_reference(*args, track=True, count_work=True))
     same_ids = bool(torch.equal(ids, rids))
     ew = float((w - rw).abs().max())
     as_full = bool(torch.equal(out, full) and torch.equal(iout, ifull))
@@ -1599,8 +1615,7 @@ def compare_track(label, flat, b, grid_x, E, timing=False):
     res = {"max_abs_err": ew}
     if timing:
         res["ms"] = time_ms(lambda: bv.blend_fwd(*args, track=True), 20)
-        res["plain_ms"] = time_ms(lambda: bv.blend_fwd_reference(
-            *args, track=True), 1, warm=False)
+        res["plain_ms"] = plain_ms      # one call, work counts included
         res.update(k1_bound(flat, b, E, "track", n_eval, n_hit,
                             extra_bytes=ids.numel() * 8))
         res.update(walk_stats(b.tile_end - b.tile_start))
@@ -3509,6 +3524,497 @@ def residue_phase(st, make_cam, colmap_root, sem_root, dev):
     return res
 
 
+# ------------------------------------------------------- data parallelism
+# two (or, over NCCL, one per card) orbit cameras per step at the training
+# size, 3 steps of each DP step; the sharded render at 1920x1024 (1080 rows
+# do not split into whole tile rows over 2 or 4 ranks)
+DP = dict(steps=3, render_width=1920, render_height=1024)
+# against the single-process reference: the CPU tests' tolerances
+# (tests/test_torch_train_step.py, test_torch_semantic_step.py). The
+# sharded frame must be bit for bit the slabs rendered in one process. The
+# slabs against the whole frame take the bounds of align_phase's rotated
+# frame, whose projections are all re-rounded (colour and alpha within 1e-4
+# on all but 2e-3 of the pixels, n_contrib on all but 1.5e-2), once for
+# each slab past the first,
+# since each such boundary re-bins and re-rounds more of the frame (at
+# 300k and 1920x1024 the share over 1e-4 grows from 1.50e-3 at 2 slabs
+# to 2.18e-3 at 4 on the H100): a slab is another frame to the
+# binning (its depth sort key has a bit more, ops/binning.depth_bits_for,
+# and is quantized over the slab's own visible gaussians), so splats of
+# nearly equal depth can blend in another order, and the origin folded
+# into the splat transform re-rounds every projection. The JAX package's
+# slabs do the same: at 20k gaussians of this profile and 512x384 on the
+# CPU, 1.30e-2 of its pixels move by more than 1e-5 (the port's 1.32e-2),
+# 1.2e-4 by more than 1e-4 (the port's too); ROADMAP C.
+# tests/test_parallel.py's 1e-5 holds on its sparse scene
+# (tests/test_torch_parallel.py).
+DP_TOL = {"loss": 1e-4, "params": 5e-3, "stats": 2e-3, "grad": 3e-3,
+          "frame": 1e-4, "frame_share": 2e-3, "n_contrib_share": 1.5e-2,
+          "knn": 1e-4}
+GEOMETRY_FIELDS = ("xyz", "features_dc", "features_rest", "scaling",
+                   "rotation", "opacity")
+
+
+def _launched():
+    """The nonzero launch counts."""
+    return {k: v for k, v in counts().items() if v}
+
+
+def _add(total, more):
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _digest(*tensors):
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _mean_step_grads(sgs):
+    """The single-process reference of a data-parallel geometry step: the
+    mean of the cameras' StepGrads, camera 0's depth, the visibility of any
+    camera, the largest radii and pair count."""
+    import torch
+    from instascene_tpu_torch.pipelines.train import StepGrads
+    mean = lambda xs: sum(xs[1:], xs[0]) / len(xs)
+    aux = {k: mean([s.aux[k].detach() for s in sgs])
+           for k in ("ll1", "dist", "normal")}
+    aux.update(depth=sgs[0].aux["depth"],
+               visible=torch.stack([s.aux["visible"] for s in sgs]).any(0),
+               radii=torch.stack([s.aux["radii"] for s in sgs]).amax(0),
+               total_pairs=max(s.aux["total_pairs"] for s in sgs))
+    return StepGrads(mean([s.loss for s in sgs]),
+                     {f: mean([s.grads[f] for s in sgs])
+                      for f in sgs[0].grads},
+                     mean([s.t_grad for s in sgs]), aux)
+
+
+def _rel(a, b):
+    """max |a − b| over max |b|."""
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def dp_geometry(rank, world, dev, st, make_cam):
+    """DP["steps"] dp_train_step calls in each recipe (the reference
+    defaults, K1/K2 no_dist, then lambda_dist 100 and depth_ratio 0, K1/K2
+    full) at the training size, orbit camera r on rank r; rank 0 holds
+    each step against the mean of every camera's step_gradients through
+    apply_gradients from the same state. Launch counts reset just before
+    each step and read just after."""
+    import torch
+    from instascene_tpu_torch.config import OptimizationParams
+    from instascene_tpu_torch.models import densify as dens
+    from instascene_tpu_torch.models.optimizer import (geometry_lrs,
+                                                       init_adam_state)
+    from instascene_tpu_torch.ops.rasterize import RasterizeConfig
+    from instascene_tpu_torch.parallel.data_parallel import (dp_train_step,
+                                                             state_digest)
+    from instascene_tpu_torch.pipelines.train import (apply_gradients,
+                                                      camera_tensors,
+                                                      step_gradients)
+    W, H = TRAIN["width"], TRAIN["height"]
+    p0 = train_scene(st, dev)
+    cts = [camera_tensors(make_cam(i, W, H), dev) for i in range(world)]
+    gt = torch.as_tensor(np.random.default_rng(2).random(
+        (H, W, 3)).astype(np.float32), device=dev)
+    for ct in cts:
+        ct.gt_image = gt
+    lrs = geometry_lrs(OptimizationParams(), 1.0, 1e-4)
+    bg = torch.zeros(3, device=dev)
+    n = p0.capacity
+    out = {}
+    for recipe, dist in (("no_dist", False), ("full", True)):
+        cfg = RasterizeConfig(W, H, no_depth_dist=not dist)
+        lam = (0.2, 100.0 if dist else 0.0, 0.05, 0.0)
+        ratio = 0.0 if dist else 1.0
+        state = (p0, init_adam_state(p0), dens.init_stats(n, dev))
+        launches, errs, ms, losses = {}, [], [], []
+        for _ in range(DP["steps"]):
+            clock = StageClock()
+            reset_counts()
+            *new, m = dp_train_step(*state, cts[rank], bg, lrs, *lam, cfg,
+                                    ratio, on_stage=clock.mark)
+            torch.cuda.synchronize()
+            _add(launches, _launched())
+            ms.append((clock.ms("start", "adam"),
+                       clock.ms("backward", "reduce")))
+            losses.append(float(m["loss"]))
+            if rank == 0:
+                *ref, rm = apply_gradients(*state, _mean_step_grads(
+                    [step_gradients(state[0], ct, bg, *lam, cfg, ratio)
+                     for ct in cts]), lrs, cfg)
+                acc0 = state[2].xyz_gradient_accum
+                errs.append({
+                    "loss": abs(float(m["loss"]) / float(rm["loss"]) - 1),
+                    "params": max(float((getattr(new[0], f) - getattr(
+                        ref[0], f)).abs().max()) for f in GEOMETRY_FIELDS),
+                    "stats": _rel(new[2].xyz_gradient_accum - acc0,
+                                  ref[2].xyz_gradient_accum - acc0),
+                    "denom_radii_equal": bool(
+                        torch.equal(new[2].denom, ref[2].denom)
+                        and torch.equal(new[2].max_radii2d,
+                                        ref[2].max_radii2d))})
+            state = tuple(new)
+        # the SUM all_reduce: 58 gradient floats + dL/dT (9) + depth per
+        # gaussian + 4 scalars; the MAX: visibility, radii (int64) + 1
+        floats = sum(getattr(p0, f).numel() for f in GEOMETRY_FIELDS)
+        out[recipe] = {
+            "launches": launches, "errs": errs, "losses": losses,
+            "step_ms": float(np.median([a for a, _ in ms])),
+            "reduce_ms": float(np.median([b for _, b in ms])),
+            "reduce_bytes": 4 * (floats + 10 * n + 4) + 8 * (2 * n + 1),
+            "digest": state_digest(*state)}
+    return out
+
+
+def dp_semantic(rank, world, dev, st, make_cam):
+    """DP["steps"] dp_semantic_step calls on bench.py's semantic inputs
+    (976x728, E=16, 32k draws per set), orbit camera r on rank r, every
+    rank drawing every camera's pixels from one generator seeded alike (as
+    the trainer does); rank 0 holds the loss and the mean gradient (read
+    back from Adam's first moment) against the mean of every camera's
+    semantic_gradient on the same draws."""
+    import torch
+    from instascene_tpu_torch.models.optimizer import init_adam_state
+    from instascene_tpu_torch.parallel.data_parallel import (dp_semantic_step,
+                                                             state_digest)
+    from instascene_tpu_torch.pipelines import train_semantic as ts
+    p, cams, hyp, scfg, _ = semantic_inputs(st, make_cam, dev)
+    cams = cams[:world]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = (p, init_adam_state(p))
+    launches, errs, ms, losses = {}, [], [], []
+    for _ in range(DP["steps"]):
+        draws = [ts.draw_step_pixels(gen, c, None, None, scfg.batch, False)
+                 for c in cams]
+        clock = StageClock()
+        reset_counts()
+        p2, o2, loss = dp_semantic_step(*state, cams[rank], hyp, scfg,
+                                        draws=draws[rank],
+                                        on_stage=clock.mark)
+        torch.cuda.synchronize()
+        _add(launches, _launched())
+        ms.append((clock.ms("start", "adam"),
+                   clock.ms("backward", "reduce")))
+        losses.append(float(loss))
+        if rank == 0:
+            refs = [ts.semantic_gradient(state[0], c, None, hyp, scfg,
+                                         draws=d) for c, d in zip(cams,
+                                                                  draws)]
+            g_ref = sum(g for _, g in refs) / world
+            l_ref = sum(float(l) for l, _ in refs) / world
+            m0 = state[1].m["seg_feature"]
+            g_dp = (o2.m["seg_feature"] - 0.9 * m0) / 0.1
+            errs.append({"loss": abs(float(loss) / l_ref - 1),
+                         "grad": _rel(g_dp, g_ref)})
+        state = (p2, o2)
+    return {"launches": launches, "errs": errs, "losses": losses,
+            "step_ms": float(np.median([a for a, _ in ms])),
+            "reduce_ms": float(np.median([b for _, b in ms])),
+            "reduce_bytes": 4 * (p.seg_feature.numel() + 1),
+            "digest": state_digest(state[0])}
+
+
+def dp_render(rank, world, dev, st, make_cam):
+    """sharded_render of camera 0 at DP's render size, E=16, in `full` and
+    `viewer` mode; rank 0 holds the frame bit for bit against the slabs
+    rendered in this process (rasterize with each slab's y_offset), and
+    the slabs against render() of the whole frame: the share of pixels
+    whose colour, alpha or features move by more than 1e-5, 1e-4 and
+    1e-3, and whose n_contrib differs."""
+    import torch
+    from instascene_tpu_torch.config import PipelineParams
+    from instascene_tpu_torch.models.gaussians import from_numpy
+    from instascene_tpu_torch.ops.rasterize import RasterizeConfig, rasterize
+    from instascene_tpu_torch.parallel.render_sharded import sharded_render
+    from instascene_tpu_torch.render import camera_mats, render
+    RW, RH = DP["render_width"], DP["render_height"]
+    p = from_numpy(st, dev)
+    cam = make_cam(0, RW, RH)
+    cm = camera_mats(cam, dev)
+    bg = torch.zeros(3, device=dev)
+    geo = (p.xyz, p.scaling_activated(), p.rotation_normalized(),
+           p.opacity_activated()[:, 0])
+    kw = dict(shs=p.features(), sh_degree=int(p.active_sh_degree),
+              extras=p.seg_feature_normed(), alive=p.alive)
+    h = RH // world
+    out = {}
+    with torch.no_grad():
+        for mode in ("full", "viewer"):
+            viewer = mode == "viewer"
+            sharded_render(*geo, cm, bg, RW, RH, viewer=viewer, **kw)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            frame = sharded_render(*geo, cm, bg, RW, RH, viewer=viewer, **kw)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            r = {"launches": _launched(), "host_ms": wall,
+                 "digest": _digest(*frame)}
+            if rank == 0:
+                slabs = [rasterize(*geo, cm, bg, RasterizeConfig(
+                    RW, h, fwd_viewer=viewer), y_offset=s * h,
+                    full_height=RH, **kw).blend for s in range(world)]
+                cat = lambda k: torch.cat([getattr(b, k) for b in slabs])
+                r["equals_slabs"] = all(torch.equal(a, cat(k)) for a, k in zip(
+                    frame, ("color", "alpha", "extra")))
+                pkg = render(cam, p, PipelineParams(), bg, viewer=viewer)
+                want = (pkg["render"], pkg["rend_alpha"][..., 0],
+                        pkg["seg_feature"])
+                names = ("color", "alpha", "features")
+                d = torch.stack([(a - b).abs().reshape(RH, RW, -1).amax(-1)
+                                 for a, b in zip(frame, want)])
+                r["max_abs_err"] = dict(zip(names, d.amax((1, 2)).tolist()))
+                r["share_over"] = {f"{t:g}": float((d.amax(0) > t).float()
+                                                   .mean())
+                                   for t in (1e-5, 1e-4, 1e-3)}
+                r["share_over_tol"] = dict(zip(names, (
+                    d > DP_TOL["frame"]).float().mean((1, 2)).tolist()))
+                r["n_contrib_share"] = float((cat("n_contrib")
+                                              != pkg["n_contrib"]).float()
+                                             .mean())
+            out[mode] = r
+    return out
+
+
+def dp_knn(rank, world, dev, st):
+    """sharded_mean_dist2_knn3 of the scene's centres; rank 0 holds it
+    against mean_dist2_knn3 at rtol 1e-4."""
+    import torch
+    from instascene_tpu_torch.ops.knn import mean_dist2_knn3
+    from instascene_tpu_torch.parallel.sharding import sharded_mean_dist2_knn3
+    pts = torch.as_tensor(st["xyz"], device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = sharded_mean_dist2_knn3(pts)
+    torch.cuda.synchronize()
+    r = {"host_s": time.perf_counter() - t0, "digest": _digest(got)}
+    if rank == 0:
+        t0 = time.perf_counter()
+        want = mean_dist2_knn3(pts)
+        torch.cuda.synchronize()
+        r["single_s"] = time.perf_counter() - t0
+        r["rtol_excess"] = float(((got - want).abs()
+                                  - DP_TOL["knn"] * want.abs()).max())
+        r["max_rel_err"] = float(((got - want).abs()
+                                  / want.abs().clamp(min=1e-30)).max())
+    return r
+
+
+def dp_rank(rank, world, dev):
+    """One rank of dp_phase's world: the scene made from seed 0, as the
+    parent made it, then the DP geometry and semantic steps, the sharded
+    render and the sharded KNN on the card."""
+    import torch
+    from instascene_tpu_torch.data.synthetic import make_bench_scene
+    st, make_cam = make_bench_scene(n=FULL["n"], seed=0, profile="trained")
+    out = {"geometry": dp_geometry(rank, world, dev, st, make_cam),
+           "semantic": dp_semantic(rank, world, dev, st, make_cam),
+           "render": dp_render(rank, world, dev, st, make_cam),
+           "knn": dp_knn(rank, world, dev, st)}
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_dp_world(tag, outs, smi_line):
+    """dp_rank's results of every rank: the checks, and one line each."""
+    r0 = outs[0]
+    for key, sub in (("geometry", "no_dist"), ("geometry", "full"),
+                     ("semantic", None), ("render", "full"),
+                     ("render", "viewer")):
+        digests = [o[key][sub]["digest"] if sub else o[key]["digest"]
+                   for o in outs]
+        check(len(set(digests)) == 1,
+              f"[dp] {tag} {key} {sub or ''}: the ranks differ")
+    check(len({o["knn"]["digest"] for o in outs}) == 1,
+          f"[dp] {tag} knn: the ranks differ")
+    for recipe, k1 in (("no_dist", "K1 no_dist"), ("full", "K1 full")):
+        g = r0["geometry"][recipe]
+        for o in outs:
+            c = o["geometry"][recipe]["launches"]
+            for k in (k1, k1.replace("K1", "K2"), "segment_sum"):
+                check(c.get(k, 0) >= DP["steps"],
+                      f"[dp] {tag} geometry {recipe}: {k} launched "
+                      f"{c.get(k, 0)} times on a rank")
+        worst = {k: max(e[k] for e in g["errs"]) for k in
+                 ("loss", "params", "stats")}
+        print(f"[dp] {tag} geometry {recipe} at {TRAIN['width']}x"
+              f"{TRAIN['height']}, {len(outs)} cameras: losses "
+              f"{[round(x, 6) for x in g['losses']]}; against the "
+              f"single-process mean: loss rel {worst['loss']:.3g}, params "
+              f"abs {worst['params']:.3g}, stats rel {worst['stats']:.3g}, "
+              f"visibility and radii equal "
+              f"{all(e['denom_radii_equal'] for e in g['errs'])}; step "
+              f"{g['step_ms']:.3f} ms, all_reduce {g['reduce_ms']:.3f} ms "
+              f"for {g['reduce_bytes']} bytes (CUDA events, median); "
+              f"launches per rank {g['launches']}; {smi_line}", flush=True)
+        check(worst["loss"] <= DP_TOL["loss"]
+              and worst["params"] <= DP_TOL["params"]
+              and worst["stats"] <= DP_TOL["stats"]
+              and all(e["denom_radii_equal"] for e in g["errs"]),
+              f"[dp] {tag} geometry {recipe}: off the reference {worst}")
+    s = r0["semantic"]
+    for o in outs:
+        c = o["semantic"]["launches"]
+        for k in ("K1 extras_only", "K2 extras_only", "segment_sum"):
+            check(c.get(k, 0) >= DP["steps"],
+                  f"[dp] {tag} semantic: {k} launched {c.get(k, 0)} times")
+    worst = {k: max(e[k] for e in s["errs"]) for k in ("loss", "grad")}
+    print(f"[dp] {tag} semantic at {SEM['width']}x{SEM['height']}, E=16, "
+          f"{SEM['batch']} draws per set: losses "
+          f"{[float(f'{x:.6g}') for x in s['losses']]}; against the "
+          f"single-process mean: loss rel {worst['loss']:.3g}, gradient "
+          f"{worst['grad']:.3g} of its largest; step {s['step_ms']:.3f} ms, "
+          f"all_reduce {s['reduce_ms']:.3f} ms for {s['reduce_bytes']} bytes; "
+          f"launches per rank {s['launches']}; {smi_line}", flush=True)
+    check(worst["loss"] <= DP_TOL["loss"] and worst["grad"] <= DP_TOL["grad"],
+          f"[dp] {tag} semantic: off the reference {worst}")
+    for mode in ("full", "viewer"):
+        r = r0["render"][mode]
+        for o in outs:
+            check(o["render"][mode]["launches"].get(f"K1 {mode}", 0) >= 1,
+                  f"[dp] {tag} sharded render never launched K1 {mode}")
+        print(f"[dp] {tag} sharded render {mode} at {DP['render_width']}x"
+              f"{DP['render_height']}, {len(outs)} slabs, E=16: bit for bit "
+              f"the slabs rendered in one process {r['equals_slabs']}; "
+              f"against render() of the whole frame: max abs err "
+              f"{r['max_abs_err']}, share of pixels moved by more than "
+              f"{r['share_over']} (over {DP_TOL['frame']:g} by map "
+              f"{r['share_over_tol']}), n_contrib differs on "
+              f"{r['n_contrib_share']:.3g}; host {r['host_ms']:.2f} ms; "
+              f"launches per rank {r['launches']}; {smi_line}", flush=True)
+        check(r["equals_slabs"], f"[dp] {tag} sharded render {mode}: the "
+              f"frame is not the slabs rendered in one process")
+        share = r["share_over_tol"]
+        slabs = len(outs) - 1
+        check(max(share["color"], share["alpha"])
+              <= DP_TOL["frame_share"] * slabs
+              and r["n_contrib_share"] <= DP_TOL["n_contrib_share"] * slabs,
+              f"[dp] {tag} sharded render {mode}: pixels over "
+              f"{DP_TOL['frame']:g} {share}, n_contrib differs on "
+              f"{r['n_contrib_share']}")
+    k = r0["knn"]
+    print(f"[dp] {tag} sharded KNN of {FULL['n']} centres: "
+          f"{k['host_s']:.3f} s (one process {k['single_s']:.3f} s), max rel "
+          f"err {k['max_rel_err']:.3g}; {smi_line}", flush=True)
+    check(k["rtol_excess"] <= 0, f"[dp] {tag} sharded KNN over rtol 1e-4")
+
+
+def dp_phase(colmap_root, cli_ply, sem_root, tmp, smi_line):
+    """Data parallelism on the card: dp_rank over a gloo world
+    of 2 sharing cuda:0 (NCCL refuses two ranks on one GPU) and, with 2+
+    cards, over NCCL on min(cards, 4); then both CLIs with --dp 1 (NCCL,
+    one rank): the training CLI with cli_phase's flags, its iteration-30
+    PLY held byte for byte against cli_phase's, and the semantic CLI on
+    semantic_cli_phase's scene; --dp 2 on one card must raise."""
+    import torch
+    from instascene_tpu_torch import train, train_semantic
+    from instascene_tpu_torch.data.ply import read_ply
+    from instascene_tpu_torch.models.gaussians import load_ply
+    from instascene_tpu_torch.parallel.launch import launch
+    res = {}
+    t0 = time.perf_counter()
+    outs = launch(dp_rank, 2, device=DEVICE, backend="gloo",
+                  shared_device=True, store_dir=tmp)
+    res["gloo world 2 s"] = time.perf_counter() - t0
+    check_dp_world("gloo world 2 on cuda:0", outs, smi_line)
+    res["gloo"] = outs[0]
+    # the launches of every rank, by path
+    launches = {}
+    for path, get in (
+            ("geometry no_dist", lambda o: o["geometry"]["no_dist"]),
+            ("geometry full", lambda o: o["geometry"]["full"]),
+            ("semantic", lambda o: o["semantic"]),
+            ("render full", lambda o: o["render"]["full"]),
+            ("render viewer", lambda o: o["render"]["viewer"])):
+        launches[path] = {}
+        for o in outs:
+            _add(launches[path], get(o)["launches"])
+    res["launches"] = launches
+    n_dev = torch.cuda.device_count()
+    if n_dev >= 2:
+        world = min(n_dev, 4)
+        t0 = time.perf_counter()
+        outs = launch(dp_rank, world, device="cuda", store_dir=tmp)
+        res[f"nccl world {world} s"] = time.perf_counter() - t0
+        check_dp_world(f"nccl world {world}", outs, smi_line)
+        res["nccl"] = outs[0]
+    else:
+        print(f"[dp] nccl world 2: {n_dev} device, not run", flush=True)
+
+    # the training CLI with --dp 1: one rank on cuda:0 over NCCL
+    model = os.path.join(tmp, "model_dp1")
+    t0 = time.perf_counter()
+    s = train.main([
+        "-s", colmap_root, "-m", model, "--device", DEVICE,
+        "--disable_viewer", "--dp", "1", "--iterations", str(CLI_ITERS),
+        "--densify_from_iter", "10", "--densification_interval", "10",
+        "--densify_until_iter", str(CLI_ITERS + 1), *CLI_DENSIFY,
+        "--test_iterations", "10", str(CLI_ITERS), "--save_iterations",
+        str(CLI_ITERS)])
+    res["train --dp 1 s"] = time.perf_counter() - t0
+    ply = os.path.join(model, "point_cloud", f"iteration_{CLI_ITERS}",
+                       "point_cloud.ply")
+    with open(ply, "rb") as f1, open(cli_ply, "rb") as f2:
+        same = f1.read() == f2.read()
+    c = s["ranks"][0]["launches"]
+    psnr = s["reports"].items()
+    print(f"[dp] train.main --dp 1 (NCCL): {CLI_ITERS} iterations in "
+          f"{res['train --dp 1 s']:.1f} s host wall (spawn, scene load and "
+          f"KNN init included); gaussians {s['n_alive']}; train PSNR "
+          f"{ {k: round(v['train']['psnr'], 3) for k, v in psnr} }"
+          f"; its PLY byte for byte the plain CLI's: {same}; launches "
+          f"{ {k: v for k, v in c.items() if v} }", flush=True)
+    check(same, "train --dp 1 wrote another PLY than the plain CLI")
+    for k in ("K1 no_dist", "K2 no_dist", "segment_sum"):
+        check(c[k] > 0, f"train --dp 1 never launched {k}")
+    launches["train --dp 1"] = c
+    if n_dev < 2:
+        try:
+            train.main(["-s", colmap_root, "-m", os.path.join(tmp, "dp2"),
+                        "--dp", "2"])
+        except ValueError as e:
+            print(f"[dp] train.main --dp 2 on {n_dev} device: {e}",
+                  flush=True)
+            check(f"{n_dev} CUDA device" in str(e),
+                  "--dp 2 was refused without naming the device count")
+        else:
+            check(False, "--dp 2 on one card did not raise")
+
+    # the semantic CLI with --dp 1
+    out = os.path.join(tmp, "sem_dp1")
+    t0 = time.perf_counter()
+    s = train_semantic.main([
+        "-s", sem_root, "-m", out, "--use_seg_feature", "--gram_feat_3d",
+        "--iterations", str(SEM_CLI_ITERS), "--device", DEVICE, "--dp",
+        "1"])
+    res["train_semantic --dp 1 s"] = time.perf_counter() - t0
+    ply = os.path.join(out, "point_cloud", f"iteration_{SEM_CLI_ITERS}",
+                       "point_cloud.ply")
+    names = read_ply(ply)["vertex"].dtype.names
+    feats = load_ply(ply, seg_feat_dim=16, load_seg_feat=True,
+                     device="cpu").seg_feature
+    c = s["ranks"][0]["launches"]
+    stages = ("tracker renders", "spatial track", "training",
+              "hdbscan export")
+    print(f"[dp] train_semantic.main --dp 1 (NCCL): "
+          f"{res['train_semantic --dp 1 s']:.1f} s host wall: "
+          f"{ {k: round(s['timings'][k], 2) for k in stages} }"
+          f"; {s['instances']} instances, last loss {s['last_loss']:.6g}; "
+          f"launches { {k: v for k, v in c.items() if v} }", flush=True)
+    check(s["instances"] >= 2, f"--dp 1: only {s['instances']} instances")
+    check(all(f"segfeat_{i}" in names for i in range(16))
+          and bool(np.isfinite(feats.numpy()).all()),
+          "--dp 1: the PLY has no finite segfeat_0..15")
+    for k in ("K1 extras_only", "K2 extras_only", "segment_sum"):
+        check(c[k] > 0, f"train_semantic --dp 1 never launched {k}")
+    launches["train_semantic --dp 1"] = c
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3667,6 +4173,9 @@ def main() -> int:
         colmap_keep = tempfile.mkdtemp(prefix="chip_smoke_colmap_")
         colmap_root = shutil.copytree(
             cli["root"], os.path.join(colmap_keep, "data", "orbit", "scene"))
+        # the CLI's iteration-30 PLY, which train --dp 1 must write again
+        cli_ply = shutil.copy(cli["ply"], os.path.join(colmap_keep,
+                                                       "cli_30.ply"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     del cli
@@ -3696,18 +4205,23 @@ def main() -> int:
         views = colmap_views_phase(sem_cli, tmp)
         phase_s["COLMAP camera and render_views"] = (time.perf_counter()
                                                      - t_views)
+        # the variants load the first run's priors instead of computing
+        # them again (the scene's sam/mask_sorted is that run's)
+        priors = ["--preload_robust_semantic", os.path.join(
+            sem_cli["seg"].model_path, "semantic_association")]
         cli_tiles = semantic_cli_variant(
             sem_cli["root"], os.path.join(tmp, "out_tiles_sparse"),
             "tile subsample + sparse",
             ["--mv_tile_subsample", str(SEM["mv_k"]), "--sparse_px", "1",
-             "--sample_batchsize", str(SEM_CLI_SPARSE_BATCH)],
+             "--sample_batchsize", str(SEM_CLI_SPARSE_BATCH), *priors],
             ("K3 extras_only", "K4 extras_only", "K5", "K6"))
         # the same flags at the reference batch, where the tracker masks'
         # covered tiles overflow their slots and steps take the dense path
         cli_ref = semantic_cli_variant(
             sem_cli["root"], os.path.join(tmp, "out_tiles_sparse_ref"),
             "tile subsample + sparse, reference batch",
-            ["--mv_tile_subsample", str(SEM["mv_k"]), "--sparse_px", "1"],
+            ["--mv_tile_subsample", str(SEM["mv_k"]), "--sparse_px", "1",
+             *priors],
             ("K3 extras_only", "K4 extras_only"))
         cr, ct = cli_ref["counts"], cli_tiles["counts"]
         print(f"[semantic-cli] K5/K6 launches with --sparse_px over "
@@ -3719,7 +4233,8 @@ def main() -> int:
               f"fallbacks {cr['sparse_fallback']}", flush=True)
         cli_merged = semantic_cli_variant(
             sem_cli["root"], os.path.join(tmp, "out_merged"), "merged",
-            ["--mv_merged", "1"], ("K1 tiles_per_view", "K2 tiles_per_view"))
+            ["--mv_merged", "1", *priors],
+            ("K1 tiles_per_view", "K2 tiles_per_view"))
         phase_s["semantic CLI (4 runs)"] = (time.perf_counter() - t_phase
                                             - phase_s["COLMAP camera and "
                                                       "render_views"])
@@ -3728,6 +4243,15 @@ def main() -> int:
         residue = residue_phase(st, make_cam, colmap_root, sem_cli["root"],
                                 dev)
         phase_s["host residue"] = time.perf_counter() - t_phase
+        # ---- 7d. data parallelism on the two CLIs' scenes
+        t_phase = time.perf_counter()
+        dp_tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+        try:
+            dp = dp_phase(colmap_root, cli_ply, sem_cli["root"], dp_tmp,
+                          smi_line)
+        finally:
+            shutil.rmtree(dp_tmp, ignore_errors=True)
+        phase_s["data parallelism"] = time.perf_counter() - t_phase
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         shutil.rmtree(colmap_keep, ignore_errors=True)
@@ -3778,9 +4302,12 @@ def main() -> int:
     where_1080 = f"E=16, {FULL['width']}x{FULL['height']}"
     mesh_k1 = sum(r["k1_full_launches"] for r in mesh["runs"].values())
     sg = k2_train["no_dist"]["segment_sum"]
+    dpl = {k: dict(v) for k, v in dp["launches"].items()}
+    dpn = lambda path, k: dpl[path].get(k, 0)
     viewer_paths = {"serving": serve["K1 viewer"],
                     "editing": edit["launches"]["K1 viewer"],
-                    "render_views": views["launches"]["K1 viewer"]}
+                    "render_views": views["launches"]["K1 viewer"],
+                    "dp_sharded_render": dpn("render viewer", "K1 viewer")}
     bl, ev = residue["blender"], residue["eval_scene"]
     full_paths = {"serving": serve["K1 full"],
                   "training": train_counts["K1 full"],
@@ -3789,11 +4316,26 @@ def main() -> int:
                   "blender_cli": bl["launches"]["K1 full"],
                   "eval_scene": ev["geometry"]["launches"]["K1 full"],
                   "align_coords": residue["align"]["launches"]["K1 full"],
-                  "video_frames": residue["video"]["launches"]["K1 full"]}
+                  "video_frames": residue["video"]["launches"]["K1 full"],
+                  "dp_geometry": dpn("geometry full", "K1 full"),
+                  "dp_sharded_render": dpn("render full", "K1 full"),
+                  "dp1_train_cli": dpn("train --dp 1", "K1 full")}
     no_dist_paths = {
         k: {"training": train_counts[k], "blender_cli": bl["launches"][k],
-            "eval_scene": ev["geometry"]["launches"][k]}
+            "eval_scene": ev["geometry"]["launches"][k],
+            "dp_geometry": dpn("geometry no_dist", k),
+            "dp1_train_cli": dpn("train --dp 1", k)}
         for k in ("K1 no_dist", "K2 no_dist", "segment_sum")}
+    # the DP steps in `full` sum too; then the semantic paths' kernels
+    no_dist_paths["segment_sum"]["dp_geometry"] += dpn("geometry full",
+                                                       "segment_sum")
+    k2_full_paths = {"training": train_counts["K2 full"],
+                     "dp_geometry": dpn("geometry full", "K2 full")}
+    sem_paths = {k: {"semantic_cli": sem_counts[k],
+                     "dp_semantic": dpn("semantic", k),
+                     "dp1_semantic_cli": dpn("train_semantic --dp 1", k)}
+                 for k in ("K1 extras_only", "K1 track", "K2 extras_only",
+                           "segment_sum")}
     trace_ms = bl["trace_median_ms"]
     kernels = [
         dict(k1_entry("viewer", full[(16, "viewer")], where_1080,
@@ -3807,7 +4349,8 @@ def main() -> int:
             no_dist_paths["K1 no_dist"].values())), "K1 no_dist"),
         traced(dict(k2_entry("no_dist"), launches=sum(
             no_dist_paths["K2 no_dist"].values())), "K2 no_dist"),
-        k2_entry("full"),
+        dict(k2_entry("full"), launches=sum(k2_full_paths.values()),
+             launches_by_path=k2_full_paths),
         traced({"name": "segment_sum", "route": "cuda",
                 "source": "instascene_tpu_torch/csrc/blend_bwd.cu",
                 "replaces": "instascene_tpu/ops/blend_visits.py:729",
@@ -3821,21 +4364,23 @@ def main() -> int:
     sframe = (f"{SEM['width']}x{SEM['height']}, {len(st['xyz'])} gaussians, "
               f"E=16")
     x0, xp = sem_k["done0"], sem_k["plain"]
+    by_path = lambda k: {"launches": sum(sem_paths[k].values()),
+                         "launches_by_path": sem_paths[k]}
     kernels.append(dict(
         k1_entry("extras_only", x0, f"done0 of {SEM['batch']} pixels, "
-                 f"{sframe}", sem_counts["K1 extras_only"]),
+                 f"{sframe}", 0), **by_path("K1 extras_only"),
         ms_no_done0=xp["ms"], plain_ms_no_done0=xp["plain_ms"],
         bound_ms_no_done0=xp["bound_ms"], bound_by_no_done0=xp["bound_by"],
         max_abs_err=max(x0["max_abs_err"], xp["max_abs_err"])))
-    kernels.append(k1_entry("track", sem_k["track"], sframe,
-                            sem_counts["K1 track"]))
+    kernels.append(dict(k1_entry("track", sem_k["track"], sframe, 0),
+                        **by_path("K1 track")))
     k2x = sem_k["k2"]["done0"]
     kernels.append({
         "name": "blend_bwd", "route": "cuda",
         "source": "instascene_tpu_torch/csrc/blend_bwd.cu",
         "replaces": "instascene_tpu/ops/blend_visits.py:395",
         "mode": f"extras_only, on the done0 forward, {sframe}",
-        "launches": sem_counts["K2 extras_only"],
+        **by_path("K2 extras_only"),
         "max_abs_err": max(k2x["max_abs_err"],
                            sem_k["k2"]["plain"]["max_abs_err"]),
         "ms": k2x["ms"], "plain_ms": k2x["plain_ms"],
@@ -3847,7 +4392,7 @@ def main() -> int:
         "source": "instascene_tpu_torch/csrc/blend_bwd.cu",
         "replaces": "instascene_tpu/ops/blend_visits.py:729",
         "mode": f"d_flat of K2 extras_only (D=16), {sframe}",
-        "launches": sem_counts["segment_sum"],
+        **by_path("segment_sum"),
         "max_abs_err": sg16["max_abs_err"], "ms": sg16["ms"],
         "plain_ms": sg16["plain_ms"], "bound_ms": sg16["bound_ms"],
         "bound_by": sg16["bound_by"], "library_ms": sg16["library_ms"],
@@ -3972,7 +4517,21 @@ def main() -> int:
             for tag, r in (("tiles+sparse", cli_tiles),
                            ("tiles+sparse, reference batch", cli_ref),
                            ("merged", cli_merged))},
-        "host_residue_s": residue["seconds"]}, default=float), flush=True)
+        "host_residue_s": residue["seconds"],
+        "data_parallel": {k: v for k, v in dp.items()
+                          if k not in ("gloo", "nccl", "launches")} | {
+            k: {"geometry": {r: {x: dp[k]["geometry"][r][x] for x in (
+                "step_ms", "reduce_ms", "reduce_bytes", "errs")}
+                for r in ("no_dist", "full")},
+                "semantic": {x: dp[k]["semantic"][x] for x in (
+                    "step_ms", "reduce_ms", "reduce_bytes", "errs")},
+                "render": {m: {x: dp[k]["render"][m][x] for x in (
+                    "host_ms", "max_abs_err", "share_over",
+                    "share_over_tol", "n_contrib_share")}
+                    for m in ("full", "viewer")},
+                "knn": dp[k]["knn"]}
+            for k in ("gloo", "nccl") if k in dp}}, default=float),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -5,8 +5,9 @@ Port of instascene_tpu/ops/preprocess.py:25-280 (`quat_to_rotmat`,
 `ndc2pix_rows`, `preprocess_gaussians` with the default-on opacity-aware
 rect shrink and the opt-in exact conic culling), :283-455
 (`conic_cull_masks`, `_mask_below`, `_mask_range`) and :457
-(`mark_visible`). Plain torch, differentiable. Slab offsets wait for a
-later slice.
+(`mark_visible`), with the slab origin (`y_offset`, `full_height`) that
+the tile-slab sharded render folds into the homography. Plain torch,
+differentiable.
 
 Convention: T[n] is a 3x3 matrix whose rows (Tu, Tv, Tw) map splat-tangent
 homogeneous coords (u, v, 1) to (x_pix·w, y_pix·w, w):
@@ -95,12 +96,19 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     ], dim=1)
 
 
-def ndc2pix_rows(width: int, height: int, device=None) -> torch.Tensor:
-    """NDC→pixel rows, [3,4]."""
-    return torch.tensor([
+def ndc2pix_rows(width: int, height: int, device=None,
+                 y_offset=None) -> torch.Tensor:
+    """NDC→pixel rows, [3,4]. `y_offset` shifts the pixel-y origin: the
+    horizontal slab [y_offset, y_offset + h) of a `height`-tall image then
+    renders in local rows (a float32 subtraction, as the JAX package's)."""
+    m = torch.tensor([
         [width / 2.0, 0, 0, (width - 1) / 2.0],
         [0, height / 2.0, 0, (height - 1) / 2.0],
         [0, 0, 0, 1.0]], dtype=torch.float32, device=device)
+    if y_offset is not None:
+        m[1, 3] = m[1, 3] - torch.as_tensor(y_offset, dtype=torch.float32,
+                                            device=device)
+    return m
 
 
 def _conic_box(t_vec: torch.Tensor, T: torch.Tensor, d_scale: torch.Tensor):
@@ -130,7 +138,8 @@ def preprocess_gaussians(
         shs: Optional[torch.Tensor] = None,     # [N,K,3]
         sh_degree: int = 0,
         alive: Optional[torch.Tensor] = None,
-        conic_cull: bool = False) -> PreprocessOut:
+        conic_cull: bool = False, y_offset=None,
+        full_height: Optional[int] = None) -> PreprocessOut:
     """Opacity-aware tile rect (the JAX default, opacity_cull=True): a
     gaussian of opacity o can only reach alpha >= 1/255 where
     rho <= thr(o) = 2·ln(255·o), so its rect shrinks to the thr-level conic
@@ -140,7 +149,12 @@ def preprocess_gaussians(
 
     conic_cull: also drop the rect tiles the conic cannot reach
     (conic_cull_masks): tiles_touched counts the kept offsets and
-    cull_lo / cull_hi carry the keep-masks binning expands by."""
+    cull_lo / cull_hi carry the keep-masks binning expands by.
+
+    y_offset / full_height: render the rows [y_offset, y_offset + height)
+    of a full_height-tall image into local rows [0, height): the NDC
+    mapping uses the full image, the rect and tile clamps the slab. None
+    leaves every other path as it was, bit for bit."""
     f32 = torch.float32
     dev = xyz.device
     xyz = xyz.to(f32)
@@ -156,7 +170,7 @@ def preprocess_gaussians(
     axis_v = R[:, :, 1] * sv
     normal_world = R[:, :, 2]
 
-    n2p = ndc2pix_rows(width, height, dev)
+    n2p = ndc2pix_rows(width, full_height or height, dev, y_offset)
     fp = full_proj.to(f32)
     n2p_full = n2p[:, 0:1] * fp[0:1]                          # [3,4]
     for k in range(1, 4):

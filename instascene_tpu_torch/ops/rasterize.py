@@ -4,7 +4,8 @@ Port of instascene_tpu/ops/rasterize.py:35-143 (`RasterizeConfig`, reduced
 to what the port serves so far), :146-230 (`_blend_via_pallas`: the
 extras-only mode with its sampled-pixel done0 mask, contributor tracking,
 `extra_tiles`), :242-364 (`_rasterize_impl`, `rasterize`, with the t_offset
-densification tap and `cached_binning`), :457-485
+densification tap, `cached_binning` and the slab origin `y_offset` /
+`full_height`), :457-485
 (`rasterize_extras_tiles`, the tile-subset feature render through K3/K4),
 :488-495 (`densify_screen_grad`), :498-587 (`compute_binning_cache`, with
 `dilate_tiles` and `conic_cull`) and instascene_tpu/ops/rasterize_pallas.py
@@ -132,7 +133,8 @@ def maps_from_tiles(out, iout, width, height, n_extra) -> dict:
 def rasterize(means3d, scales, rotations, opacities, cam: CameraMats, bg,
               cfg: RasterizeConfig, colors=None, shs=None, sh_degree: int = 0,
               extras=None, t_offset=None, alive=None,
-              done0=None, cached_binning=None, tile_ids=None) -> RasterizeOut:
+              done0=None, cached_binning=None, tile_ids=None, y_offset=None,
+              full_height: Optional[int] = None) -> RasterizeOut:
     """means3d [N,3]; scales [N,2] (activated); rotations [N,4] (w,x,y,z);
     opacities [N] or [N,1] (activated); exactly one of colors [N,3] /
     shs [N,K,3]; extras [N,E] optional feature channels; t_offset [N,3,3]
@@ -155,7 +157,12 @@ def rasterize(means3d, scales, rotations, opacities, cam: CameraMats, bg,
     contribute nothing. tile_ids [K] int (ascending, unique; with
     cached_binning, every mode but track_contrib): only these tiles
     render (K3, and K4 for the gradient); the other tiles' outputs are
-    zero and are not to be read."""
+    zero and are not to be read.
+
+    y_offset / full_height (the tile-slab sharded render): render the rows
+    [y_offset, y_offset + cfg.height) of a full_height-tall image; the slab
+    origin is folded into the splat→pixel transform, so binning and blend
+    run unchanged on local rows."""
     cfg.check()
     if done0 is not None and not cfg.bwd_extras_only:
         raise ValueError("sampled-pixel done0 masks require "
@@ -169,7 +176,8 @@ def rasterize(means3d, scales, rotations, opacities, cam: CameraMats, bg,
     pre = preprocess_gaussians(
         means3d, scales, rotations, cam.w2v, cam.full_proj, cam.campos,
         width, height, opac, color=colors, shs=shs, sh_degree=sh_degree,
-        alive=alive, conic_cull=cfg.conic_cull and cached_binning is None)
+        alive=alive, conic_cull=cfg.conic_cull and cached_binning is None,
+        y_offset=y_offset, full_height=full_height)
     binning = (cached_binning if cached_binning is not None
                else bin_gaussians(pre, width, height))
     E = extras.shape[1] if extras is not None else 0

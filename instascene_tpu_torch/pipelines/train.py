@@ -14,8 +14,11 @@ consistency (+ the optional mono-normal prior) → gradients by torch
 autograd, whose blend backward is K2, and of the zero t_offset tap →
 densification stats + Adam. The TPU scheduling around the JAX step (pair
 caps and their autotune, the slow-roll watchdog, device scalars) has no
-counterpart: buffers follow each frame's pair total. Camera-batch data
-parallelism (--dp) waits for a later slice (ROADMAP A.1).
+counterpart: buffers follow each frame's pair total. With `dp`, the
+trainer is one rank of a camera-batch data-parallel group (JAX :276-285,
+:438-486): each step pops `dp` cameras from the shared stack, this rank
+trains on its own through parallel/data_parallel.dp_train_step, and rank
+0 alone reports, saves and checkpoints.
 """
 
 from __future__ import annotations
@@ -25,10 +28,11 @@ import os
 import random
 import time
 from dataclasses import dataclass
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
 from ..cameras import Camera
@@ -142,17 +146,26 @@ def geometry_loss_fn(parts, ct: CameraTensors, lambda_dssim, lambda_dist,
     return total, aux
 
 
-def train_step(params: GaussianModel, opt_state, stats: dens.DensifyStats,
-               ct: CameraTensors, bg, lrs: dict, lambda_dssim: float,
-               lambda_dist: float, lambda_normal: float,
-               lambda_normal_prior: float, cfg: RasterizeConfig,
-               depth_ratio: float,
-               on_stage: Optional[Callable[[str], None]] = None):
-    """One geometry step → (params, opt_state, stats, metrics). Metrics
-    are device scalars (read them only when needed) plus the frame's pair
-    count. on_stage(name), when given, is called as each stage ends:
-    "render", "loss", "backward", "adam" (for timing)."""
-    mark = on_stage or (lambda name: None)
+class StepGrads(NamedTuple):
+    """What one camera's backward gives a step: the loss, each trainable
+    field's gradient (zeros where the loss does not reach it), dL/dT from
+    the t_offset tap, and geometry_loss_fn's aux (the metrics, the
+    per-gaussian depth, visibility and radii, the pair count)."""
+    loss: torch.Tensor
+    grads: Dict[str, torch.Tensor]
+    t_grad: torch.Tensor
+    aux: dict
+
+
+def step_gradients(params: GaussianModel, ct: CameraTensors, bg,
+                   lambda_dssim: float, lambda_dist: float,
+                   lambda_normal: float, lambda_normal_prior: float,
+                   cfg: RasterizeConfig, depth_ratio: float,
+                   mark: Callable[[str], None] = lambda name: None
+                   ) -> StepGrads:
+    """Render, losses and backward of one camera: the first half of
+    train_step. mark(name) is called as "render", "loss" and "backward"
+    end."""
     leaves = {f: getattr(params, f).detach().requires_grad_(True)
               for f in TRAINABLE_FIELDS if getattr(params, f) is not None}
     p = params.replace(**leaves)
@@ -168,20 +181,49 @@ def train_step(params: GaussianModel, opt_state, stats: dens.DensifyStats,
     grads = torch.autograd.grad(loss, [leaves[f] for f in names] + [t0],
                                 allow_unused=True)
     mark("backward")
-    t_grad = grads[-1] if grads[-1] is not None else torch.zeros_like(t0)
-    with torch.no_grad():
-        screen_grad = densify_screen_grad(t_grad, aux["depth"], cfg.width,
-                                          cfg.height)
-        stats = dens.add_densification_stats(stats, screen_grad,
-                                             aux["visible"], aux["radii"])
-        params, opt_state = adam_step(params, dict(zip(names, grads[:-1])),
-                                      opt_state, lrs)
-    mark("adam")
-    metrics = {"loss": loss.detach(), "ll1": aux["ll1"].detach(),
+    grads = [g if g is not None else torch.zeros_like(leaf) for g, leaf in
+             zip(grads, [leaves[f] for f in names] + [t0])]
+    return StepGrads(loss.detach(), dict(zip(names, grads[:-1])), grads[-1],
+                     aux)
+
+
+@torch.no_grad()
+def apply_gradients(params: GaussianModel, opt_state,
+                    stats: dens.DensifyStats, sg: StepGrads, lrs: dict,
+                    cfg: RasterizeConfig):
+    """The second half of train_step: densification stats from dL/dT and
+    the per-gaussian depth, then Adam → (params, opt_state, stats,
+    metrics)."""
+    aux = sg.aux
+    screen_grad = densify_screen_grad(sg.t_grad, aux["depth"], cfg.width,
+                                      cfg.height)
+    stats = dens.add_densification_stats(stats, screen_grad, aux["visible"],
+                                         aux["radii"])
+    params, opt_state = adam_step(params, sg.grads, opt_state, lrs)
+    metrics = {"loss": sg.loss, "ll1": aux["ll1"].detach(),
                "dist": aux["dist"].detach(),
                "normal": aux["normal"].detach(),
                "total_pairs": aux["total_pairs"]}
     return params, opt_state, stats, metrics
+
+
+def train_step(params: GaussianModel, opt_state, stats: dens.DensifyStats,
+               ct: CameraTensors, bg, lrs: dict, lambda_dssim: float,
+               lambda_dist: float, lambda_normal: float,
+               lambda_normal_prior: float, cfg: RasterizeConfig,
+               depth_ratio: float,
+               on_stage: Optional[Callable[[str], None]] = None):
+    """One geometry step → (params, opt_state, stats, metrics). Metrics
+    are device scalars (read them only when needed) plus the frame's pair
+    count. on_stage(name), when given, is called as each stage ends:
+    "render", "loss", "backward", "adam" (for timing)."""
+    mark = on_stage or (lambda name: None)
+    sg = step_gradients(params, ct, bg, lambda_dssim, lambda_dist,
+                        lambda_normal, lambda_normal_prior, cfg, depth_ratio,
+                        mark)
+    out = apply_gradients(params, opt_state, stats, sg, lrs, cfg)
+    mark("adam")
+    return out
 
 
 @torch.no_grad()
@@ -200,10 +242,24 @@ def eval_step(params: GaussianModel, ct: CameraTensors, bg,
 
 class GeometryTrainer:
     """Drives the 2DGS geometry optimization (reference train.py:34-185) on
-    `device` (CUDA unless "cpu" is asked for)."""
+    `device` (CUDA unless "cpu" is asked for). dp > 0: this trainer is one
+    rank of the torch.distributed `group` (default: the world), whose size
+    must be dp; every rank builds the same replica from the same seed."""
 
     def __init__(self, dataset, opt, pipe, scene, seed: int = 0,
-                 capacity_multiplier: float = 4.0, device=None):
+                 capacity_multiplier: float = 4.0, device=None, dp: int = 0,
+                 group=None):
+        self.dp, self.group, self.rank = int(dp), group, 0
+        if self.dp:
+            sizes = {(int(c.width), int(c.height))
+                     for c in scene.get_train_cameras()}
+            if len(sizes) != 1:
+                raise ValueError(
+                    f"--dp requires a uniform camera resolution; got {sizes}")
+            if dist.get_world_size(group) != self.dp:
+                raise ValueError(f"--dp {self.dp} in a process group of "
+                                 f"{dist.get_world_size(group)} ranks")
+            self.rank = dist.get_rank(group)
         self.device = resolve_device(device)
         self.opt = opt
         self.pipe = pipe
@@ -257,23 +313,47 @@ class GeometryTrainer:
         return torch.randn((2, capacity, 3), generator=self.generator,
                            device=self.device)
 
+    def _dp_run(self, lrs: dict, lam: tuple, on_stage=None) -> dict:
+        """One data-parallel step: every rank pops the same `dp` cameras
+        and trains on the rank-th (JAX pipelines/train.py:438-486)."""
+        from ..parallel.data_parallel import dp_train_step
+        idxs = [self._pop_cam() for _ in range(self.dp)]
+        fovs = {(round(self.cams[i].tanfovx, 6),
+                 round(self.cams[i].tanfovy, 6)) for i in idxs}
+        if len(fovs) != 1:
+            # the batch shares one ray grid (depth → normal)
+            raise ValueError(
+                f"--dp requires uniform camera intrinsics; got tanfovs "
+                f"{sorted(fovs)} in one batch")
+        i = idxs[self.rank]
+        self.params, self.opt_state, self.stats, metrics = dp_train_step(
+            self.params, self.opt_state, self.stats, self.cams[i], self.bg,
+            lrs, *lam, self._cfg(self.cam_objs[i], lam_dist=lam[1]),
+            float(self.pipe.depth_ratio), group=self.group,
+            on_stage=on_stage)
+        return metrics
+
     def step(self, iteration: int, cam_idx: Optional[int] = None,
              on_stage=None) -> dict:
         opt = self.opt
         if iteration % 1000 == 0:
             self.params = self.params.one_up_sh_degree()
-        if cam_idx is None:
-            cam_idx = self._pop_cam()
         lrs = geometry_lrs(opt, self.spatial_lr_scale,
                            self.xyz_sched(iteration))
         lam_normal = opt.lambda_normal if iteration > 7000 else 0.0
         lam_dist = opt.lambda_dist if iteration > 3000 else 0.0
         lam_prior = opt.lambda_normal_prior if iteration > 7000 else 0.0
-        cfg = self._cfg(self.cam_objs[cam_idx], lam_dist=lam_dist)
-        self.params, self.opt_state, self.stats, metrics = train_step(
-            self.params, self.opt_state, self.stats, self.cams[cam_idx],
-            self.bg, lrs, opt.lambda_dssim, lam_dist, lam_normal, lam_prior,
-            cfg, float(self.pipe.depth_ratio), on_stage=on_stage)
+        lam = (opt.lambda_dssim, lam_dist, lam_normal, lam_prior)
+        if self.dp and cam_idx is None:
+            metrics = self._dp_run(lrs, lam, on_stage)
+        else:
+            if cam_idx is None:
+                cam_idx = self._pop_cam()
+            cfg = self._cfg(self.cam_objs[cam_idx], lam_dist=lam_dist)
+            self.params, self.opt_state, self.stats, metrics = train_step(
+                self.params, self.opt_state, self.stats, self.cams[cam_idx],
+                self.bg, lrs, *lam, cfg, float(self.pipe.depth_ratio),
+                on_stage=on_stage)
 
         # densification schedule (reference train.py:139-151)
         if iteration < opt.densify_until_iter:
@@ -373,7 +453,9 @@ class GeometryTrainer:
         called at the end of each (the CLI's network viewer). With a
         TensorBoard writer `tb`, every 10th step's losses and host time and
         the reports go to it; a utils/profiling.TraceWindow `tracer` is
-        ticked at the top of each iteration and closed at the end."""
+        ticked at the top of each iteration and closed at the end. Under
+        dp only rank 0 logs, reports, saves and checkpoints; the other
+        ranks wait for it at a barrier after each of those iterations."""
         from ..utils.tb import log_train_scalars
         from .checkpoint import save_checkpoint
         iterations = iterations or self.opt.iterations
@@ -386,18 +468,23 @@ class GeometryTrainer:
             if tb is not None and it % 10 == 0:
                 log_train_scalars(tb, it, metrics,
                                   time.perf_counter() - t_step)
-            if progress and it % log_every == 0:
+            main = self.rank == 0
+            if progress and main and it % log_every == 0:
                 now = time.perf_counter()
                 self.log(it, metrics, (now - t_last) / log_every)
                 t_last = now
-            if it in test_iterations:
+            host = (it in test_iterations, it in save_iterations,
+                    it in checkpoint_iterations)
+            if main and host[0]:
                 self.reports[it] = self.training_report(
                     it, tb, is_first_test_iter=it == min(test_iterations))
-            if it in save_iterations:
+            if main and host[1]:
                 print(f"\n[ITER {it}] Saving Gaussians", flush=True)
                 self.save(it)
-            if it in checkpoint_iterations:
+            if main and host[2]:
                 save_checkpoint(self, self.scene.model_path, it)
+            if self.dp and any(host):
+                dist.barrier(group=self.group)  # rank 0's files are written
             if on_iteration is not None:
                 on_iteration(it)
         if tracer is not None:

@@ -45,8 +45,11 @@ What differs from the JAX package:
   * the sparse path's overflow test is a host read and a Python branch
     (JAX's lax.cond); the 3D loss draws from its sampler pack, so the
     sparse path needs no visibility mask.
-Camera-batch data parallelism (--dp) waits for a later slice (ROADMAP
-A.1).
+With `dp`, SegSplatting is one rank of a camera-batch data-parallel group
+(JAX :909-986): rank 0 computes and writes the priors and the others load
+them, each contrastive step pops `dp` cameras and this rank trains on its
+own through parallel/data_parallel.dp_semantic_step (no multi-view
+window, as in the JAX package), and rank 0 saves and exports.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
 from ..models import gaussians as gmod
@@ -481,20 +485,15 @@ def semantic_loss(params, seg_feature, cam: SemanticCamera,
     return total
 
 
-def semantic_train_step(params: gmod.GaussianModel, opt_state,
-                        cam: SemanticCamera, mv: Optional[SemanticMVBlock],
-                        hyp: SemanticHypers, scfg: SemanticStepConfig,
-                        generator: Optional[torch.Generator] = None,
-                        draws: Optional[dict] = None,
-                        on_stage: Optional[Callable[[str], None]] = None):
-    """One contrastive step → (params, opt_state, loss): the single-view
-    and 3D losses on `cam`, plus the multi-view loss over `mv` when given,
-    differentiated with respect to seg_feature alone, then Adam on the
-    features (geometry frozen). draws: injected index sets in
-    draw_step_pixels' layout (ints, any device), else they are drawn from
-    `generator`. on_stage(name) is called as each stage ends: "draws",
-    "render", "loss", "backward", "adam"."""
-    mark = on_stage or (lambda name: None)
+def semantic_gradient(params: gmod.GaussianModel, cam: SemanticCamera,
+                      mv: Optional[SemanticMVBlock], hyp: SemanticHypers,
+                      scfg: SemanticStepConfig,
+                      generator: Optional[torch.Generator] = None,
+                      draws: Optional[dict] = None,
+                      mark: Callable[[str], None] = lambda name: None):
+    """The step's loss and its gradient with respect to seg_feature → (loss
+    detached, gradient): the first half of semantic_train_step, with its
+    draws and marks ("draws", "render", "loss", "backward")."""
     dev = params.device
     if draws is None:
         draws = draw_step_pixels(generator, cam, mv, hyp.class_feat,
@@ -509,22 +508,53 @@ def semantic_train_step(params: gmod.GaussianModel, opt_state,
     loss = semantic_loss(params, seg, cam, mv, hyp, scfg, draws, mark)
     (g,) = torch.autograd.grad(loss, [seg])
     mark("backward")
-    with torch.no_grad():
-        params, opt_state = adam_step(params, {"seg_feature": g}, opt_state,
-                                      hyp.lrs, frozen_fields=GEOMETRY_FIELDS)
+    return loss.detach(), g
+
+
+@torch.no_grad()
+def semantic_adam(params: gmod.GaussianModel, opt_state, g,
+                  hyp: SemanticHypers):
+    """Adam on the features alone (geometry frozen) → (params,
+    opt_state)."""
+    return adam_step(params, {"seg_feature": g}, opt_state, hyp.lrs,
+                     frozen_fields=GEOMETRY_FIELDS)
+
+
+def semantic_train_step(params: gmod.GaussianModel, opt_state,
+                        cam: SemanticCamera, mv: Optional[SemanticMVBlock],
+                        hyp: SemanticHypers, scfg: SemanticStepConfig,
+                        generator: Optional[torch.Generator] = None,
+                        draws: Optional[dict] = None,
+                        on_stage: Optional[Callable[[str], None]] = None):
+    """One contrastive step → (params, opt_state, loss): the single-view
+    and 3D losses on `cam`, plus the multi-view loss over `mv` when given,
+    differentiated with respect to seg_feature alone, then Adam on the
+    features (geometry frozen). draws: injected index sets in
+    draw_step_pixels' layout (ints, any device), else they are drawn from
+    `generator`. on_stage(name) is called as each stage ends: "draws",
+    "render", "loss", "backward", "adam"."""
+    mark = on_stage or (lambda name: None)
+    loss, g = semantic_gradient(params, cam, mv, hyp, scfg, generator, draws,
+                                mark)
+    params, opt_state = semantic_adam(params, opt_state, g, hyp)
     mark("adam")
-    return params, opt_state, loss.detach()
+    return params, opt_state, loss
 
 
 class SegSplatting:
     """The semantic stage on `device` (CUDA unless "cpu" is asked for):
-    reference train_semantic.py SegSplatting."""
+    reference train_semantic.py SegSplatting. dp > 0: one rank of the
+    torch.distributed `group` (default: the world), whose size must be
+    dp."""
 
     def __init__(self, dataset, opt, pipe, output_root: str = "output",
-                 dp: int = 0, device=None):
-        if dp:
-            raise NotImplementedError("--dp (camera-batch data parallelism) "
-                                      "is not ported yet: ROADMAP A.1")
+                 dp: int = 0, device=None, group=None):
+        self.dp, self.group, self.rank = int(dp), group, 0
+        if self.dp:
+            if dist.get_world_size(group) != self.dp:
+                raise ValueError(f"--dp {self.dp} in a process group of "
+                                 f"{dist.get_world_size(group)} ranks")
+            self.rank = dist.get_rank(group)
         self.device = resolve_device(device)
         self.dataset = dataset
         self.opt = opt
@@ -572,7 +602,16 @@ class SegSplatting:
             cam_obj.segmap)
 
     def robust_semantic_priors(self):
-        """Stage 1 (reference train_semantic.py:33-72)."""
+        """Stage 1 (reference train_semantic.py:33-72). Under dp, rank 0
+        computes and writes the priors first; the other ranks then load
+        them (self.priors says which this rank did)."""
+        if not self.dp:
+            return self._semantic_priors()
+        from ..parallel.launch import rank0_first
+        with rank0_first(self.group):
+            return self._semantic_priors()
+
+    def _semantic_priors(self):
         if self.dataset.preload_robust_semantic and os.path.exists(
                 self.dataset.preload_robust_semantic):
             seg_dir = self.dataset.preload_robust_semantic
@@ -594,6 +633,7 @@ class SegSplatting:
                          [c.image_name for c in self.cam_objs], trace_fn)
         self.gausclustering = gc
         out_path = os.path.join(seg_dir, "output_dict.npy")
+        self.priors = "loaded" if os.path.exists(out_path) else "computed"
         if not os.path.exists(out_path):
             for d in ("mask_filtered", "mask_sorted", "mask_undersegment"):
                 p = os.path.join(self.data_dir, "sam", d)
@@ -690,8 +730,13 @@ class SegSplatting:
     def train_segfeat(self, iterations: Optional[int] = None,
                       progress: bool = True, save_every: int = 2500):
         """Stage 2 (reference train_semantic.py:75-237), then the HDBSCAN
-        export."""
+        export; under dp the data-parallel loop (_contrastive_dp)."""
         opt = self.opt
+        if self.dp:
+            sizes = {(int(c.width), int(c.height)) for c in self.cam_objs}
+            if len(sizes) != 1:
+                raise ValueError(f"--dp requires uniform camera resolution; "
+                                 f"got {sizes}")
         iterations = iterations or opt.iterations
         opt_state = init_adam_state(self.params)
         max_labels = self._max_labels()
@@ -699,8 +744,6 @@ class SegSplatting:
             self._precompute_binning()
         if not hasattr(self, "sampling_packs"):
             self._precompute_sampling()
-        # tiny scenes: the window shrinks to the camera count
-        n_mv = min(int(opt.sample_mv_frames), len(self.cams))
         fallbacks0 = bv.LAUNCHES["sparse_fallback"]
         cf = None
         if self.class_feat is not None:
@@ -728,9 +771,46 @@ class SegSplatting:
                     sparse_px=bool(opt.sparse_px))
             return scfg_of[wh]
 
-        stack = []
-        tracer = TraceWindow(self.profile_trace, *self.profile_window)
+        first = self.rank == 0
+        tracer = TraceWindow(self.profile_trace if first else None,
+                             *self.profile_window)
         t0 = time.perf_counter()
+        loop = self._contrastive_dp if self.dp else self._contrastive
+        for it, loss in loop(iterations, opt_state, hyp, bundles, scfg_for,
+                             tracer):
+            if progress and first and it % 10 == 0:
+                print(f"[ITER {it}] ContraLoss {float(loss):.3f}",
+                      flush=True)
+            if it % save_every == 0 or it == iterations:
+                if first:
+                    self.save(it)
+                if self.dp:
+                    dist.barrier(group=self.group)
+        tracer.close()          # also a trace left open mid-window
+        self.last_loss = float(loss)
+        self.timings["training"] = time.perf_counter() - t0
+        if opt.sparse_px and first:
+            print(f"sparse-pixel steps that took the dense path (a tile "
+                  f"drew more than its slots): "
+                  f"{bv.LAUNCHES['sparse_fallback'] - fallbacks0}",
+                  flush=True)
+        t1 = time.perf_counter()
+        if first:
+            self.export_segment_results(
+                iterations, use_hdbscan=True,
+                note=f"iteration_{iterations}_hdbscan")
+        if self.dp:
+            dist.barrier(group=self.group)
+        self.timings["hdbscan export"] = time.perf_counter() - t1
+
+    def _contrastive(self, iterations: int, opt_state, hyp, bundles,
+                     scfg_for, tracer):
+        """The single-process contrastive loop: yields (iteration, loss)
+        after each step, the tracer ticked at its top."""
+        opt = self.opt
+        # tiny scenes: the window shrinks to the camera count
+        n_mv = min(int(opt.sample_mv_frames), len(self.cams))
+        stack = []
         for it in range(1, iterations + 1):
             tracer.tick(it)
             if not stack:
@@ -752,23 +832,33 @@ class SegSplatting:
             self.params, opt_state, loss = semantic_train_step(
                 self.params, opt_state, bundles[ci], mv, hyp, scfg_for(ci),
                 generator=self.generator)
-            if progress and it % 10 == 0:
-                print(f"[ITER {it}] ContraLoss {float(loss):.3f}",
-                      flush=True)
-            if it % save_every == 0 or it == iterations:
-                self.save(it)
-        tracer.close()          # also a trace left open mid-window
-        self.last_loss = float(loss)
-        self.timings["training"] = time.perf_counter() - t0
-        if opt.sparse_px:
-            print(f"sparse-pixel steps that took the dense path (a tile "
-                  f"drew more than its slots): "
-                  f"{bv.LAUNCHES['sparse_fallback'] - fallbacks0}",
-                  flush=True)
-        t1 = time.perf_counter()
-        self.export_segment_results(iterations, use_hdbscan=True,
-                                    note=f"iteration_{iterations}_hdbscan")
-        self.timings["hdbscan export"] = time.perf_counter() - t1
+            yield it, loss
+
+    def _contrastive_dp(self, iterations: int, opt_state, hyp, bundles,
+                        scfg_for, tracer):
+        """The data-parallel contrastive loop (JAX :909-986): every rank
+        pops the same `dp` cameras, draws every one's pixels in batch order
+        from its generator (seeded alike) and keeps the rank-th's, so the
+        draws do not depend on the batch's layout; yields (iteration, mean
+        loss)."""
+        from ..parallel.data_parallel import dp_semantic_step
+        scfg = scfg_for(0)
+        stack = []
+        for it in range(1, iterations + 1):
+            tracer.tick(it)
+            idxs = []
+            for _ in range(self.dp):
+                if not stack:
+                    stack = list(range(len(self.cams)))
+                idxs.append(stack.pop(self.rng.randint(0, len(stack) - 1)))
+            draws = [draw_step_pixels(self.generator, bundles[v], None,
+                                      hyp.class_feat, scfg.batch,
+                                      scfg.consider_negative)
+                     for v in idxs][self.rank]
+            self.params, opt_state, loss = dp_semantic_step(
+                self.params, opt_state, bundles[idxs[self.rank]], hyp, scfg,
+                draws=draws, group=self.group)
+            yield it, loss
 
     def save(self, iteration: int) -> str:
         path = os.path.join(self.model_path,

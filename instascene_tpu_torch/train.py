@@ -4,8 +4,12 @@
         [-m out] [--eval] [--profile_trace DIR] [--device cpu] ...
 
 Port of train.py:18-137. The same flags; `--device` (default CUDA) picks
-where it trains. --dp is refused with the item that brings it (ROADMAP
-A.1). Without --disable_viewer the SIBR network viewer listens on
+where it trains. --dp N trains on N ranks, one camera each per step
+(parallel/): the CLI spawns them itself, rank r on cuda:r over NCCL (N
+must not exceed the visible GPUs), or with --device cpu every rank on the
+CPU over gloo. Rank 0 alone writes the outputs, logs, reports, traces and
+serves the viewer; main then returns rank 0's summary (a dict) instead of
+the trainer. Without --disable_viewer the SIBR network viewer listens on
 --ip:--port and is served once per iteration (viewer/network_gui.py); when
 the address cannot be bound, training goes on without it. Losses and
 evaluations are printed, and logged to TensorBoard in the output folder
@@ -54,12 +58,33 @@ def parser() -> ArgumentParser:
 
 
 def main(argv=None):
-    """Train; returns the GeometryTrainer."""
+    """Train; returns the GeometryTrainer, or with --dp N rank 0's summary
+    of the N ranks' training (_dp_rank)."""
     args = parser().parse_args(argv if argv is not None else sys.argv[1:])
-    if args.dp:
-        raise NotImplementedError("--dp (camera-batch data parallelism) is "
-                                  "not ported yet: ROADMAP A.1")
     args.save_iterations.append(args.iterations)
+    if args.dp:
+        from .parallel.launch import launch
+        return launch(_dp_rank, args.dp, args, device=args.device)[0]
+    return _train(args)
+
+
+def _dp_rank(rank: int, world: int, device, args) -> dict:
+    """One rank of --dp: train, then rank 0's summary with every rank's
+    state digest (equal digests: the replicas stayed bit for bit equal)
+    and kernel launches (ops/blend_visits.LAUNCHES of its process)."""
+    from .ops.blend_visits import LAUNCHES
+    from .parallel.data_parallel import gather_notes, state_digest
+    args.device = str(device)
+    tr = _train(args, dp=world)
+    notes = gather_notes({"rank": rank, "digest": state_digest(
+        tr.params, tr.opt_state, tr.stats), "launches": dict(LAUNCHES)})
+    return {"model_path": tr.scene.model_path, "n_alive": tr.params.n_alive(),
+            "capacity": tr.params.capacity, "adam_count": tr.opt_state.count,
+            "reports": tr.reports, "ranks": notes}
+
+
+def _train(args, dp: int = 0):
+    import contextlib
     dataset = ModelParams.extract(args)
     opt = OptimizationParams.extract(args)
     pipe = PipelineParams.extract(args)
@@ -68,30 +93,37 @@ def main(argv=None):
     torch.autograd.set_detect_anomaly(args.detect_anomaly)
 
     from .data.dataset import Scene
+    from .parallel.launch import rank0_first
     from .pipelines.train import GeometryTrainer
     from .utils.profiling import TraceWindow
     from .utils.tb import maybe_summary_writer
 
-    scene = Scene(dataset)
-    print(f"Output folder: {scene.model_path}", flush=True)
-    save_cfg_args(scene.model_path, args)
+    # a Blender scene without points3d.ply gets one written: by rank 0
+    with rank0_first() if dp else contextlib.nullcontext(True) as first:
+        scene = Scene(dataset)
+    if first:
+        print(f"Output folder: {scene.model_path}", flush=True)
+        save_cfg_args(scene.model_path, args)
 
-    trainer = GeometryTrainer(dataset, opt, pipe, scene, device=args.device)
+    trainer = GeometryTrainer(dataset, opt, pipe, scene, device=args.device,
+                              dp=dp)
     first_iter = 0
     if args.start_checkpoint:
         from .pipelines.checkpoint import load_checkpoint
         (trainer.params, trainer.opt_state, trainer.stats,
          first_iter) = load_checkpoint(args.start_checkpoint, trainer.device)
-        print(f"Resumed from {args.start_checkpoint} at iter {first_iter}",
-              flush=True)
-    gui = None
-    if not args.disable_viewer:
+        if first:
+            print(f"Resumed from {args.start_checkpoint} at iter "
+                  f"{first_iter}", flush=True)
+    gui = tb = None
+    if first and not args.disable_viewer:
         from .viewer.network_gui import NetworkGUI
         try:
             gui = NetworkGUI(args.ip, args.port)
         except OSError:
             pass        # the address is taken: train without the viewer
-    tb = maybe_summary_writer(scene.model_path)
+    if first:
+        tb = maybe_summary_writer(scene.model_path)
     try:
         trainer.train(
             opt.iterations, test_iterations=args.test_iterations,
@@ -100,13 +132,15 @@ def main(argv=None):
             first_iter=first_iter, progress=not args.quiet,
             on_iteration=(lambda it: gui.tick(trainer, pipe, dataset))
             if gui is not None else None, tb=tb,
-            tracer=TraceWindow(args.profile_trace, *args.profile_window))
+            tracer=TraceWindow(args.profile_trace if first else None,
+                               *args.profile_window))
     finally:
         if gui is not None:
             gui.close()
         if tb is not None:
             tb.close()
-    print("\nTraining complete.", flush=True)
+    if first:
+        print("\nTraining complete.", flush=True)
     return trainer
 
 

@@ -15,8 +15,12 @@ of the every-10th-step window, K3/K4), --mv_merged 1 (the window in one
 merged launch each way) and --sparse_px 1 (only the drawn pixels blend,
 K5/K6). --profile_trace DIR writes a torch.profiler trace of contrastive
 iterations [start, end) of --profile_window to DIR/trace_<start>_<end>.json
-(utils/profiling.py). --dp is refused with the item that brings it
-(ROADMAP A.1).
+(utils/profiling.py). --dp N trains on N ranks, one camera each per
+contrastive step, as the geometry CLI's --dp does (spawned by the CLI;
+NCCL over N GPUs, or gloo with --device cpu): rank 0 computes and writes
+the priors, the others load them; rank 0 saves and runs the HDBSCAN
+export, and main returns its summary (a dict) instead of the
+SegSplatting.
 """
 
 from __future__ import annotations
@@ -43,20 +47,46 @@ def parser() -> ArgumentParser:
 
 def main(argv=None):
     """Priors, contrastive training and the export; returns the
-    SegSplatting."""
+    SegSplatting, or with --dp N rank 0's summary of the N ranks
+    (_dp_rank)."""
     args = parser().parse_args(argv if argv is not None else sys.argv[1:])
+    if args.dp:
+        from .parallel.launch import launch
+        return launch(_dp_rank, args.dp, args, device=args.device)[0]
+    return _train(args)
+
+
+def _dp_rank(rank: int, world: int, device, args) -> dict:
+    """One rank of --dp: train, then rank 0's summary with every rank's
+    state digest, kernel launches and whether it computed or loaded the
+    priors."""
+    from .ops.blend_visits import LAUNCHES
+    from .parallel.data_parallel import gather_notes, state_digest
+    args.device = str(device)
+    seg = _train(args, dp=world)
+    notes = gather_notes({"rank": rank, "priors": seg.priors,
+                          "digest": state_digest(seg.params),
+                          "launches": dict(LAUNCHES)})
+    return {"model_path": seg.model_path,
+            "instances": int(seg.seg3d_masks.shape[1]),
+            "last_loss": seg.last_loss, "timings": seg.timings,
+            "ranks": notes}
+
+
+def _train(args, dp: int = 0):
     from .pipelines.train_semantic import SegSplatting
 
     segsplat = SegSplatting(ModelParams.extract(args),
                             OptimizationParams.extract(args),
                             PipelineParams.extract(args),
-                            dp=args.dp, device=args.device)
+                            dp=dp, device=args.device)
     if args.profile_trace:
         segsplat.profile_trace = args.profile_trace
         segsplat.profile_window = tuple(args.profile_window)
     segsplat.robust_semantic_priors()
     segsplat.train_segfeat()
-    print("\nTraining complete.", flush=True)
+    if segsplat.rank == 0:
+        print("\nTraining complete.", flush=True)
     return segsplat
 
 

@@ -137,7 +137,7 @@ def test_cli_writes_a_ply_jax_reads(scene, tmp_path):
     """python -m instascene_tpu_torch.train_semantic on the CPU: 10
     iterations into an absolute -m, with the save at the last; JAX
     load_ply(..., load_seg_feat=True) reads the features back;
-    --profile_trace writes its trace and --dp, of a later slice, raises."""
+    --profile_trace writes its trace."""
     import shutil
     from instascene_tpu.models.gaussians import load_ply
     from instascene_tpu_torch import train_semantic
@@ -155,8 +155,6 @@ def test_cli_writes_a_ply_jax_reads(scene, tmp_path):
                                atol=0)
     # the multi-view flags run since slice 4
     # (tests/test_torch_mv_step.py::test_cli_runs_with_each_flag)
-    with pytest.raises(NotImplementedError, match="A.1"):
-        train_semantic.main(common + ["--dp", "2"])
     trace = tmp_path / "trace"
     train_semantic.main(common + ["--iterations", "3", "--profile_trace",
                                   str(trace), "--profile_window", "1", "3"])

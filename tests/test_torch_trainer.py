@@ -134,8 +134,7 @@ def test_cli_on_cpu(scene_dir, tmp_path, monkeypatch, capsys):
     """python -m instascene_tpu_torch.train --device cpu: 20 iterations
     with a densify, a test report, a save and a checkpoint; the PLY loads
     in the JAX package with the trainer's alive count; a resume from the
-    checkpoint takes one more step; --profile_trace writes its trace and
-    --dp, of a later slice, is refused."""
+    checkpoint takes one more step; --profile_trace writes its trace."""
     from instascene_tpu.models.gaussians import load_ply
     from instascene_tpu_torch import train
     monkeypatch.chdir(tmp_path)
@@ -160,8 +159,6 @@ def test_cli_on_cpu(scene_dir, tmp_path, monkeypatch, capsys):
                                ck, "--test_iterations", "21"])
     assert tr2.opt_state.count == 21
     assert "Resumed from" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A.1"):
-        train.main(common + ["--dp", "2"])
     trace = tmp_path / "trace"
     train.main(common + ["--iterations", "3", "--test_iterations", "3",
                          "--profile_trace", str(trace), "--profile_window",
