@@ -80,8 +80,9 @@ lines; any failure exits non-zero and prints no result:
    K1 extras_only with a 32k-pixel done0 and without, K2 extras_only, the
    segment sum at D=16, K1 track, K5/K6 on 32k draws, K3/K4 on bench.py's
    128 tiles of each window view (with the chunks the JAX package's capped
-   mini bundles would cut) and K1/K2 tiles_per_view over the 5-view window
-   against their plain versions, timed, with their bounds;
+   mini bundles would cut; views 1-2 against the plain versions) and K1/K2
+   tiles_per_view over the 5-view window against their plain versions,
+   timed, with their bounds;
 7. the semantic path at full width: semantic_train_step with bench.py's
    inputs (3 warm-up and 20 timed plain steps, 3 warm-up and 6 timed
    steps with the 5-view window) with the stage split and the sustained
@@ -91,7 +92,9 @@ lines; any failure exits non-zero and prints no result:
    tile-subsampled (K3/K4), merged (K1/K2 tiles_per_view), and sparse
    pixels (K5/K6, 20 plain steps too; no dense fallback); the tracker
    view's s/view; then the semantic CLI (train_semantic.main) on a scene
-   written with the port's writers (the geometry CLI's 8 views,
+   written with the port's writers (a `trained` scene of SEM_CLI_N
+   gaussians, which every later path on this scene shares; the geometry
+   CLI's 8 views,
    point_cloud.ply, sam/mask maps from the port's tracker render):
    priors, 30 iterations, a save, the HDBSCAN export, launch counts reset
    just before main and read just after. It must find >= 2 instances and
@@ -177,6 +180,17 @@ lines; any failure exits non-zero and prints no result:
    at 1080p (E=16 and 8), K8 and K2 full at 976x728 (E=0 and 16), the
    gather's backward (and whether two runs are bit for bit equal),
    K1/K2 clip_rect and K3/K4 with their bounds;
+   then the bench (bench_phase): instascene_tpu_torch.bench.main in process
+   at full size (3 plain semantic steps, one warm-up iteration per path),
+   its one JSON line captured and printed: every number of its headline
+   and extras finite and > 0, each path's kernels launched in its window
+   (K1/K2 extras_only and the segment sum in the semantic steps, K3/K4 in
+   the tile-subsampled window, K1/K2 no_dist and full in the geometry
+   recipes, K1 full, viewer and track in the frames) and the 4K frame one
+   K1 full launch per frame; then that 4K frame's K1 launch (300k
+   `uniform` gaussians, camera 0, E=0) against its plain version (maps
+   within TOL, n_contrib on all but 1e-5 of the pixels), timed, with its
+   pair count and bound;
 9. one JSON line with the kernels' numbers, then the last line
    {"ok": true, "device": {...}}.
 """
@@ -1491,9 +1505,19 @@ def mesh_phase(root, model, ply, dev):
 # random 40-label segmap (rng(1)) and random 3D labels, batch 32k, 64
 # labels, lambda (sv 1e-6, mv 1e-6, 3D 2.5e-6), the 5-view window (views
 # 1-5) every 10th step; sustained it/s = 1 / (0.9 t_plain + 0.1 t_mv)
+# k3_views: the window views whose tile lists K3/K4 hold against their
+# plain versions in phase 6 (two of the five, for the 1,000 s budget;
+# every view still enters the merged window's bit-for-bit check)
 SEM = dict(width=976, height=728, cams=6, labels=40, batch=32 * 1024,
-           max_labels=64, warm=3, steps=20, mv_steps=6, n_mv=5, mv_k=128)
+           max_labels=64, warm=3, steps=20, mv_steps=6, n_mv=5, mv_k=128,
+           k3_views=2)
 SEM_CLI_ITERS = 30
+# the semantic CLI's scene, which every path reading it shares (the
+# COLMAP-camera click and render_views, the CLI variants, eval_scene's
+# semantic half, generate_masks, train_semantic --dp 1): the `trained`
+# profile at 150k gaussians, for the 1,000 s budget (on an H100 each of
+# the six HDBSCAN exports takes ~41 s over 300k, 14-15 s over 150k)
+SEM_CLI_N = 150_000
 # a reduced batch for the sparse CLI run that must launch K5/K6: the
 # tracker masks cover part of each frame, so at the reference's 32k the
 # draws crowd the covered tiles past the S slots pick_sparse_s sizes for
@@ -1846,16 +1870,18 @@ def semantic_frame_kernels(p, make_cam):
     del flat, b
     # K3/K4 on bench.py's 128 tiles of each window view, K1/K2
     # tiles_per_view over the whole window (views 1-5)
+    from instascene_tpu_torch.bench import bench_tiles
     from instascene_tpu_torch.ops.binning import merge_binnings, select_tiles
-    sel = bench_tiles(W, H)
+    sel = bench_tiles(W, H, DEVICE)
     views, capped, sub = [], 0, None
     for i, v in enumerate(range(1, 1 + SEM["n_mv"])):
         flat, b, _ = frame_inputs(p, make_cam(v, W, H), W, H, True)
         views.append((flat, b))
         capped += int(select_tiles(sel[i], b).jax_capped_chunks)
-        r = compare_selected(f"semantic-frame view {v}", flat, b, gx,
-                             sel[i], timing=i == 0)
-        sub = sub or r
+        if i < SEM["k3_views"]:
+            r = compare_selected(f"semantic-frame view {v}", flat, b, gx,
+                                 sel[i], timing=i == 0)
+            sub = sub or r
     print(f"[kernel] semantic-frame tile subsets: the JAX package's mini "
           f"bundles (8 chunks of 128 pairs per tile) would cut {capped} "
           f"chunks over the {SEM['n_mv']} views' {SEM['mv_k']} tiles; K3/K4 "
@@ -1873,58 +1899,6 @@ def semantic_frame_kernels(p, make_cam):
               f"{walk_note(r)}", flush=True)
     res.update(k3=sub, merged=mg, sparse=sp, jax_capped_chunks=capped)
     return res
-
-
-def bench_tiles(width, height):
-    """bench.py:258-263's tile subsets: SEM["mv_k"] sorted unique tiles per
-    window view from numpy's default_rng(7), as int32 on the card."""
-    import torch
-    nt = ((width + 15) // 16) * ((height + 15) // 16)
-    rng = np.random.default_rng(7)
-    return torch.as_tensor(np.stack([np.sort(rng.choice(
-        nt, SEM["mv_k"], replace=False)).astype(np.int32)
-        for _ in range(SEM["n_mv"])]), device=DEVICE)
-
-
-def semantic_inputs(st, make_cam, dev):
-    """bench.py's semantic inputs on the port: the 300k scene with its
-    features, six orbit cameras with their binning, the random 40-label
-    segmap as raw and sorted map, random 3D labels. Returns (params, cams,
-    hyp, scfg, pairs per view)."""
-    import torch
-    from instascene_tpu_torch.config import OptimizationParams
-    from instascene_tpu_torch.models.gaussians import from_numpy
-    from instascene_tpu_torch.models.optimizer import semantic_lrs
-    from instascene_tpu_torch.ops.rasterize import (RasterizeConfig,
-                                                    compute_binning_cache)
-    from instascene_tpu_torch.pipelines import train_semantic as ts
-    from instascene_tpu_torch.pipelines.train import camera_tensors
-    from instascene_tpu_torch.semantic.contrastive import valid_ids_pack
-    W, H = SEM["width"], SEM["height"]
-    p = from_numpy(st, dev)
-    rng = np.random.default_rng(1)
-    segmap = torch.as_tensor(rng.integers(0, SEM["labels"], (H, W)).astype(
-        np.int32), device=dev)
-    lab3d = torch.as_tensor(rng.integers(0, SEM["labels"], p.capacity).astype(
-        np.int32), device=dev)
-    seg_pack = valid_ids_pack(segmap.reshape(-1) > 0)
-    vis_pack = valid_ids_pack(lab3d > 0)
-    seg_nv, vis_nv = int(seg_pack[-1]), int(vis_pack[-1])
-    cams = []
-    for i in range(SEM["cams"]):
-        ct = camera_tensors(make_cam(i, W, H), dev)
-        binning = compute_binning_cache(p, ct.mats, W, H)
-        cams.append(ts.SemanticCamera(
-            ct.w2v, ct.full_proj, ct.campos, segmap, segmap, binning,
-            seg_pack, seg_pack, vis_pack, seg_nv, seg_nv, vis_nv))
-    hyp = ts.SemanticHypers(
-        bg=torch.zeros(3, device=dev),
-        lrs=semantic_lrs(OptimizationParams()), lam_sv=1e-6, lam_mv=1e-6,
-        lam_3d=2.5e-6, seg3d_labels=lab3d)
-    scfg = ts.SemanticStepConfig(
-        raster=RasterizeConfig(W, H, bwd_extras_only=True),
-        batch=SEM["batch"], max_labels=SEM["max_labels"])
-    return p, cams, hyp, scfg, [c.binning.total_pairs for c in cams]
 
 
 def sem_stages():
@@ -1998,6 +1972,7 @@ def semantic_phase(st, make_cam, dev):
     import torch
     from instascene_tpu_torch.models.optimizer import init_adam_state
     from instascene_tpu_torch.pipelines import train_semantic as ts
+    from instascene_tpu_torch.bench import bench_tiles, semantic_inputs
     W, H = SEM["width"], SEM["height"]
     p, cams, hyp, scfg, pairs = semantic_inputs(st, make_cam, dev)
     window = cams[1:1 + SEM["n_mv"]]
@@ -2024,7 +1999,8 @@ def semantic_phase(st, make_cam, dev):
     results.update(sustained_its=sustained, pairs=pairs)
 
     variants = (
-        ("tiles", scfg, ts.SemanticMVBlock(window, bench_tiles(W, H)),
+        ("tiles", scfg, ts.SemanticMVBlock(window,
+                                           bench_tiles(W, H, dev)),
          ("K3 extras_only", "K4 extras_only")),
         ("merged", dataclasses.replace(scfg, mv_merged=True), mv,
          ("K1 tiles_per_view", "K2 tiles_per_view")),
@@ -2791,6 +2767,7 @@ def padded_superset_phase(st, make_cam, dev):
     conic_cull at 1080p. Then each against its reference and the kernels
     timed with their bounds. Returns the numbers for the kernels' line."""
     import torch
+    from instascene_tpu_torch.bench import bench_tiles
     from instascene_tpu_torch.models.gaussians import from_numpy
     from instascene_tpu_torch.ops.rasterize import compute_binning_cache
     from instascene_tpu_torch.ops.rasterize_padded import (
@@ -2807,7 +2784,7 @@ def padded_superset_phase(st, make_cam, dev):
         orbit.orbit(400.0, 60.0)
         cams.append(orbit.minicam())
     sem0, sem1 = make_cam(0, SW, SH), make_cam(1, SW, SH)
-    sel = bench_tiles(SW, SH)[0]
+    sel = bench_tiles(SW, SH, dev)[0]
     res = {}
 
     # ---- the entry points, counted
@@ -3486,10 +3463,12 @@ def masks_phase(sem_root, tmp):
     return {"maps": len(labels), "s": t1 - t0}
 
 
-def residue_phase(st, make_cam, colmap_root, sem_root, dev):
+def residue_phase(st, make_cam, colmap_root, sem_root, sem_clusters, dev):
     """Slice 11's paths on the card, each with its own launch counts: the
     native COLMAP library, the Blender CLI with its profile trace,
-    eval_scene, align_coords, the video frames and generate_masks."""
+    eval_scene (its semantic half on sem_root, whose gaussians' true
+    clusters are sem_clusters), align_coords, the video frames and
+    generate_masks."""
     import torch
     from instascene_tpu_torch.models.gaussians import from_numpy
     tmp = tempfile.mkdtemp(prefix="chip_smoke_residue_")
@@ -3503,7 +3482,7 @@ def residue_phase(st, make_cam, colmap_root, sem_root, dev):
         bl = blender_phase(p, tmp, dev)
         secs["blender CLI"] = time.perf_counter() - t
         t = time.perf_counter()
-        ev = eval_scene_phase(colmap_root, sem_root, make_cam.clusters, tmp)
+        ev = eval_scene_phase(colmap_root, sem_root, sem_clusters, tmp)
         secs["eval_scene"] = time.perf_counter() - t
         t = time.perf_counter()
         al = align_phase(st, tmp, dev)
@@ -3681,6 +3660,7 @@ def dp_semantic(rank, world, dev, st, make_cam):
     from instascene_tpu_torch.models.optimizer import init_adam_state
     from instascene_tpu_torch.parallel.data_parallel import (dp_semantic_step,
                                                              state_digest)
+    from instascene_tpu_torch.bench import semantic_inputs
     from instascene_tpu_torch.pipelines import train_semantic as ts
     p, cams, hyp, scfg, _ = semantic_inputs(st, make_cam, dev)
     cams = cams[:world]
@@ -4015,6 +3995,83 @@ def dp_phase(colmap_root, cli_ply, sem_root, tmp, smi_line):
     return res
 
 
+# the bench (instascene_tpu_torch/bench.py) in process at full size, cut to
+# 3 plain semantic steps and one warm-up iteration per path
+BENCH_ARGS = ["--iters", "3", "--warmup", "1"]
+# the kernels each bench path must launch in its timed window
+BENCH_MUST = {
+    "semantic_plain": ("K1 extras_only", "K2 extras_only", "segment_sum"),
+    "semantic_mv": ("K1 extras_only", "K2 extras_only", "segment_sum"),
+    "semantic_mv_sub": ("K3 extras_only", "K4 extras_only", "segment_sum"),
+    "geometry": ("K1 no_dist", "K2 no_dist", "segment_sum"),
+    "geometry_dist": ("K1 full", "K2 full", "segment_sum"),
+    "render_1080p": ("K1 full",), "gui_1080p": ("K1 viewer",),
+    "render_4k": ("K1 full",), "tracker": ("K1 track",),
+    "trained_render_1080p": ("K1 full",),
+    "trained_gui_1080p": ("K1 viewer",),
+    "trained_geometry": ("K1 no_dist", "K2 no_dist", "segment_sum")}
+
+
+def bench_phase(dev):
+    """bench.main with BENCH_ARGS, its JSON line captured: exactly one line,
+    every number under "value", "vs_baseline" and "extra" finite and > 0,
+    each path's kernels (BENCH_MUST) launched in its window, and the 4K
+    frame one K1 `full` launch per frame. Then the 4K frame's K1 launch
+    (the uniform scene, camera 0, E=0, as the bench renders it) against its
+    plain version, timed, with its bound. Returns the line, the 4K
+    comparison and the bench's launches summed by kernel and mode."""
+    import contextlib
+    import io
+
+    import torch
+    from instascene_tpu_torch import bench
+    from instascene_tpu_torch.data.synthetic import make_bench_scene
+    from instascene_tpu_torch.models.gaussians import from_numpy
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        line = bench.main(BENCH_ARGS)
+    out = buf.getvalue().strip().splitlines()
+    check(len(out) == 1 and json.loads(out[0])["extra"] == line["extra"],
+          f"the bench printed {len(out)} lines, not its one JSON line")
+    print(f"[bench] {out[0]}", flush=True)
+    values = {"value": line["value"], "vs_baseline": line["vs_baseline"],
+              **line["extra"]}
+    for k, v in values.items():
+        check(isinstance(v, float) and np.isfinite(v) and v > 0,
+              f"bench {k} = {v}")
+    launched = {}
+    for path, must in BENCH_MUST.items():
+        got = line["paths"][path]["launches"]
+        for k in must:
+            check(got.get(k, 0) > 0, f"bench path {path} never launched {k}")
+        for k, v in got.items():
+            launched[k] = launched.get(k, 0) + v
+    r4 = line["paths"]["render_4k"]
+    check(r4["launches"] == {"K1 full": r4["samples"]},
+          f"the 4K frames launched {r4['launches']}, not one K1 full each")
+    print("[bench] " + ", ".join(f"{k} {v:.4g}" for k, v in values.items())
+          + f"; pairs 1080p {line['pairs']['render_1080p']}, 4K "
+          f"{line['pairs']['render_4k']}; peak memory "
+          f"{line['peak_memory_bytes']} bytes", flush=True)
+
+    st, make_cam = make_bench_scene(n=FULL["n"], seed=0)
+    W, H = bench.FRAME_4K
+    with torch.no_grad():
+        flat, b, gx = frame_inputs(from_numpy(st, dev), make_cam(0, W, H), W,
+                                   H, False)
+        r = compare_kernel("4K", flat, b, gx, 0, "full", exact=False,
+                           timing=True)
+    r["pairs"] = b.total_pairs
+    print(f"[bench] 4K full E=0 ({W}x{H}, one launch): pairs {b.total_pairs}"
+          f"; K1 {r['ms']:.4f} ms, plain {r['plain_ms']:.1f} ms, bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bytes']} bytes, "
+          f"{r['evals']} of at most {r['max_evals']} evaluations, "
+          f"{r['hits']} contributions, {r['ops']} FP32 ops)"
+          f"{walk_note(r)}; n_contrib mismatches {r['mism']} of {W * H}",
+          flush=True)
+    return {"line": line, "k1_4k": r, "launches": launched}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4199,7 +4256,9 @@ def main() -> int:
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        sem_cli = semantic_cli_phase(st, make_cam, tmp)
+        st_sem, make_cam_sem = make_bench_scene(n=SEM_CLI_N, seed=0,
+                                                profile="trained")
+        sem_cli = semantic_cli_phase(st_sem, make_cam_sem, tmp)
         # ---- 7b. COLMAP cameras and the per-view exports on its scene
         t_views = time.perf_counter()
         views = colmap_views_phase(sem_cli, tmp)
@@ -4241,7 +4300,7 @@ def main() -> int:
         # ---- 7c. slice 11's host residue on the two CLIs' scenes
         t_phase = time.perf_counter()
         residue = residue_phase(st, make_cam, colmap_root, sem_cli["root"],
-                                dev)
+                                make_cam_sem.clusters, dev)
         phase_s["host residue"] = time.perf_counter() - t_phase
         # ---- 7d. data parallelism on the two CLIs' scenes
         t_phase = time.perf_counter()
@@ -4262,6 +4321,11 @@ def main() -> int:
     t_phase = time.perf_counter()
     pad = padded_superset_phase(st, make_cam, dev)
     phase_s["padded and cached superset"] = time.perf_counter() - t_phase
+
+    # ---- 8b. the bench's paths, and its 4K frame's K1 launch
+    t_phase = time.perf_counter()
+    bp = bench_phase(dev)
+    phase_s["bench"] = time.perf_counter() - t_phase
     print("[phases] seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_s.items()), flush=True)
 
@@ -4304,10 +4368,18 @@ def main() -> int:
     sg = k2_train["no_dist"]["segment_sum"]
     dpl = {k: dict(v) for k, v in dp["launches"].items()}
     dpn = lambda path, k: dpl[path].get(k, 0)
+    # the bench's launches by kernel and mode: its geometry paths' segment
+    # sums beside the training paths', its semantic paths' beside theirs
+    bl_ = lambda k: bp["launches"].get(k, 0)
+    bench_paths = bp["line"]["paths"]
+    bench_sum = lambda prefix: sum(
+        r["launches"].get("segment_sum", 0) for name, r in bench_paths.items()
+        if name.startswith(prefix))
     viewer_paths = {"serving": serve["K1 viewer"],
                     "editing": edit["launches"]["K1 viewer"],
                     "render_views": views["launches"]["K1 viewer"],
-                    "dp_sharded_render": dpn("render viewer", "K1 viewer")}
+                    "dp_sharded_render": dpn("render viewer", "K1 viewer"),
+                    "bench": bl_("K1 viewer")}
     bl, ev = residue["blender"], residue["eval_scene"]
     full_paths = {"serving": serve["K1 full"],
                   "training": train_counts["K1 full"],
@@ -4319,23 +4391,29 @@ def main() -> int:
                   "video_frames": residue["video"]["launches"]["K1 full"],
                   "dp_geometry": dpn("geometry full", "K1 full"),
                   "dp_sharded_render": dpn("render full", "K1 full"),
-                  "dp1_train_cli": dpn("train --dp 1", "K1 full")}
+                  "dp1_train_cli": dpn("train --dp 1", "K1 full"),
+                  "bench": bl_("K1 full")}
     no_dist_paths = {
         k: {"training": train_counts[k], "blender_cli": bl["launches"][k],
             "eval_scene": ev["geometry"]["launches"][k],
             "dp_geometry": dpn("geometry no_dist", k),
-            "dp1_train_cli": dpn("train --dp 1", k)}
+            "dp1_train_cli": dpn("train --dp 1", k), "bench": bl_(k)}
         for k in ("K1 no_dist", "K2 no_dist", "segment_sum")}
     # the DP steps in `full` sum too; then the semantic paths' kernels
     no_dist_paths["segment_sum"]["dp_geometry"] += dpn("geometry full",
                                                        "segment_sum")
+    no_dist_paths["segment_sum"]["bench"] = (bench_sum("geometry")
+                                             + bench_sum("trained_geometry"))
     k2_full_paths = {"training": train_counts["K2 full"],
-                     "dp_geometry": dpn("geometry full", "K2 full")}
+                     "dp_geometry": dpn("geometry full", "K2 full"),
+                     "bench": bl_("K2 full")}
     sem_paths = {k: {"semantic_cli": sem_counts[k],
                      "dp_semantic": dpn("semantic", k),
-                     "dp1_semantic_cli": dpn("train_semantic --dp 1", k)}
+                     "dp1_semantic_cli": dpn("train_semantic --dp 1", k),
+                     "bench": bl_(k)}
                  for k in ("K1 extras_only", "K1 track", "K2 extras_only",
                            "segment_sum")}
+    sem_paths["segment_sum"]["bench"] = bench_sum("semantic")
     trace_ms = bl["trace_median_ms"]
     kernels = [
         dict(k1_entry("viewer", full[(16, "viewer")], where_1080,
@@ -4422,10 +4500,15 @@ def main() -> int:
     kernels += [
         entry("blend_fwd (K3: tile list)", "blend_fwd.cu",
               "instascene_tpu/ops/blend_pallas.py:546", tiles,
-              ct["K3 extras_only"], sem_k["k3"]),
+              ct["K3 extras_only"] + bl_("K3 extras_only"), sem_k["k3"],
+              launches_by_path={"semantic_cli": ct["K3 extras_only"],
+                                "bench": bl_("K3 extras_only")}),
         entry("blend_bwd (K4: tile list)", "blend_bwd.cu",
               "instascene_tpu/ops/blend_pallas.py:785", tiles,
-              ct["K4 extras_only"], sem_k["k3"]["k2"]),
+              ct["K4 extras_only"] + bl_("K4 extras_only"),
+              sem_k["k3"]["k2"],
+              launches_by_path={"semantic_cli": ct["K4 extras_only"],
+                                "bench": bl_("K4 extras_only")}),
         entry("sparse_fwd (K5)", "blend_sparse.cu",
               "instascene_tpu/ops/blend_sparse.py:146", draws, ct["K5"],
               sem_k["sparse"]["k5"], **ref_batch("K5")),
@@ -4490,6 +4573,14 @@ def main() -> int:
               "instascene_tpu/ops/blend_pallas.py:785", f"full {t1}",
               pl["K4 full"], pad["tiles"]["k4"])]
     kernels[1]["ms_E8"] = k7["k1_ms_E8"]
+    r4 = bp["k1_4k"]
+    kernels.append(dict(
+        k1_entry("full", r4, f"E=0, {bench_paths['render_4k']['samples']} "
+                 f"frames of the bench's 3840x2160 path (uniform profile, "
+                 f"{r4['pairs']} pairs), one launch each",
+                 bench_paths["render_4k"]["launches"]["K1 full"]),
+        launches_by_path={"bench_4k": bench_paths["render_4k"]["launches"][
+            "K1 full"]}))
     variants = {k: {"window_step_median_ms": sem[k]["mv"]["median_ms"],
                     "plain_step_median_ms": (sem[k]["plain"]["median_ms"]
                                              if "plain" in sem[k] else None),
@@ -4504,6 +4595,8 @@ def main() -> int:
         "jax_capped_chunks": sem_k["jax_capped_chunks"],
         "conic_cull_1080p": pad["conic"],
         "tracker_s_per_view": sem["tracker_s"],
+        "bench": {k: bp["line"][k] for k in ("value", "vs_baseline",
+                                             "extra", "pairs", "device")},
         "mesh_export": mesh,
         "editing": {k: v for k, v in edit.items() if k != "launches"},
         "network_viewer_tick_s": net["tick_s"],
