@@ -1,0 +1,7 @@
+"""geometry_stage_ms.render: device ms of the step's "render" stage, from the
+previous on_stage mark to its own (CUDA events), mean per step."""
+from benchmark import readers
+
+
+def read(rec):
+    return readers.stage_ms(rec, "render")
