@@ -48,6 +48,7 @@ from typing import NamedTuple
 import torch
 
 from .preprocess import TILE, PreprocessOut, popcount32, word_of_i32
+from ..utils.profiling import span
 
 PAD_ALIGN = 128   # padded_layout's K is a multiple of this (the JAX chunk)
 
@@ -124,65 +125,70 @@ def bin_gaussians(pre: PreprocessOut, width: int, height: int,
     exactly through K1/K2's clip_rect gate. With pre's conic-cull masks
     (preprocess_gaussians(conic_cull=True)) and no dilation, each
     gaussian's pairs cover only its kept rect offsets."""
-    dev = pre.depth.device
-    grid_x = (width + TILE - 1) // TILE
-    grid_y = (height + TILE - 1) // TILE
-    num_tiles = grid_x * grid_y
-    n = pre.depth.shape[0]
+    with span("binning"):
+        dev = pre.depth.device
+        grid_x = (width + TILE - 1) // TILE
+        grid_y = (height + TILE - 1) // TILE
+        num_tiles = grid_x * grid_y
+        n = pre.depth.shape[0]
 
-    tiles_touched = pre.tiles_touched.detach()
-    rect_min, rect_max = pre.rect_min, pre.rect_max
-    if dilate_tiles:
-        rect_min, rect_max, tiles_touched = dilate_rects(
-            rect_min, rect_max, tiles_touched, grid_x, grid_y, dilate_tiles)
-    depth = pre.depth.detach()
-    total = int(tiles_touched.sum())          # the frame's one host read
-    if total == 0:
-        z = torch.zeros(num_tiles, dtype=torch.int32, device=dev)
-        none = torch.zeros(0, dtype=torch.int32, device=dev)
-        return BinningOut(none, z, z.clone(), 0, none.clone(),
-                          torch.zeros(n + 1, dtype=torch.int32, device=dev))
+        tiles_touched = pre.tiles_touched.detach()
+        rect_min, rect_max = pre.rect_min, pre.rect_max
+        if dilate_tiles:
+            rect_min, rect_max, tiles_touched = dilate_rects(
+                rect_min, rect_max, tiles_touched, grid_x, grid_y,
+                dilate_tiles)
+        depth = pre.depth.detach()
+        total = int(tiles_touched.sum())          # the frame's one host read
+        if total == 0:
+            z = torch.zeros(num_tiles, dtype=torch.int32, device=dev)
+            none = torch.zeros(0, dtype=torch.int32, device=dev)
+            return BinningOut(none, z, z.clone(), 0, none.clone(),
+                              torch.zeros(n + 1, dtype=torch.int32,
+                                          device=dev))
 
-    depth_bits = depth_bits_for(grid_x, grid_y)
-    g_valid = tiles_touched > 0
-    inf = torch.tensor(float("inf"), device=dev)
-    dmin = torch.min(torch.where(g_valid, depth, inf))
-    dmax = torch.max(torch.where(g_valid, depth, -inf))
-    dqg = torch.clamp((depth - dmin) / torch.clamp(dmax - dmin, min=1e-12),
-                      0.0, 1.0)
-    dqg = torch.clamp((dqg * float((1 << depth_bits) - 1)).to(torch.int32),
-                      0, (1 << depth_bits) - 1)
+        depth_bits = depth_bits_for(grid_x, grid_y)
+        g_valid = tiles_touched > 0
+        inf = torch.tensor(float("inf"), device=dev)
+        dmin = torch.min(torch.where(g_valid, depth, inf))
+        dmax = torch.max(torch.where(g_valid, depth, -inf))
+        dqg = torch.clamp((depth - dmin) / torch.clamp(dmax - dmin, min=1e-12),
+                          0.0, 1.0)
+        dqg = torch.clamp((dqg * float((1 << depth_bits) - 1)).to(torch.int32),
+                          0, (1 << depth_bits) - 1)
 
-    # interval expand: slot j of gaussian g covers rect offset j - offset[g]
-    counts = tiles_touched.to(torch.int64)
-    offsets = torch.cumsum(counts, 0) - counts
-    gid = torch.repeat_interleave(torch.arange(n, device=dev), counts,
-                                  output_size=total)
-    rank = torch.arange(total, device=dev) - offsets[gid]
-    if pre.cull_lo is not None and not dilate_tiles:
-        rank = _culled_offsets(rank, word_of_i32(pre.cull_lo)[gid],
-                               word_of_i32(pre.cull_hi)[gid])
-    rmin = rect_min.to(torch.int64)[gid]
-    rw = torch.clamp(rect_max[:, 0] - rect_min[:, 0],
-                     min=1).to(torch.int64)[gid]
-    dy = rank // rw
-    dx = rank - dy * rw
-    tile_id = (rmin[:, 1] + dy) * grid_x + (rmin[:, 0] + dx)
+        # interval expand: slot j of gaussian g covers rect offset
+        # j - offset[g]
+        counts = tiles_touched.to(torch.int64)
+        offsets = torch.cumsum(counts, 0) - counts
+        gid = torch.repeat_interleave(torch.arange(n, device=dev), counts,
+                                      output_size=total)
+        rank = torch.arange(total, device=dev) - offsets[gid]
+        if pre.cull_lo is not None and not dilate_tiles:
+            rank = _culled_offsets(rank, word_of_i32(pre.cull_lo)[gid],
+                                   word_of_i32(pre.cull_hi)[gid])
+        rmin = rect_min.to(torch.int64)[gid]
+        rw = torch.clamp(rect_max[:, 0] - rect_min[:, 0],
+                         min=1).to(torch.int64)[gid]
+        dy = rank // rw
+        dx = rank - dy * rw
+        tile_id = (rmin[:, 1] + dy) * grid_x + (rmin[:, 0] + dx)
 
-    key = tile_id * (1 << depth_bits) + dqg.to(torch.int64)[gid]
-    sorted_key, order = torch.sort(key, stable=True)
-    sorted_gid = gid[order].to(torch.int32)
-    bounds = torch.searchsorted(
-        sorted_key >> depth_bits,
-        torch.arange(num_tiles + 1, dtype=torch.int64, device=dev),
-        side="left").to(torch.int32)
-    gid_order = torch.empty(total, dtype=torch.int32, device=dev)
-    gid_order[order] = torch.arange(total, dtype=torch.int32, device=dev)
-    run_start = torch.cat([offsets, offsets.new_tensor([total])])
-    return BinningOut(sorted_gid=sorted_gid, tile_start=bounds[:-1].contiguous(),
-                      tile_end=bounds[1:].contiguous(), total_pairs=total,
-                      gid_order=gid_order,
-                      run_start=run_start.to(torch.int32))
+        key = tile_id * (1 << depth_bits) + dqg.to(torch.int64)[gid]
+        sorted_key, order = torch.sort(key, stable=True)
+        sorted_gid = gid[order].to(torch.int32)
+        bounds = torch.searchsorted(
+            sorted_key >> depth_bits,
+            torch.arange(num_tiles + 1, dtype=torch.int64, device=dev),
+            side="left").to(torch.int32)
+        gid_order = torch.empty(total, dtype=torch.int32, device=dev)
+        gid_order[order] = torch.arange(total, dtype=torch.int32, device=dev)
+        run_start = torch.cat([offsets, offsets.new_tensor([total])])
+        return BinningOut(sorted_gid=sorted_gid,
+                          tile_start=bounds[:-1].contiguous(),
+                          tile_end=bounds[1:].contiguous(), total_pairs=total,
+                          gid_order=gid_order,
+                          run_start=run_start.to(torch.int32))
 
 
 def padded_layout(binning: BinningOut):

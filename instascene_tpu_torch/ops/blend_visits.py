@@ -45,6 +45,7 @@ import torch
 
 from .. import cuda_build
 from .preprocess import FAR_N, FILTER_INV_SQUARE, NEAR_N, TILE, cross, fma
+from ..utils.profiling import span
 
 P2 = TILE * TILE
 _TW, _XY, _NRM, _OPA, _COL, _EXT = 9, 12, 14, 17, 18, 21
@@ -823,22 +824,26 @@ class BlendFunction(torch.autograd.Function):
     def backward(ctx, gout, _giout):
         (flat, sorted_gid, tile_start, tile_end, gid_order, run_start, iout,
          saved, tile_ids) = ctx.saved_tensors
-        d_sorted = blend_bwd(flat, sorted_gid, tile_start, tile_end,
-                             ctx.grid_x, ctx.n_extra, gout.contiguous(),
-                             saved, iout, no_dist=ctx.no_dist,
-                             extras_only=ctx.extras_only, tile_ids=tile_ids,
-                             tiles_per_view=ctx.tiles_per_view,
-                             clip_rect=ctx.clip_rect)
-        d_flat = reduce_per_gaussian(d_sorted, sorted_gid, flat.shape[0],
-                                     (gid_order, run_start))
-        if ctx.extras_only:
-            # pixels done0 latched have n_contrib 0: no mask input needed;
-            # clip_rect's rect columns take no gradient
-            n = flat.shape[0]
-            d_flat = torch.cat(
-                [d_flat.new_zeros((n, _EXT)), d_flat]
-                + ([d_flat.new_zeros((n, RECT))] if ctx.clip_rect else []),
-                dim=1)
+        # on CUDA tensors autograd runs this on its device thread: the span
+        # nests in the span the waiting thread is in (utils/profiling.py)
+        with span("raster"):
+            d_sorted = blend_bwd(flat, sorted_gid, tile_start, tile_end,
+                                 ctx.grid_x, ctx.n_extra, gout.contiguous(),
+                                 saved, iout, no_dist=ctx.no_dist,
+                                 extras_only=ctx.extras_only,
+                                 tile_ids=tile_ids,
+                                 tiles_per_view=ctx.tiles_per_view,
+                                 clip_rect=ctx.clip_rect)
+            d_flat = reduce_per_gaussian(d_sorted, sorted_gid, flat.shape[0],
+                                         (gid_order, run_start))
+            if ctx.extras_only:
+                # pixels done0 latched have n_contrib 0: no mask input
+                # needed; clip_rect's rect columns take no gradient
+                n = flat.shape[0]
+                d_flat = torch.cat(
+                    [d_flat.new_zeros((n, _EXT)), d_flat]
+                    + ([d_flat.new_zeros((n, RECT))] if ctx.clip_rect
+                       else []), dim=1)
         return (d_flat,) + (None,) * 13
 
 

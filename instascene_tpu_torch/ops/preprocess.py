@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .sh import sh_to_color
+from ..utils.profiling import span
 
 NEAR_N = 0.2
 FAR_N = 100.0
@@ -155,127 +156,128 @@ def preprocess_gaussians(
     of a full_height-tall image into local rows [0, height): the NDC
     mapping uses the full image, the rect and tile clamps the slab. None
     leaves every other path as it was, bit for bit."""
-    f32 = torch.float32
-    dev = xyz.device
-    xyz = xyz.to(f32)
-    w2v = w2v.to(f32)
+    with span("preprocess"):
+        f32 = torch.float32
+        dev = xyz.device
+        xyz = xyz.to(f32)
+        w2v = w2v.to(f32)
 
-    p_view = _rows(xyz, w2v[:3, :3]) + w2v[:3, 3]
-    in_frustum = p_view[:, 2] > 0.2
+        p_view = _rows(xyz, w2v[:3, :3]) + w2v[:3, 3]
+        in_frustum = p_view[:, 2] > 0.2
 
-    R = quat_to_rotmat(rotation.to(f32))
-    su = scaling[:, 0:1].to(f32)
-    sv = scaling[:, 1:2].to(f32)
-    axis_u = R[:, :, 0] * su
-    axis_v = R[:, :, 1] * sv
-    normal_world = R[:, :, 2]
+        R = quat_to_rotmat(rotation.to(f32))
+        su = scaling[:, 0:1].to(f32)
+        sv = scaling[:, 1:2].to(f32)
+        axis_u = R[:, :, 0] * su
+        axis_v = R[:, :, 1] * sv
+        normal_world = R[:, :, 2]
 
-    n2p = ndc2pix_rows(width, full_height or height, dev, y_offset)
-    fp = full_proj.to(f32)
-    n2p_full = n2p[:, 0:1] * fp[0:1]                          # [3,4]
-    for k in range(1, 4):
-        n2p_full = fma(n2p[:, k:k + 1], fp[k:k + 1], n2p_full)
-    Tu_col = _rows(axis_u, n2p_full[:, :3])
-    Tv_col = _rows(axis_v, n2p_full[:, :3])
-    Tc_col = _rows(xyz, n2p_full[:, :3]) + n2p_full[:, 3]
-    T = torch.stack([Tu_col, Tv_col, Tc_col], dim=-1)          # [N,3,3]
+        n2p = ndc2pix_rows(width, full_height or height, dev, y_offset)
+        fp = full_proj.to(f32)
+        n2p_full = n2p[:, 0:1] * fp[0:1]                          # [3,4]
+        for k in range(1, 4):
+            n2p_full = fma(n2p[:, k:k + 1], fp[k:k + 1], n2p_full)
+        Tu_col = _rows(axis_u, n2p_full[:, :3])
+        Tv_col = _rows(axis_v, n2p_full[:, :3])
+        Tc_col = _rows(xyz, n2p_full[:, :3]) + n2p_full[:, 3]
+        T = torch.stack([Tu_col, Tv_col, Tc_col], dim=-1)          # [N,3,3]
 
-    normal_view = _rows(normal_world, w2v[:3, :3])
-    cos = -_sum3(p_view * normal_view)
-    multiplier = torch.where(cos > 0, 1.0, -1.0)
-    normal_view = normal_view * multiplier[:, None]
+        normal_view = _rows(normal_world, w2v[:3, :3])
+        cos = -_sum3(p_view * normal_view)
+        multiplier = torch.where(cos > 0, 1.0, -1.0)
+        normal_view = normal_view * multiplier[:, None]
 
-    # 3σ AABB and low-pass center; near-degenerate d is culled relative to
-    # the magnitude of Tw and the center clamped into a finite range
-    t_vec = torch.tensor([CUTOFF * CUTOFF, CUTOFF * CUTOFF, -1.0],
-                         dtype=f32, device=dev)
-    Tw = T[:, 2, :]
-    d_scale = _sum3(torch.abs(t_vec) * Tw * Tw)
-    d_ok, center_x, center_y, h0x, h0y = _conic_box(t_vec, T, d_scale)
-    ext_x = torch.sqrt(torch.clamp(h0x, 1e-4, 1e14))
-    ext_y = torch.sqrt(torch.clamp(h0y, 1e-4, 1e14))
-    finite = (torch.isfinite(center_x) & torch.isfinite(center_y)
-              & torch.isfinite(ext_x) & torch.isfinite(ext_y))
-    zero = torch.zeros_like(center_x)
-    center_x = torch.where(finite, center_x, zero)
-    center_y = torch.where(finite, center_y, zero)
-    ext_x = torch.where(finite, ext_x, zero)
-    ext_y = torch.where(finite, ext_y, zero)
-    xy = torch.stack([center_x, center_y], dim=-1)
-    radius = torch.ceil(torch.clamp(torch.maximum(ext_x, ext_y),
-                                    min=CUTOFF * FILTER_SIZE))
+        # 3σ AABB and low-pass center; near-degenerate d is culled relative to
+        # the magnitude of Tw and the center clamped into a finite range
+        t_vec = torch.tensor([CUTOFF * CUTOFF, CUTOFF * CUTOFF, -1.0],
+                             dtype=f32, device=dev)
+        Tw = T[:, 2, :]
+        d_scale = _sum3(torch.abs(t_vec) * Tw * Tw)
+        d_ok, center_x, center_y, h0x, h0y = _conic_box(t_vec, T, d_scale)
+        ext_x = torch.sqrt(torch.clamp(h0x, 1e-4, 1e14))
+        ext_y = torch.sqrt(torch.clamp(h0y, 1e-4, 1e14))
+        finite = (torch.isfinite(center_x) & torch.isfinite(center_y)
+                  & torch.isfinite(ext_x) & torch.isfinite(ext_y))
+        zero = torch.zeros_like(center_x)
+        center_x = torch.where(finite, center_x, zero)
+        center_y = torch.where(finite, center_y, zero)
+        ext_x = torch.where(finite, ext_x, zero)
+        ext_y = torch.where(finite, ext_y, zero)
+        xy = torch.stack([center_x, center_y], dim=-1)
+        radius = torch.ceil(torch.clamp(torch.maximum(ext_x, ext_y),
+                                        min=CUTOFF * FILTER_SIZE))
 
-    # tight per-axis tile rect of the 3σ ellipse
-    rx = torch.ceil(torch.clamp(ext_x, min=CUTOFF * FILTER_SIZE))
-    ry = torch.ceil(torch.clamp(ext_y, min=CUTOFF * FILTER_SIZE))
-    tile = TILE
-    grid_x = (width + tile - 1) // tile
-    grid_y = (height + tile - 1) // tile
-    rmin_x = torch.clamp(torch.floor((xy[:, 0] - rx) / tile), 0, grid_x)
-    rmin_y = torch.clamp(torch.floor((xy[:, 1] - ry) / tile), 0, grid_y)
-    rmax_x = torch.clamp(torch.floor((xy[:, 0] + rx + tile - 1) / tile),
-                         0, grid_x)
-    rmax_y = torch.clamp(torch.floor((xy[:, 1] + ry + tile - 1) / tile),
-                         0, grid_y)
+        # tight per-axis tile rect of the 3σ ellipse
+        rx = torch.ceil(torch.clamp(ext_x, min=CUTOFF * FILTER_SIZE))
+        ry = torch.ceil(torch.clamp(ext_y, min=CUTOFF * FILTER_SIZE))
+        tile = TILE
+        grid_x = (width + tile - 1) // tile
+        grid_y = (height + tile - 1) // tile
+        rmin_x = torch.clamp(torch.floor((xy[:, 0] - rx) / tile), 0, grid_x)
+        rmin_y = torch.clamp(torch.floor((xy[:, 1] - ry) / tile), 0, grid_y)
+        rmax_x = torch.clamp(torch.floor((xy[:, 0] + rx + tile - 1) / tile),
+                             0, grid_x)
+        rmax_y = torch.clamp(torch.floor((xy[:, 1] + ry + tile - 1) / tile),
+                             0, grid_y)
 
-    opa = torch.clamp(torch.reshape(opacity, (-1,)).to(f32), 1e-12, 1.0)
-    thr = torch.clamp(2.0 * torch.log(255.0 * opa), 0.72, CUTOFF * CUTOFF)
-    t_thr = torch.stack([thr, thr, -torch.ones_like(thr)], -1)
-    dt_ok, ctx, cty, h0x_t, h0y_t = _conic_box(t_thr, T, d_scale)
-    ext_tx = torch.sqrt(torch.clamp(h0x_t, 1e-4, 1e14))
-    ext_ty = torch.sqrt(torch.clamp(h0y_t, 1e-4, 1e14))
-    ok_t = (dt_ok & torch.isfinite(ctx) & torch.isfinite(cty)
-            & torch.isfinite(ext_tx) & torch.isfinite(ext_ty)
-            & (thr < 8.99))
-    r2d = torch.sqrt(thr / FILTER_INV_SQUARE)
-    # 0.5-px guard for f32 rounding; the tile-floor conversion of the
-    # fractional upper bound is a true ceil (floor(hi / tile) + 1)
-    pad = 0.5
-    lo_x = torch.minimum(ctx - ext_tx, xy[:, 0] - r2d) - pad
-    hi_x = torch.maximum(ctx + ext_tx, xy[:, 0] + r2d) + pad
-    lo_y = torch.minimum(cty - ext_ty, xy[:, 1] - r2d) - pad
-    hi_y = torch.maximum(cty + ext_ty, xy[:, 1] + r2d) + pad
-    cmin_x = torch.maximum(rmin_x, torch.clamp(torch.floor(lo_x / tile),
-                                               0, grid_x))
-    cmin_y = torch.maximum(rmin_y, torch.clamp(torch.floor(lo_y / tile),
-                                               0, grid_y))
-    cmax_x = torch.minimum(rmax_x, torch.clamp(
-        torch.floor(hi_x / tile) + 1, 0, grid_x))
-    cmax_y = torch.minimum(rmax_y, torch.clamp(
-        torch.floor(hi_y / tile) + 1, 0, grid_y))
-    b_rmin_x = torch.where(ok_t, cmin_x, rmin_x)
-    b_rmin_y = torch.where(ok_t, cmin_y, rmin_y)
-    b_rmax_x = torch.where(ok_t, torch.maximum(cmax_x, cmin_x), rmax_x)
-    b_rmax_y = torch.where(ok_t, torch.maximum(cmax_y, cmin_y), rmax_y)
+        opa = torch.clamp(torch.reshape(opacity, (-1,)).to(f32), 1e-12, 1.0)
+        thr = torch.clamp(2.0 * torch.log(255.0 * opa), 0.72, CUTOFF * CUTOFF)
+        t_thr = torch.stack([thr, thr, -torch.ones_like(thr)], -1)
+        dt_ok, ctx, cty, h0x_t, h0y_t = _conic_box(t_thr, T, d_scale)
+        ext_tx = torch.sqrt(torch.clamp(h0x_t, 1e-4, 1e14))
+        ext_ty = torch.sqrt(torch.clamp(h0y_t, 1e-4, 1e14))
+        ok_t = (dt_ok & torch.isfinite(ctx) & torch.isfinite(cty)
+                & torch.isfinite(ext_tx) & torch.isfinite(ext_ty)
+                & (thr < 8.99))
+        r2d = torch.sqrt(thr / FILTER_INV_SQUARE)
+        # 0.5-px guard for f32 rounding; the tile-floor conversion of the
+        # fractional upper bound is a true ceil (floor(hi / tile) + 1)
+        pad = 0.5
+        lo_x = torch.minimum(ctx - ext_tx, xy[:, 0] - r2d) - pad
+        hi_x = torch.maximum(ctx + ext_tx, xy[:, 0] + r2d) + pad
+        lo_y = torch.minimum(cty - ext_ty, xy[:, 1] - r2d) - pad
+        hi_y = torch.maximum(cty + ext_ty, xy[:, 1] + r2d) + pad
+        cmin_x = torch.maximum(rmin_x, torch.clamp(torch.floor(lo_x / tile),
+                                                   0, grid_x))
+        cmin_y = torch.maximum(rmin_y, torch.clamp(torch.floor(lo_y / tile),
+                                                   0, grid_y))
+        cmax_x = torch.minimum(rmax_x, torch.clamp(
+            torch.floor(hi_x / tile) + 1, 0, grid_x))
+        cmax_y = torch.minimum(rmax_y, torch.clamp(
+            torch.floor(hi_y / tile) + 1, 0, grid_y))
+        b_rmin_x = torch.where(ok_t, cmin_x, rmin_x)
+        b_rmin_y = torch.where(ok_t, cmin_y, rmin_y)
+        b_rmax_x = torch.where(ok_t, torch.maximum(cmax_x, cmin_x), rmax_x)
+        b_rmax_y = torch.where(ok_t, torch.maximum(cmax_y, cmin_y), rmax_y)
 
-    rect_min = torch.stack([b_rmin_x, b_rmin_y], dim=-1).to(torch.int32)
-    rect_max = torch.stack([b_rmax_x, b_rmax_y], dim=-1).to(torch.int32)
-    tiles = ((rect_max[:, 0] - rect_min[:, 0])
-             * (rect_max[:, 1] - rect_min[:, 1]))
-    # visibility keeps the opacity-blind 3σ box's tile count
-    tiles9 = (rmax_x - rmin_x) * (rmax_y - rmin_y)
+        rect_min = torch.stack([b_rmin_x, b_rmin_y], dim=-1).to(torch.int32)
+        rect_max = torch.stack([b_rmax_x, b_rmax_y], dim=-1).to(torch.int32)
+        tiles = ((rect_max[:, 0] - rect_min[:, 0])
+                 * (rect_max[:, 1] - rect_min[:, 1]))
+        # visibility keeps the opacity-blind 3σ box's tile count
+        tiles9 = (rmax_x - rmin_x) * (rmax_y - rmin_y)
 
-    valid = in_frustum & d_ok & finite & (tiles9 > 0)
-    if alive is not None:
-        valid = valid & alive
-    tiles_touched = torch.where(valid, tiles, 0).to(torch.int32)
-    radius = torch.where(valid, radius, 0.0)
+        valid = in_frustum & d_ok & finite & (tiles9 > 0)
+        if alive is not None:
+            valid = valid & alive
+        tiles_touched = torch.where(valid, tiles, 0).to(torch.int32)
+        radius = torch.where(valid, radius, 0.0)
 
-    cull_lo = cull_hi = None
-    if conic_cull:
-        cull_lo, cull_hi, tiles_touched = conic_cull_masks(
-            T, xy, opacity, rect_min, rect_max, tiles_touched)
+        cull_lo = cull_hi = None
+        if conic_cull:
+            cull_lo, cull_hi, tiles_touched = conic_cull_masks(
+                T, xy, opacity, rect_min, rect_max, tiles_touched)
 
-    if color is None:
-        color = sh_to_color(sh_degree, shs.to(f32), xyz, campos.to(f32))
-    else:
-        color = color.to(f32)
+        if color is None:
+            color = sh_to_color(sh_degree, shs.to(f32), xyz, campos.to(f32))
+        else:
+            color = color.to(f32)
 
-    return PreprocessOut(T=T, normal_view=normal_view, depth=p_view[:, 2],
-                         xy=xy, radius=radius, rect_min=rect_min,
-                         rect_max=rect_max, tiles_touched=tiles_touched,
-                         valid=valid, color=color, cull_lo=cull_lo,
-                         cull_hi=cull_hi)
+        return PreprocessOut(T=T, normal_view=normal_view, depth=p_view[:, 2],
+                             xy=xy, radius=radius, rect_min=rect_min,
+                             rect_max=rect_max, tiles_touched=tiles_touched,
+                             valid=valid, color=color, cull_lo=cull_lo,
+                             cull_hi=cull_hi)
 
 
 CULL_WINDOW = 64   # row-major tile offsets representable in the cull bitmask

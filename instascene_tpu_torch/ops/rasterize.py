@@ -33,6 +33,7 @@ from .binning import BinningOut, bin_gaussians
 from . import blend_visits as bv
 from .blend_visits import pack_flat_cols
 from .preprocess import TILE, preprocess_gaussians
+from ..utils.profiling import span
 
 
 class CameraMats(NamedTuple):
@@ -180,58 +181,59 @@ def rasterize(means3d, scales, rotations, opacities, cam: CameraMats, bg,
         y_offset=y_offset, full_height=full_height)
     binning = (cached_binning if cached_binning is not None
                else bin_gaussians(pre, width, height))
-    E = extras.shape[1] if extras is not None else 0
-    grid_x = (width + TILE - 1) // TILE
-    T_used = pre.T if t_offset is None else pre.T + t_offset
-    rect = None
-    if cfg.clip_rect:
-        has_pairs = (pre.tiles_touched > 0)[:, None]
-        rect = (pre.rect_min,
-                torch.where(has_pairs, pre.rect_max, pre.rect_min))
-    flat = pack_flat_cols(T_used, pre.xy, pre.normal_view, opac, pre.color,
-                          extras, rect=rect)
-    bargs = (binning.sorted_gid, binning.tile_start, binning.tile_end,
-             grid_x, E)
-    sel = (None if tile_ids is None else torch.as_tensor(
-        tile_ids, device=flat.device).to(torch.int32).contiguous())
-    kw = dict(tile_ids=sel, clip_rect=cfg.clip_rect)
-    ids = tw = None
-    if cfg.fwd_viewer:
-        out, iout = bv.blend_fwd(flat.detach(), *bargs, viewer=True, **kw)
-    elif cfg.track_contrib:
-        out, iout, ids, tw = bv.blend_fwd(flat.detach(), *bargs, track=True,
-                                          tile_ids=sel)
-    else:
-        out, iout = bv.blend(flat, *bargs,
-                             (binning.gid_order, binning.run_start),
-                             no_dist=cfg.no_depth_dist,
-                             extras_only=cfg.bwd_extras_only, done0=done0,
-                             **kw)
-    if sel is not None:
-        # the listed tiles' rows in a whole frame of zeros
-        nt = binning.tile_start.shape[0]
-        rows = sel.long()
-        out = out.new_zeros((nt,) + out.shape[1:]).index_put((rows,), out)
-        iout = iout.new_zeros((nt,) + iout.shape[1:]).index_put((rows,),
-                                                                 iout)
-    maps = maps_from_tiles(out, iout, width, height, E)
-    bg = torch.as_tensor(bg, dtype=torch.float32, device=means3d.device)
-    color = maps["color_nobg"] + maps["final_T"][..., None] * bg
-    blend = BlendOut(color=color, depth=maps["depth"],
-                     alpha=1.0 - maps["final_T"], normal=maps["normal"],
-                     median_depth=maps["median_depth"],
-                     distortion=maps["distortion"],
-                     extra=maps["extra"] if extras is not None else None,
-                     final_T=maps["final_T"], n_contrib=maps["n_contrib"],
-                     contrib_ids=(tiles_to_map(ids, width, height)
-                                  if ids is not None else None),
-                     contrib_w=(tiles_to_map(tw, width, height)
-                                if tw is not None else None),
-                     extra_tiles=out[:, 10:10 + E] if E else None)
-    return RasterizeOut(blend=blend, radii=pre.radius.to(torch.int32),
-                        visible=pre.valid & (pre.radius > 0),
-                        depth=pre.depth, n_dropped=0, T=pre.T,
-                        total_pairs=binning.total_pairs)
+    with span("raster"):
+        E = extras.shape[1] if extras is not None else 0
+        grid_x = (width + TILE - 1) // TILE
+        T_used = pre.T if t_offset is None else pre.T + t_offset
+        rect = None
+        if cfg.clip_rect:
+            has_pairs = (pre.tiles_touched > 0)[:, None]
+            rect = (pre.rect_min,
+                    torch.where(has_pairs, pre.rect_max, pre.rect_min))
+        flat = pack_flat_cols(T_used, pre.xy, pre.normal_view, opac, pre.color,
+                              extras, rect=rect)
+        bargs = (binning.sorted_gid, binning.tile_start, binning.tile_end,
+                 grid_x, E)
+        sel = (None if tile_ids is None else torch.as_tensor(
+            tile_ids, device=flat.device).to(torch.int32).contiguous())
+        kw = dict(tile_ids=sel, clip_rect=cfg.clip_rect)
+        ids = tw = None
+        if cfg.fwd_viewer:
+            out, iout = bv.blend_fwd(flat.detach(), *bargs, viewer=True, **kw)
+        elif cfg.track_contrib:
+            out, iout, ids, tw = bv.blend_fwd(flat.detach(), *bargs,
+                                              track=True, tile_ids=sel)
+        else:
+            out, iout = bv.blend(flat, *bargs,
+                                 (binning.gid_order, binning.run_start),
+                                 no_dist=cfg.no_depth_dist,
+                                 extras_only=cfg.bwd_extras_only, done0=done0,
+                                 **kw)
+        if sel is not None:
+            # the listed tiles' rows in a whole frame of zeros
+            nt = binning.tile_start.shape[0]
+            rows = sel.long()
+            out = out.new_zeros((nt,) + out.shape[1:]).index_put((rows,), out)
+            iout = iout.new_zeros((nt,) + iout.shape[1:]).index_put((rows,),
+                                                                     iout)
+        maps = maps_from_tiles(out, iout, width, height, E)
+        bg = torch.as_tensor(bg, dtype=torch.float32, device=means3d.device)
+        color = maps["color_nobg"] + maps["final_T"][..., None] * bg
+        blend = BlendOut(color=color, depth=maps["depth"],
+                         alpha=1.0 - maps["final_T"], normal=maps["normal"],
+                         median_depth=maps["median_depth"],
+                         distortion=maps["distortion"],
+                         extra=maps["extra"] if extras is not None else None,
+                         final_T=maps["final_T"], n_contrib=maps["n_contrib"],
+                         contrib_ids=(tiles_to_map(ids, width, height)
+                                      if ids is not None else None),
+                         contrib_w=(tiles_to_map(tw, width, height)
+                                    if tw is not None else None),
+                         extra_tiles=out[:, 10:10 + E] if E else None)
+        return RasterizeOut(blend=blend, radii=pre.radius.to(torch.int32),
+                            visible=pre.valid & (pre.radius > 0),
+                            depth=pre.depth, n_dropped=0, T=pre.T,
+                            total_pairs=binning.total_pairs)
 
 
 def densify_screen_grad(t_grad: torch.Tensor, depth: torch.Tensor,

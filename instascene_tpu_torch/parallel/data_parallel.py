@@ -34,6 +34,7 @@ from ..pipelines.train import (CameraTensors, StepGrads, apply_gradients,
 from ..pipelines.train_semantic import (SemanticCamera, SemanticHypers,
                                         SemanticStepConfig, semantic_adam,
                                         semantic_gradient)
+from ..utils.profiling import span, stage
 from .launch import all_reduce
 
 _METRICS = ("ll1", "dist", "normal")
@@ -82,16 +83,17 @@ def dp_train_step(params: GaussianModel, opt_state, stats: dens.DensifyStats,
     camera `ct` through pipelines/train.py's step_gradients, the batch's
     reduction, then apply_gradients → (params, opt_state, stats, metrics),
     the same on every rank. Metrics: the means of loss, ll1, dist and
-    normal, and the largest total_pairs. on_stage(name) as train_step's,
-    with "reduce" after "backward"."""
+    normal, and the largest total_pairs. on_stage(name) and the spans as
+    train_step's, with the stage "reduce" after "backward"."""
     mark = on_stage or (lambda name: None)
-    sg = step_gradients(params, ct, bg, lambda_dssim, lambda_dist,
-                        lambda_normal, lambda_normal_prior, cfg, depth_ratio,
-                        mark)
-    sg = reduce_step_grads(sg, group)
-    mark("reduce")
-    out = apply_gradients(params, opt_state, stats, sg, lrs, cfg)
-    mark("adam")
+    with span("step"):
+        sg = step_gradients(params, ct, bg, lambda_dssim, lambda_dist,
+                            lambda_normal, lambda_normal_prior, cfg,
+                            depth_ratio, mark)
+        with stage("reduce", mark):
+            sg = reduce_step_grads(sg, group)
+        with stage("adam", mark):
+            out = apply_gradients(params, opt_state, stats, sg, lrs, cfg)
     return out
 
 
@@ -105,16 +107,18 @@ def dp_semantic_step(params: GaussianModel, opt_state, cam: SemanticCamera,
     as in the JAX package), the mean seg_feature gradient and loss over
     the ranks (one all_reduce), then Adam on the features alone →
     (params, opt_state, loss). draws as semantic_train_step's: this rank's
-    index sets, else drawn from `generator`."""
+    index sets, else drawn from `generator`. on_stage(name) and the spans
+    as semantic_train_step's, with the stage "reduce" after "backward"."""
     mark = on_stage or (lambda name: None)
-    loss, g = semantic_gradient(params, cam, None, hyp, scfg, generator,
-                                draws, mark)
-    flat = all_reduce(torch.cat([g.reshape(-1), loss.reshape(1)]),
-                      group=group) / dist.get_world_size(group)
-    mark("reduce")
-    params, opt_state = semantic_adam(params, opt_state,
-                                      flat[:-1].view_as(g), hyp)
-    mark("adam")
+    with span("step"):
+        loss, g = semantic_gradient(params, cam, None, hyp, scfg, generator,
+                                    draws, mark)
+        with stage("reduce", mark):
+            flat = all_reduce(torch.cat([g.reshape(-1), loss.reshape(1)]),
+                              group=group) / dist.get_world_size(group)
+        with stage("adam", mark):
+            params, opt_state = semantic_adam(params, opt_state,
+                                              flat[:-1].view_as(g), hyp)
     return params, opt_state, flat[-1]
 
 

@@ -46,6 +46,7 @@ from ..ops.knn import mean_dist2_knn3
 from ..ops.rasterize import (CameraMats, RasterizeConfig,
                              densify_screen_grad, rasterize)
 from ..utils.general import get_expon_lr_func
+from ..utils.profiling import span, stage
 
 
 def rays_from_cam(width: int, height: int, tanfovx: float, tanfovy: float,
@@ -68,12 +69,15 @@ def render_for_training(params: GaussianModel, cam: CameraMats, bg,
                         tanfovx: float, tanfovy: float, depth_ratio: float):
     """Render + the derived maps the losses read (channels-last):
     (RasterizeOut, rend_normal, surf_normal, alpha, surf_depth)."""
-    out = rasterize(params.xyz, params.scaling_activated(),
-                    params.rotation_normalized(),
-                    params.opacity_activated()[:, 0], cam, bg, cfg,
-                    shs=params.features(), sh_degree=params.active_sh_degree,
-                    extras=params.seg_feature_normed(), t_offset=t_offset,
-                    alive=params.alive)
+    with span("model"):
+        scales = params.scaling_activated()
+        rotations = params.rotation_normalized()
+        opacities = params.opacity_activated()[:, 0]
+        shs = params.features()
+        extras = params.seg_feature_normed()
+    out = rasterize(params.xyz, scales, rotations, opacities, cam, bg, cfg,
+                    shs=shs, sh_degree=params.active_sh_degree,
+                    extras=extras, t_offset=t_offset, alive=params.alive)
     b = out.blend
     R = cam.w2v[:3, :3]
     rend_normal = (b.normal[..., 0:1] * R[0] + b.normal[..., 1:2] * R[1]
@@ -164,23 +168,23 @@ def step_gradients(params: GaussianModel, ct: CameraTensors, bg,
                    mark: Callable[[str], None] = lambda name: None
                    ) -> StepGrads:
     """Render, losses and backward of one camera: the first half of
-    train_step. mark(name) is called as "render", "loss" and "backward"
-    end."""
-    leaves = {f: getattr(params, f).detach().requires_grad_(True)
-              for f in TRAINABLE_FIELDS if getattr(params, f) is not None}
-    p = params.replace(**leaves)
-    t0 = torch.zeros((params.capacity, 3, 3), dtype=torch.float32,
-                     device=params.device, requires_grad=True)
-    parts = render_for_training(p, ct.mats, bg, cfg, t0, ct.c2w_rot,
-                                ct.tanfovx, ct.tanfovy, depth_ratio)
-    mark("render")
-    loss, aux = geometry_loss_fn(parts, ct, lambda_dssim, lambda_dist,
-                                 lambda_normal, lambda_normal_prior)
-    mark("loss")
+    train_step. Each is a stage (utils/profiling.stage) whose end calls
+    mark(name): "render", "loss" and "backward"."""
+    with stage("render", mark):
+        leaves = {f: getattr(params, f).detach().requires_grad_(True)
+                  for f in TRAINABLE_FIELDS if getattr(params, f) is not None}
+        p = params.replace(**leaves)
+        t0 = torch.zeros((params.capacity, 3, 3), dtype=torch.float32,
+                         device=params.device, requires_grad=True)
+        parts = render_for_training(p, ct.mats, bg, cfg, t0, ct.c2w_rot,
+                                    ct.tanfovx, ct.tanfovy, depth_ratio)
+    with stage("loss", mark):
+        loss, aux = geometry_loss_fn(parts, ct, lambda_dssim, lambda_dist,
+                                     lambda_normal, lambda_normal_prior)
     names = list(leaves)
-    grads = torch.autograd.grad(loss, [leaves[f] for f in names] + [t0],
-                                allow_unused=True)
-    mark("backward")
+    with stage("backward", mark):
+        grads = torch.autograd.grad(loss, [leaves[f] for f in names] + [t0],
+                                    allow_unused=True)
     grads = [g if g is not None else torch.zeros_like(leaf) for g, leaf in
              zip(grads, [leaves[f] for f in names] + [t0])]
     return StepGrads(loss.detach(), dict(zip(names, grads[:-1])), grads[-1],
@@ -216,13 +220,15 @@ def train_step(params: GaussianModel, opt_state, stats: dens.DensifyStats,
     """One geometry step → (params, opt_state, stats, metrics). Metrics
     are device scalars (read them only when needed) plus the frame's pair
     count. on_stage(name), when given, is called as each stage ends:
-    "render", "loss", "backward", "adam" (for timing)."""
+    "render", "loss", "backward", "adam" (for timing). The step is the span
+    "step", its stages spans of their names (utils/profiling.py)."""
     mark = on_stage or (lambda name: None)
-    sg = step_gradients(params, ct, bg, lambda_dssim, lambda_dist,
-                        lambda_normal, lambda_normal_prior, cfg, depth_ratio,
-                        mark)
-    out = apply_gradients(params, opt_state, stats, sg, lrs, cfg)
-    mark("adam")
+    with span("step"):
+        sg = step_gradients(params, ct, bg, lambda_dssim, lambda_dist,
+                            lambda_normal, lambda_normal_prior, cfg,
+                            depth_ratio, mark)
+        with stage("adam", mark):
+            out = apply_gradients(params, opt_state, stats, sg, lrs, cfg)
     return out
 
 

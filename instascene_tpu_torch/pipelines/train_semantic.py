@@ -79,7 +79,7 @@ from ..ops.rasterize import (CameraMats, RasterizeConfig,
 from ..semantic.contrastive import (contrastive_loss, sample_from_ids,
                                     sample_valid_pixels, valid_ids_pack)
 from ..semantic.spatial_track import GausCluster
-from ..utils.profiling import TraceWindow
+from ..utils.profiling import TraceWindow, span, stage
 from .train import camera_tensors
 
 
@@ -89,17 +89,18 @@ def render_features(params: gmod.GaussianModel, cam: CameraMats, bg,
     """Render with `seg_feature` (default the model's), L2-normalised, as
     the extra channels. Geometry enters detached: gradients reach only the
     features."""
-    feat = seg_feature if seg_feature is not None else params.seg_feature
-    if feat is not None:
-        feat = _normed(feat)
-    d = lambda a: a.detach()
-    return rasterize(d(params.xyz), d(params.scaling_activated()),
-                     d(params.rotation_normalized()),
-                     d(params.opacity_activated()[:, 0]), cam, bg, cfg,
-                     shs=d(params.features()),
-                     sh_degree=params.active_sh_degree, extras=feat,
-                     alive=params.alive, cached_binning=cached_binning,
-                     done0=done0)
+    with span("model"):
+        feat = seg_feature if seg_feature is not None else params.seg_feature
+        if feat is not None:
+            feat = _normed(feat)
+        scales = params.scaling_activated().detach()
+        rotations = params.rotation_normalized().detach()
+        opacities = params.opacity_activated()[:, 0].detach()
+        shs = params.features().detach()
+    return rasterize(params.xyz.detach(), scales, rotations, opacities, cam,
+                     bg, cfg, shs=shs, sh_degree=params.active_sh_degree,
+                     extras=feat, alive=params.alive,
+                     cached_binning=cached_binning, done0=done0)
 
 
 def _pix_to_tile(idx, width: int, tile: int, grid_x: int):
@@ -437,51 +438,53 @@ def semantic_loss(params, seg_feature, cam: SemanticCamera,
     extras_only), or with scfg.sparse_px only at the drawn pixels (K5/K6;
     the full window too, unless scfg.mv_merged). The full window renders
     per view, or merged (scfg.mv_merged); a window with sel_tiles renders
-    those tiles (K3/K4). mark(name) is called as the render ("render") and
-    the losses ("loss") end."""
+    those tiles (K3/K4). The render and the losses are stages
+    (utils/profiling.stage) whose ends call mark("render") and
+    mark("loss")."""
     cfg = scfg.raster
     mv_full = (mv is not None and mv.sel_tiles is None
                and sum(c.sorted_nv for c in mv.cams) > 0)
-    plan = None
-    if scfg.sparse_px and not (mv_full and scfg.mv_merged):
-        plan = _sparse_plan(cam, mv if mv_full else None, scfg, draws)
-    if plan is None:
-        done0 = _done0_from_idx([i.to(torch.int64) for i in draws["sv"]],
-                                cfg.width, cfg.height)
-        tiles = render_features(params, cam.mats, hyp.bg, cfg, seg_feature,
-                                cam.binning, done0=done0).blend.extra_tiles
-        grid_x = _grid(cam)[2]
+    with stage("render", mark):
+        plan = None
+        if scfg.sparse_px and not (mv_full and scfg.mv_merged):
+            plan = _sparse_plan(cam, mv if mv_full else None, scfg, draws)
+        if plan is None:
+            done0 = _done0_from_idx([i.to(torch.int64) for i in draws["sv"]],
+                                    cfg.width, cfg.height)
+            tiles = render_features(params, cam.mats, hyp.bg, cfg,
+                                    seg_feature, cam.binning,
+                                    done0=done0).blend.extra_tiles
+            grid_x = _grid(cam)[2]
 
-        def fetch(si, idx):
-            t, p2 = _pix_to_tile(idx, cfg.width, TILE, grid_x)
-            return tiles[t, :, p2]                           # [batch, E]
-    else:
-        feat_sv = _sparse_view_feats(params, _normed(seg_feature), cam, cfg,
-                                     plan["sv"][0])
-        _, t_of, slot_of = plan["sv"]
-        b = scfg.batch
-
-        def fetch(si, idx):
-            return feat_sv[t_of[si * b:(si + 1) * b],
-                           slot_of[si * b:(si + 1) * b]]
-    mark("render")
-    total = single_view_and_3d_losses(seg_feature, fetch, cam, hyp, scfg,
-                                      draws)
-    if mv_full:
-        if plan is not None:
-            cl = _mv_full_loss_sparse(params, seg_feature, mv, hyp, scfg,
-                                      draws["mv"], plan["mv"])
-        elif scfg.mv_merged:
-            cl = _mv_full_loss_merged(params, seg_feature, mv, hyp, scfg,
-                                      draws["mv"])
+            def fetch(si, idx):
+                t, p2 = _pix_to_tile(idx, cfg.width, TILE, grid_x)
+                return tiles[t, :, p2]                       # [batch, E]
         else:
-            cl = _mv_full_loss(params, seg_feature, mv, hyp, scfg,
-                               draws["mv"])
-        total = total + cl * hyp.lam_mv
-    elif mv is not None and mv.sel_tiles is not None:
-        total = total + _mv_tile_subsample_loss(
-            params, seg_feature, mv, hyp, scfg, draws["mv"]) * hyp.lam_mv
-    mark("loss")
+            feat_sv = _sparse_view_feats(params, _normed(seg_feature), cam,
+                                         cfg, plan["sv"][0])
+            _, t_of, slot_of = plan["sv"]
+            b = scfg.batch
+
+            def fetch(si, idx):
+                return feat_sv[t_of[si * b:(si + 1) * b],
+                               slot_of[si * b:(si + 1) * b]]
+    with stage("loss", mark):
+        total = single_view_and_3d_losses(seg_feature, fetch, cam, hyp,
+                                          scfg, draws)
+        if mv_full:
+            if plan is not None:
+                cl = _mv_full_loss_sparse(params, seg_feature, mv, hyp, scfg,
+                                          draws["mv"], plan["mv"])
+            elif scfg.mv_merged:
+                cl = _mv_full_loss_merged(params, seg_feature, mv, hyp,
+                                          scfg, draws["mv"])
+            else:
+                cl = _mv_full_loss(params, seg_feature, mv, hyp, scfg,
+                                   draws["mv"])
+            total = total + cl * hyp.lam_mv
+        elif mv is not None and mv.sel_tiles is not None:
+            total = total + _mv_tile_subsample_loss(
+                params, seg_feature, mv, hyp, scfg, draws["mv"]) * hyp.lam_mv
     return total
 
 
@@ -493,21 +496,21 @@ def semantic_gradient(params: gmod.GaussianModel, cam: SemanticCamera,
                       mark: Callable[[str], None] = lambda name: None):
     """The step's loss and its gradient with respect to seg_feature → (loss
     detached, gradient): the first half of semantic_train_step, with its
-    draws and marks ("draws", "render", "loss", "backward")."""
+    draws and stages ("draws", "render", "loss", "backward")."""
     dev = params.device
-    if draws is None:
-        draws = draw_step_pixels(generator, cam, mv, hyp.class_feat,
-                                 scfg.batch, scfg.consider_negative)
-    else:
-        as_t = lambda a: torch.as_tensor(np.asarray(a) if not isinstance(
-            a, torch.Tensor) else a).to(device=dev, dtype=torch.int64)
-        draws = {k: ([as_t(a) for a in v] if k == "sv" else as_t(v))
-                 for k, v in draws.items()}
-    mark("draws")
+    with stage("draws", mark):
+        if draws is None:
+            draws = draw_step_pixels(generator, cam, mv, hyp.class_feat,
+                                     scfg.batch, scfg.consider_negative)
+        else:
+            as_t = lambda a: torch.as_tensor(np.asarray(a) if not isinstance(
+                a, torch.Tensor) else a).to(device=dev, dtype=torch.int64)
+            draws = {k: ([as_t(a) for a in v] if k == "sv" else as_t(v))
+                     for k, v in draws.items()}
     seg = params.seg_feature.detach().requires_grad_(True)
     loss = semantic_loss(params, seg, cam, mv, hyp, scfg, draws, mark)
-    (g,) = torch.autograd.grad(loss, [seg])
-    mark("backward")
+    with stage("backward", mark):
+        (g,) = torch.autograd.grad(loss, [seg])
     return loss.detach(), g
 
 
@@ -532,12 +535,14 @@ def semantic_train_step(params: gmod.GaussianModel, opt_state,
     features (geometry frozen). draws: injected index sets in
     draw_step_pixels' layout (ints, any device), else they are drawn from
     `generator`. on_stage(name) is called as each stage ends: "draws",
-    "render", "loss", "backward", "adam"."""
+    "render", "loss", "backward", "adam". The step is the span "step", its
+    stages spans of their names (utils/profiling.py)."""
     mark = on_stage or (lambda name: None)
-    loss, g = semantic_gradient(params, cam, mv, hyp, scfg, generator, draws,
-                                mark)
-    params, opt_state = semantic_adam(params, opt_state, g, hyp)
-    mark("adam")
+    with span("step"):
+        loss, g = semantic_gradient(params, cam, mv, hyp, scfg, generator,
+                                    draws, mark)
+        with stage("adam", mark):
+            params, opt_state = semantic_adam(params, opt_state, g, hyp)
     return params, opt_state, loss
 
 

@@ -19,6 +19,7 @@ import torch
 
 from .ops.depth_utils import camera_rays, depth_to_normal
 from .ops.rasterize import CameraMats, RasterizeConfig, rasterize
+from .utils.profiling import span
 
 
 def camera_mats(cam, device) -> CameraMats:
@@ -53,88 +54,94 @@ def render(viewpoint_camera, gaussians, pipe, bg_color,
     `gau_related_pixels` is (contrib_ids, contrib_w) [H,W,10], each pixel's
     w > 0.1 contributors in blend order (K1 track). t_offset [N,3,3]: the
     densification tap (see ops.rasterize.rasterize). Differentiable through
-    torch autograd and K2 unless viewer or track_contrib."""
-    p = gaussians
-    dev = p.device
-    width = int(viewpoint_camera.width)
-    height = int(viewpoint_camera.height)
-    if cfg is None:
-        cfg = RasterizeConfig(width=width, height=height,
-                              track_contrib=track_contrib, fwd_viewer=viewer)
-    else:
-        cfg = dataclasses.replace(
-            cfg, width=width, height=height,
-            track_contrib=track_contrib or cfg.track_contrib,
-            fwd_viewer=viewer or cfg.fwd_viewer)
+    torch autograd and K2 unless viewer or track_contrib. Its span is
+    "render" (utils/profiling.py)."""
+    with span("render"):
+        p = gaussians
+        dev = p.device
+        width = int(viewpoint_camera.width)
+        height = int(viewpoint_camera.height)
+        if cfg is None:
+            cfg = RasterizeConfig(width=width, height=height,
+                                  track_contrib=track_contrib,
+                                  fwd_viewer=viewer)
+        else:
+            cfg = dataclasses.replace(
+                cfg, width=width, height=height,
+                track_contrib=track_contrib or cfg.track_contrib,
+                fwd_viewer=viewer or cfg.fwd_viewer)
 
-    cam = camera_mats(viewpoint_camera, dev)
-    seg_feature = p.seg_feature_normed() if norm_seg_feat else p.seg_feature
+        cam = camera_mats(viewpoint_camera, dev)
+        with span("model"):
+            seg_feature = (p.seg_feature_normed() if norm_seg_feat
+                           else p.seg_feature)
+            colors = shs = None
+            sh_degree = 0
+            if override_color is None:
+                shs = p.features()
+                sh_degree = int(p.active_sh_degree)
+            else:
+                colors = override_color
+            scales = p.scaling_activated() * scaling_modifier
+            rotations = p.rotation_normalized()
+            opacities = p.opacity_activated()[:, 0]
 
-    colors = shs = None
-    sh_degree = 0
-    if override_color is None:
-        shs = p.features()
-        sh_degree = int(p.active_sh_degree)
-    else:
-        colors = override_color
+        out = rasterize(p.xyz, scales, rotations, opacities, cam, bg_color,
+                        cfg, colors=colors, shs=shs, sh_degree=sh_degree,
+                        extras=seg_feature, t_offset=t_offset,
+                        alive=p.alive)
+        b = out.blend
+        rend_alpha = b.alpha[..., None]
+        common = {
+            "render": b.color,
+            "radii": out.radii,
+            "visibility_filter": out.visible,
+            "seg_feature": b.extra,
+            # (contrib_ids, contrib_w) [H,W,10] with track_contrib, else None
+            "gau_related_pixels": ((b.contrib_ids, b.contrib_w)
+                                   if b.contrib_ids is not None else None),
+            "rend_alpha": rend_alpha,
+            "final_T": b.final_T,
+            "n_contrib": b.n_contrib,
+            "n_dropped": out.n_dropped,
+            "gaussian_depth": out.depth,
+            "T": out.T,
+        }
 
-    out = rasterize(p.xyz, p.scaling_activated() * scaling_modifier,
-                    p.rotation_normalized(), p.opacity_activated()[:, 0],
-                    cam, bg_color, cfg, colors=colors, shs=shs,
-                    sh_degree=sh_degree, extras=seg_feature,
-                    t_offset=t_offset, alive=p.alive)
-    b = out.blend
-    rend_alpha = b.alpha[..., None]
-    common = {
-        "render": b.color,
-        "radii": out.radii,
-        "visibility_filter": out.visible,
-        "seg_feature": b.extra,
-        # (contrib_ids, contrib_w) [H,W,10] with track_contrib, else None
-        "gau_related_pixels": ((b.contrib_ids, b.contrib_w)
-                               if b.contrib_ids is not None else None),
-        "rend_alpha": rend_alpha,
-        "final_T": b.final_T,
-        "n_contrib": b.n_contrib,
-        "n_dropped": out.n_dropped,
-        "gaussian_depth": out.depth,
-        "T": out.T,
-    }
+        if cfg.fwd_viewer:
+            z = torch.zeros_like(rend_alpha)
+            z3 = torch.cat([z, z, z], dim=-1)
+            return {**common, "rend_normal": z3, "rend_dist": z,
+                    "surf_depth": z, "surf_normal": z3, "rend_depth": z,
+                    "rend_median_depth": z}
 
-    if cfg.fwd_viewer:
-        z = torch.zeros_like(rend_alpha)
-        z3 = torch.cat([z, z, z], dim=-1)
-        return {**common, "rend_normal": z3, "rend_dist": z,
-                "surf_depth": z, "surf_normal": z3, "rend_depth": z,
-                "rend_median_depth": z}
+        # world-frame normal map: n_world = R_view^T n_view
+        R = cam.w2v[:3, :3]
+        rend_normal = (b.normal[..., 0:1] * R[0] + b.normal[..., 1:2] * R[1]
+                       + b.normal[..., 2:3] * R[2])
 
-    # world-frame normal map: n_world = R_view^T n_view
-    R = cam.w2v[:3, :3]
-    rend_normal = (b.normal[..., 0:1] * R[0] + b.normal[..., 1:2] * R[1]
-                   + b.normal[..., 2:3] * R[2])
+        # expected depth = D / alpha with nan/inf → 0
+        alpha_ok = rend_alpha > 0
+        render_depth_expected = torch.where(
+            alpha_ok,
+            b.depth[..., None] / torch.where(alpha_ok, rend_alpha, 1.0), 0.0)
+        render_depth_median = torch.nan_to_num(b.median_depth[..., None], 0.0)
+        depth_ratio = getattr(pipe, "depth_ratio", 1.0)
+        surf_depth = (render_depth_expected * (1 - depth_ratio)
+                      + depth_ratio * render_depth_median)
 
-    # expected depth = D / alpha with nan/inf → 0
-    alpha_ok = rend_alpha > 0
-    render_depth_expected = torch.where(
-        alpha_ok, b.depth[..., None] / torch.where(alpha_ok, rend_alpha, 1.0),
-        0.0)
-    render_depth_median = torch.nan_to_num(b.median_depth[..., None], 0.0)
-    depth_ratio = getattr(pipe, "depth_ratio", 1.0)
-    surf_depth = (render_depth_expected * (1 - depth_ratio)
-                  + depth_ratio * render_depth_median)
+        c2w_rot = np.ascontiguousarray(
+            viewpoint_camera.c2w[:3, :3].astype(np.float32))
+        rays = _cached_rays(width, height, float(viewpoint_camera.tanfovx),
+                            float(viewpoint_camera.tanfovy), c2w_rot.tobytes(),
+                            dev)
+        surf_normal = depth_to_normal(surf_depth[..., 0], rays, cam.campos)
+        surf_normal = surf_normal * rend_alpha.detach()
 
-    c2w_rot = np.ascontiguousarray(
-        viewpoint_camera.c2w[:3, :3].astype(np.float32))
-    rays = _cached_rays(width, height, float(viewpoint_camera.tanfovx),
-                        float(viewpoint_camera.tanfovy), c2w_rot.tobytes(),
-                        dev)
-    surf_normal = depth_to_normal(surf_depth[..., 0], rays, cam.campos)
-    surf_normal = surf_normal * rend_alpha.detach()
-
-    return {**common,
-            "rend_normal": rend_normal,
-            "rend_dist": b.distortion[..., None],
-            "surf_depth": surf_depth,
-            "surf_normal": surf_normal,
-            "rend_depth": render_depth_expected,
-            "rend_median_depth": render_depth_median}
+        return {**common,
+                "rend_normal": rend_normal,
+                "rend_dist": b.distortion[..., None],
+                "surf_depth": surf_depth,
+                "surf_normal": surf_normal,
+                "rend_depth": render_depth_expected,
+                "rend_median_depth": render_depth_median}

@@ -1,14 +1,12 @@
 """General helpers: the logit, the exponential learning-rate schedule,
-quaternion rotations, a step timer.
+quaternion rotations.
 
-Port of instascene_tpu/utils/general.py:16-77 and :102-117
-(`inverse_sigmoid`, `get_expon_lr_func`, `build_rotation_np`,
-`build_rotation`, `StepTimer`).
+Port of instascene_tpu/utils/general.py:16-77 (`inverse_sigmoid`,
+`get_expon_lr_func`, `build_rotation_np`, `build_rotation`; not its
+StepTimer, which nothing in the port used).
 """
 
 from __future__ import annotations
-
-import time
 
 import numpy as np
 import torch
@@ -70,20 +68,3 @@ def build_rotation(q: torch.Tensor) -> torch.Tensor:
     ], dim=-1)
     return R.reshape(q.shape[:-1] + (3, 3))
 
-
-class StepTimer:
-    """Wall-clock step timer with an exponential moving average."""
-
-    def __init__(self, alpha=0.1):
-        self.alpha = alpha
-        self.ema = None
-        self._t0 = None
-
-    def start(self):
-        self._t0 = time.perf_counter()
-
-    def stop(self) -> float:
-        dt = time.perf_counter() - self._t0
-        self.ema = dt if self.ema is None else (
-            self.alpha * dt + (1 - self.alpha) * self.ema)
-        return dt

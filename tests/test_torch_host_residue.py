@@ -1,11 +1,10 @@
 """The port's host residue against the JAX package on the same numpy inputs:
-the L2, cosine and smoothness losses, build_rotation_np and StepTimer, SH2RGB
-and eval_sh_np, the SH rotation helpers, the colour maps (against
+the L2, cosine and smoothness losses, build_rotation_np, SH2RGB and
+eval_sh_np, the SH rotation helpers, the colour maps (against
 matplotlib too) and render_net_image, and the native points3D.bin parser."""
 
 import io
 import struct
-import time
 
 import numpy as np
 import pytest
@@ -43,7 +42,7 @@ def test_smooth_loss_matches(rng, disp_shape):
     assert abs(got - want) <= 1e-6, (got, want)
 
 
-# ------------------------------------------------ rotations, timer, SH
+# ------------------------------------------------------- rotations, SH
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_build_rotation_np_bitwise(rng, dtype):
@@ -54,23 +53,6 @@ def test_build_rotation_np_bitwise(rng, dtype):
     got, want = P(q), J(q)
     assert got.dtype == want.dtype
     assert np.array_equal(got, want)
-
-
-def test_step_timer_ema(monkeypatch):
-    from instascene_tpu.utils.general import StepTimer as J
-    from instascene_tpu_torch.utils.general import StepTimer as P
-    ticks = [0.0, 0.25, 1.0, 1.1, 2.0, 2.9]
-    out = {}
-    for name, cls in (("jax", J), ("port", P)):
-        clock = iter(ticks)
-        monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
-        t = cls(alpha=0.3)
-        dts = []
-        for _ in range(3):
-            t.start()
-            dts.append(t.stop())
-        out[name] = (dts, t.ema)
-    assert out["port"] == out["jax"]
 
 
 @pytest.mark.parametrize("deg", [0, 1, 2, 3])
