@@ -20,7 +20,12 @@ lines; any failure exits non-zero and prints no result:
    bound there; K2 (blend_bwd) and the per-gaussian segment sum
    (reduce_per_gaussian) against their plain versions on one random
    cotangent, `full` and `no_dist`, E=0 and E=16, mid-size, each run twice
-   (d_flat bit for bit equal);
+   (d_flat bit for bit equal); then preprocess + SH (csrc/preprocess.cu,
+   preprocess_phase) at waldo's size (300k, 976x728 and 1920x1080) and
+   garden's (2.96M, 1297x840): its time against its bound from the bytes
+   it reads and writes and the eager chain's time on the same inputs,
+   every output bit for bit the eager chain's, and its launches on a
+   viewer frame and the tracker's view (one each, no eager call);
 3. the serving path at full width: the 300k-gaussian, SH-3, 16-channel
    `trained` benchmark scene is written to a PLY and served by the port's
    headless click-to-segment CLI (semantic_gui.main) at 1920x1080 — a depth
@@ -87,7 +92,8 @@ lines; any failure exits non-zero and prints no result:
    inputs (3 warm-up and 20 timed plain steps, 3 warm-up and 6 timed
    steps with the 5-view window) with the stage split and the sustained
    it/s, launch counts reset just before the steps and read just after
-   (K1 and K2 extras_only and the segment sum must have launched); the
+   (K1 and K2 extras_only and the segment sum must have launched, and
+   preprocess one kernel launch a rendered view, no eager call); the
    same for each multi-view variant, with its own counts: the window
    tile-subsampled (K3/K4), merged (K1/K2 tiles_per_view), and sparse
    pixels (K5/K6, 20 plain steps too; no dense fallback); the tracker
@@ -187,7 +193,7 @@ lines; any failure exits non-zero and prints no result:
    (K1/K2 extras_only and the segment sum in the semantic steps, K3/K4 in
    the tile-subsampled window, K1/K2 no_dist and full in the geometry
    recipes, K1 full, viewer and track in the frames) and the 4K frame one
-   K1 full launch per frame; then that 4K frame's K1 launch (300k
+   K1 full and one preprocess launch per frame; then that 4K frame's K1 launch (300k
    `uniform` gaussians, camera 0, E=0) against its plain version (maps
    within TOL, n_contrib on all but 1e-5 of the pixels), timed, with its
    pair count and bound;
@@ -642,10 +648,109 @@ def golden_check(dev):
           "the card's rasterizer does not match tests/goldens/forward.npz")
 
 
+# preprocess_phase's scenes: the benchmark's two sizes
+PRE_SIZES = (("waldo", 300_000, ((976, 728), (1920, 1080))),
+             ("garden", 2_960_000, ((1297, 840),)))
+# bytes a gaussian moves at SH 3 with 16 coefficients: reads xyz 12,
+# scaling 8, rotation 16, opacity 4, alive 1, shs 192; writes T 36, the
+# normal 12, depth 4, xy 8, radius 4, rects 16, tiles 4, valid 1, color 12
+PRE_BYTES = 233 + 97
+
+
+def preprocess_phase(p_full, cam, dev):
+    """The preprocess + SH kernel against the eager chain
+    (ops/preprocess.preprocess_plain, on the card) at the benchmark's
+    sizes: every output bit for bit, both timed (CUDA events around the
+    call, the wrapper's host work included), the kernel's device time
+    alone from a profiler trace, its bound from PRE_BYTES; then, as a
+    check beside the main paths' counts, its launches (LAUNCHES
+    "preprocess" and "preprocess_eager") on one viewer frame of p_full and
+    one tracker view from camera cam."""
+    import torch
+    from instascene_tpu_torch.config import PipelineParams
+    from instascene_tpu_torch.data.synthetic import make_bench_scene
+    from instascene_tpu_torch.models.gaussians import from_numpy
+    from instascene_tpu_torch.ops.preprocess import (preprocess_gaussians,
+                                                     preprocess_kernel,
+                                                     preprocess_plain)
+    from instascene_tpu_torch.ops.rasterize import RasterizeConfig
+    from torch.profiler import ProfilerActivity, profile
+    from instascene_tpu_torch.pipelines.train_semantic import render_features
+    from instascene_tpu_torch.render import camera_mats, render
+    fields = ("T", "xy", "normal_view", "depth", "radius", "rect_min",
+              "rect_max", "tiles_touched", "valid", "color")
+    rows = []
+    for name, n, sizes in PRE_SIZES:
+        st, mk = make_bench_scene(n=n, seed=0, profile="trained")
+        p = from_numpy(st, device=dev)
+        del st
+        for width, height in sizes:
+            cm = camera_mats(mk(0, width, height), dev)
+            args = (p.xyz, p.scaling_activated(), p.rotation_normalized(),
+                    cm.w2v, cm.full_proj, cm.campos, width, height,
+                    p.opacity_activated()[:, 0])
+            kw = dict(shs=p.features(), sh_degree=3, alive=p.alive)
+            got = preprocess_gaussians(*args, **kw)
+            want = preprocess_plain(*args, **kw)
+            torch.cuda.synchronize()
+            for f in fields:
+                a = getattr(got, f).contiguous()
+                b = getattr(want, f).contiguous()
+                check(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                      if a.dtype == torch.float32 else torch.equal(a, b),
+                      f"preprocess kernel: {f} differs from the eager chain "
+                      f"({name}, {width}x{height})")
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    preprocess_kernel(*args, **kw)
+                torch.cuda.synchronize()
+            path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_pre_"),
+                                "trace.json")
+            prof.export_chrome_trace(path)
+            durs = [d for k, v in trace_kernels(path).items()
+                    if "preprocess_kernel" in k for d in v]
+            shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+            check(len(durs) == 20, f"the preprocess trace holds {len(durs)} "
+                  f"kernel events of 20 launches")
+            r = {"scene": name, "n": n, "size": f"{width}x{height}",
+                 "ms": time_ms(lambda: preprocess_gaussians(*args, **kw),
+                               20),
+                 "trace_ms": float(np.median(durs)) / 1e3,
+                 "eager_ms": time_ms(lambda: preprocess_plain(*args, **kw),
+                                     5),
+                 "bound_ms": n * PRE_BYTES / HBM_BPS * 1e3}
+            rows.append(r)
+            print(f"[preprocess] {name} {n} gaussians {width}x{height}: "
+                  f"kernel {r['ms']:.4f} ms a call (CUDA events), "
+                  f"{r['trace_ms']:.4f} ms on the device (trace median), "
+                  f"bound {r['bound_ms']:.4f} ms (bytes: {n * PRE_BYTES}), "
+                  f"eager chain {r['eager_ms']:.4f} ms; every output bit "
+                  f"for bit the eager chain's", flush=True)
+        del p, got, want
+    launches = {}
+    for path, call in (
+            ("frame", lambda: render(cam, p_full, PipelineParams(),
+                                     np.zeros(3, np.float32), viewer=True)),
+            ("tracker", lambda: render_features(
+                p_full, camera_mats(cam, dev), torch.zeros(3, device=dev),
+                RasterizeConfig(cam.width, cam.height,
+                                track_contrib=True)))):
+        reset_counts()
+        call()
+        torch.cuda.synchronize()
+        c = counts()
+        launches[path] = {k: c[k] for k in ("preprocess", "preprocess_eager")}
+        check(launches[path] == {"preprocess": 1, "preprocess_eager": 0},
+              f"preprocess on the {path}: {launches[path]}")
+    print(f"[preprocess] launches: {launches}", flush=True)
+    return {"rows": rows, "launches": launches}
+
+
 def main_path(p_full, tmp):
     """Serve the scene through the headless CLI and the engine, with the
-    launch counts reset just before and read just after; check what came
-    out, then time the orbit frames. Returns the kernels' launches on the
+    launch counts reset just before and read just after (each preprocess
+    call one kernel launch); check what came out, then time the orbit
+    frames. Returns the kernels' launches on the
     path (counts()) and the engine."""
     import torch
     import instascene_tpu_torch.ops.blend_visits as bv
@@ -663,23 +768,24 @@ def main_path(p_full, tmp):
               "--device", DEVICE]
 
     reset_counts()
-    t0 = time.perf_counter()
-    semantic_gui.main(common + ["--render_mode", "depth"])
-    t1 = time.perf_counter()
-    engine = semantic_gui.main(common + ["--click", CLICKS,
-                                         "--score_threshold",
-                                         SCORE_THRESHOLD])
-    t2 = time.perf_counter()
-    engine.reload()           # back to the whole scene for the orbit
-    orbit = OrbitCamera(width, height, r=4.0)
-    frames, cams, frame_s = [], [], []
-    for _ in range(4):
-        orbit.orbit(400.0, 60.0)
-        cams.append(orbit.minicam())
-        tf = time.perf_counter()
-        frames.append(engine.render_view(cams[-1]))   # ends in D2H copies
-        frame_s.append(time.perf_counter() - tf)
-    torch.cuda.synchronize()
+    with recorded() as rec:
+        t0 = time.perf_counter()
+        semantic_gui.main(common + ["--render_mode", "depth"])
+        t1 = time.perf_counter()
+        engine = semantic_gui.main(common + ["--click", CLICKS,
+                                             "--score_threshold",
+                                             SCORE_THRESHOLD])
+        t2 = time.perf_counter()
+        engine.reload()           # back to the whole scene for the orbit
+        orbit = OrbitCamera(width, height, r=4.0)
+        frames, cams, frame_s = [], [], []
+        for _ in range(4):
+            orbit.orbit(400.0, 60.0)
+            cams.append(orbit.minicam())
+            tf = time.perf_counter()
+            frames.append(engine.render_view(cams[-1]))   # ends in D2H
+            frame_s.append(time.perf_counter() - tf)
+        torch.cuda.synchronize()
     launches = counts()
     print(f"[main] launches on the serving path: {launches}; host wall: "
           f"depth preview CLI {t1 - t0:.3f} s, click-to-segment CLI "
@@ -688,6 +794,7 @@ def main_path(p_full, tmp):
           f" ms", flush=True)
     check(launches["K1 full"] + launches["K1 viewer"] > 0,
           "the serving path never launched K1")
+    preprocess_launches("main", launches, rec)
 
     mask = np.load(os.path.join(tmp, "default", "segment_0_mask.npy"))
     seg = read_ply(os.path.join(tmp, "default", "segment_0.ply"))
@@ -855,6 +962,29 @@ def counts():
     """A copy of the kernels' launch counts, by kernel and mode."""
     from instascene_tpu_torch.ops import blend_visits as bv
     return dict(bv.LAUNCHES)
+
+
+def recorded():
+    """`with recorded() as rec:` keeps the port's spans of the block;
+    rec.counts["preprocess"] is its calls of preprocess_gaussians."""
+    from instascene_tpu_torch.utils.profiling import StepProfiler, recording
+    return recording(StepProfiler())
+
+
+def preprocess_launches(tag, c, rec, training=False):
+    """A counted path's preprocess (launch counts c, spans rec): each of
+    its calls one kernel launch and no eager call; on a path that trains
+    the geometry (training), each call one or the other, and some eager.
+    Returns the kernel's launches."""
+    calls = rec.counts.get("preprocess", 0)
+    pre, eager = c["preprocess"], c["preprocess_eager"]
+    print(f"[{tag}] preprocess: {pre} kernel launches and {eager} eager "
+          f"calls for {calls} calls", flush=True)
+    check(calls > 0 and pre + eager == calls
+          and (eager > 0 if training else eager == 0),
+          f"{tag}: preprocess took {pre} kernel launches and {eager} eager "
+          f"calls for {calls} calls")
+    return pre
 
 
 def train_scene(st, dev):
@@ -1989,7 +2119,16 @@ def semantic_phase(st, make_cam, dev):
         results["mv"] = run_steps("mv", state, cams, mv, hyp, scfg,
                                   SEM["mv_steps"], gen)
     torch.cuda.synchronize()
-    results["counts"] = counts()
+    results["counts"] = c = counts()
+    # every rendered view (the step's own, the window's 5) one kernel launch
+    views = (SEM["warm"] + SEM["steps"]
+             + (SEM["warm"] + SEM["mv_steps"]) * (1 + SEM["n_mv"]))
+    print(f"[semantic] preprocess: {c['preprocess']} kernel launches and "
+          f"{c['preprocess_eager']} eager calls for {views} rendered views",
+          flush=True)
+    check(c["preprocess"] == views and c["preprocess_eager"] == 0,
+          "the semantic steps' views did not each take the preprocess "
+          "kernel")
     t_plain = results["plain"]["median_ms"]["step"]
     sustain = lambda tp, tw: 1e3 / (0.9 * tp + 0.1 * tw)
     sustained = sustain(t_plain, results["mv"]["median_ms"]["step"])
@@ -2088,7 +2227,8 @@ def semantic_cli_phase(st, make_cam, tmp):
     """The semantic CLI at full width: priors (tracker renders, spatial
     track), SEM_CLI_ITERS contrastive iterations with the save at the
     last, the HDBSCAN export; the launch counts reset just before
-    train_semantic.main and read just after."""
+    train_semantic.main and read just after (each preprocess call one
+    kernel launch)."""
     import torch
     from instascene_tpu_torch import train_semantic
     from instascene_tpu_torch.data.ply import read_ply
@@ -2099,11 +2239,12 @@ def semantic_cli_phase(st, make_cam, tmp):
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     reset_counts()
-    seg = train_semantic.main([
-        "-s", root, "-m", os.path.join(tmp, "out"), "--use_seg_feature",
-        "--gram_feat_3d", "--iterations", str(SEM_CLI_ITERS), "--device",
-        DEVICE])
-    torch.cuda.synchronize()
+    with recorded() as rec:
+        seg = train_semantic.main([
+            "-s", root, "-m", os.path.join(tmp, "out"), "--use_seg_feature",
+            "--gram_feat_3d", "--iterations", str(SEM_CLI_ITERS),
+            "--device", DEVICE])
+        torch.cuda.synchronize()
     cli_counts = counts()
     t2 = time.perf_counter()
     m3d = seg.seg3d_masks
@@ -2142,6 +2283,7 @@ def semantic_cli_phase(st, make_cam, tmp):
           flush=True)
     for k in ("K1 extras_only", "K1 track", "K2 extras_only", "segment_sum"):
         check(cli_counts[k] > 0, f"the semantic CLI never launched {k}")
+    preprocess_launches("semantic-cli", cli_counts, rec)
     check(os.path.exists(od) and os.path.isdir(os.path.join(
         root, "sam", "mask_sorted")), "output_dict.npy or mask_sorted missing")
     check(m3d.shape[1] >= 2, f"only {m3d.shape[1]} instances")
@@ -3156,13 +3298,19 @@ def trace_kernels(path):
     return out
 
 
+# launch counter keys that count calls, not kernel launches
+NOT_LAUNCHES = ("sparse_fallback", "preprocess_eager")
+
+
 def launch_key(name):
     """The launch counter's key of a traced kernel name: K1/K2 (with K3/K4,
-    the same instantiations over a tile list) by mode, the segment sum;
-    None for any other kernel."""
+    the same instantiations over a tile list) by mode, the segment sum,
+    preprocess; None for any other kernel."""
     from instascene_tpu_torch.ops import blend_visits as bv
     if "segment_sum_kernel" in name:
         return "segment_sum"
+    if "preprocess_kernel" in name:
+        return "preprocess"
     m = _KERNEL_NAME.search(name)
     if m is None:
         return None
@@ -3240,7 +3388,8 @@ def blender_phase(p, tmp, dev):
             traced.setdefault(key, []).extend(durs)
             names.setdefault(key, name)
     window = {k: marks["end"][k] - marks["start"][k] for k in marks["end"]
-              if marks["end"][k] != marks["start"][k]}
+              if marks["end"][k] != marks["start"][k]
+              and k not in NOT_LAUNCHES}
     trace_ms = {k: float(np.median(v)) / 1e3 for k, v in traced.items()}
     n_events = sum(len(v) for v in kernels.values())
     print(f"[blender] trace {path}: {n_events} kernel events of "
@@ -3264,7 +3413,9 @@ def blender_phase(p, tmp, dev):
 def eval_scene_phase(colmap_root, sem_root, clusters, tmp):
     """scripts/eval_scene: the geometry half on the training CLI's COLMAP
     scene, the semantic half on the semantic CLI's scene with the true
-    clusters as ground truth; each with its own launch counts."""
+    clusters as ground truth; each with its own launch counts (the
+    semantic half's preprocess calls each one kernel launch, the geometry
+    half's training steps eager)."""
     import torch
     from instascene_tpu_torch.config import (ModelParams, OptimizationParams,
                                              PipelineParams)
@@ -3288,14 +3439,17 @@ def eval_scene_phase(colmap_root, sem_root, clusters, tmp):
              ["--skip_geometry", "--semantic_iters",
               str(EVAL_ITERS["semantic"]), "--gt_instances", gt])):
         reset_counts()
-        t0 = time.perf_counter()
-        res = eval_scene.main(["-s", src, "-m", os.path.join(tmp, half),
-                               "--device", DEVICE] + flags)
-        torch.cuda.synchronize()
+        with recorded() as rec:
+            t0 = time.perf_counter()
+            res = eval_scene.main(["-s", src, "-m", os.path.join(tmp, half),
+                                   "--device", DEVICE] + flags)
+            torch.cuda.synchronize()
         runs[half] = {"results": res, "s": time.perf_counter() - t0,
                       "launches": counts()}
         print(f"[eval_scene] {half} half in {runs[half]['s']:.1f} s; "
               f"launches {runs[half]['launches']}", flush=True)
+        preprocess_launches(f"eval_scene {half}", runs[half]["launches"],
+                            rec, training=half == "geometry")
     geo, sem = runs["geometry"]["results"], runs["semantic"]["results"]
     print(f"[eval_scene] train PSNR {psnr0:.3f} before, {geo['train_psnr']}"
           f" after {EVAL_ITERS['geometry']} iterations", flush=True)
@@ -4015,10 +4169,11 @@ BENCH_MUST = {
 def bench_phase(dev):
     """bench.main with BENCH_ARGS, its JSON line captured: exactly one line,
     every number under "value", "vs_baseline" and "extra" finite and > 0,
-    each path's kernels (BENCH_MUST) launched in its window, and the 4K
-    frame one K1 `full` launch per frame. Then the 4K frame's K1 launch
-    (the uniform scene, camera 0, E=0, as the bench renders it) against its
-    plain version, timed, with its bound. Returns the line, the 4K
+    each path's kernels (BENCH_MUST) launched in its window, the 4K
+    frame one K1 `full` and one preprocess launch per frame, and the 1080p
+    frame one preprocess launch. Then the 4K
+    frame's K1 launch (the uniform scene, camera 0, E=0, as the bench
+    renders it) against its plain version, timed, with its bound. Returns the line, the 4K
     comparison and the bench's launches summed by kernel and mode."""
     import contextlib
     import io
@@ -4047,8 +4202,14 @@ def bench_phase(dev):
         for k, v in got.items():
             launched[k] = launched.get(k, 0) + v
     r4 = line["paths"]["render_4k"]
-    check(r4["launches"] == {"K1 full": r4["samples"]},
-          f"the 4K frames launched {r4['launches']}, not one K1 full each")
+    check(r4["launches"] == {"K1 full": r4["samples"],
+                             "preprocess": r4["samples"]},
+          f"the 4K frames launched {r4['launches']}, not one K1 full and "
+          f"one preprocess each")
+    r1 = line["paths"]["render_1080p"]["launches"]
+    check(r1.get("preprocess") == line["paths"]["render_1080p"]["samples"]
+          and "preprocess_eager" not in r1,
+          f"the 1080p frames launched {r1}, not one preprocess each")
     print("[bench] " + ", ".join(f"{k} {v:.4g}" for k, v in values.items())
           + f"; pairs 1080p {line['pairs']['render_1080p']}, 4K "
           f"{line['pairs']['render_4k']}; peak memory "
@@ -4173,6 +4334,9 @@ def main() -> int:
                       f"{walk_note(r)}", flush=True)
             del flat, b
         phase_s["kernels vs plain, goldens"] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+        pre_k = preprocess_phase(p_full, cam, dev)
+        phase_s["preprocess + SH"] = time.perf_counter() - t_phase
 
         # ---- 3. the serving path at full width
         t_phase = time.perf_counter()
@@ -4581,6 +4745,27 @@ def main() -> int:
                  bench_paths["render_4k"]["launches"]["K1 full"]),
         launches_by_path={"bench_4k": bench_paths["render_4k"]["launches"][
             "K1 full"]}))
+    # preprocess on the main paths' counted runs, each call there checked
+    # one kernel launch (the eval's geometry half: its training eager)
+    pre_paths = {
+        "serving": serve["preprocess"],
+        "semantic_steps": sem["counts"]["preprocess"],
+        "semantic_cli": sem_counts["preprocess"],
+        "eval_scene_semantic": ev["semantic"]["launches"]["preprocess"],
+        "eval_scene_geometry": ev["geometry"]["launches"]["preprocess"],
+        "bench_frames": sum(bench_paths[k]["launches"]["preprocess"]
+                            for k in ("render_1080p", "render_4k"))}
+    kernels += [{
+        "name": "preprocess", "route": "cuda",
+        "source": "instascene_tpu_torch/csrc/preprocess.cu",
+        "replaces": "none (preprocess and SH are XLA in the JAX package)",
+        "mode": f"SH 3, {r['scene']} ({r['n']} gaussians) at {r['size']}",
+        "launches": sum(pre_paths.values()), "launches_by_path": pre_paths,
+        "eager_calls_by_path": {"eval_scene_geometry": ev["geometry"][
+            "launches"]["preprocess_eager"]},
+        "ms": r["ms"], "trace_ms": r["trace_ms"], "plain_ms": r["eager_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None}
+        for r in pre_k["rows"]]
     variants = {k: {"window_step_median_ms": sem[k]["mv"]["median_ms"],
                     "plain_step_median_ms": (sem[k]["plain"]["median_ms"]
                                              if "plain" in sem[k] else None),

@@ -6,8 +6,17 @@ Port of instascene_tpu/ops/preprocess.py:25-280 (`quat_to_rotmat`,
 rect shrink and the opt-in exact conic culling), :283-455
 (`conic_cull_masks`, `_mask_below`, `_mask_range`) and :457
 (`mark_visible`), with the slab origin (`y_offset`, `full_height`) that
-the tile-slab sharded render folds into the homography. Plain torch,
-differentiable.
+the tile-slab sharded render folds into the homography.
+
+Two paths, chosen by what the call needs: where autograd records a graph
+through preprocess (CUDA inputs that require grad, under grad mode: the
+geometry training steps), the eager, differentiable chain
+`preprocess_plain` runs, ~456 launches a view; every other CUDA call
+(viewer frames, the tracker, the semantic step's frozen geometry, binning
+caches, mesh export) launches csrc/preprocess.cu, the same outputs bit for
+bit in one launch, forward only. CPU tensors run `preprocess_plain`.
+`ops/blend_visits.LAUNCHES` counts the kernel's launches ("preprocess")
+and the CUDA calls that took the eager chain ("preprocess_eager").
 
 Convention: T[n] is a 3x3 matrix whose rows (Tu, Tv, Tw) map splat-tangent
 homogeneous coords (u, v, 1) to (x_pix·w, y_pix·w, w):
@@ -24,11 +33,13 @@ taken.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
-from .sh import sh_to_color
+from .sh import num_sh_coeffs, sh_to_color
 from ..utils.profiling import span
 
 NEAR_N = 0.2
@@ -155,129 +166,250 @@ def preprocess_gaussians(
     y_offset / full_height: render the rows [y_offset, y_offset + height)
     of a full_height-tall image into local rows [0, height): the NDC
     mapping uses the full image, the rect and tile clamps the slab. None
-    leaves every other path as it was, bit for bit."""
+    leaves every other path as it was, bit for bit.
+
+    CPU tensors run preprocess_plain; CUDA tensors run it too where
+    autograd needs its graph (grad mode on and an input requiring grad),
+    and launch csrc/preprocess.cu (preprocess_kernel) otherwise."""
+    from . import blend_visits as bv
+    args = (xyz, scaling, rotation, w2v, full_proj, campos, width, height,
+            opacity, color, shs, sh_degree, alive, y_offset, full_height)
     with span("preprocess"):
-        f32 = torch.float32
-        dev = xyz.device
-        xyz = xyz.to(f32)
-        w2v = w2v.to(f32)
-
-        p_view = _rows(xyz, w2v[:3, :3]) + w2v[:3, 3]
-        in_frustum = p_view[:, 2] > 0.2
-
-        R = quat_to_rotmat(rotation.to(f32))
-        su = scaling[:, 0:1].to(f32)
-        sv = scaling[:, 1:2].to(f32)
-        axis_u = R[:, :, 0] * su
-        axis_v = R[:, :, 1] * sv
-        normal_world = R[:, :, 2]
-
-        n2p = ndc2pix_rows(width, full_height or height, dev, y_offset)
-        fp = full_proj.to(f32)
-        n2p_full = n2p[:, 0:1] * fp[0:1]                          # [3,4]
-        for k in range(1, 4):
-            n2p_full = fma(n2p[:, k:k + 1], fp[k:k + 1], n2p_full)
-        Tu_col = _rows(axis_u, n2p_full[:, :3])
-        Tv_col = _rows(axis_v, n2p_full[:, :3])
-        Tc_col = _rows(xyz, n2p_full[:, :3]) + n2p_full[:, 3]
-        T = torch.stack([Tu_col, Tv_col, Tc_col], dim=-1)          # [N,3,3]
-
-        normal_view = _rows(normal_world, w2v[:3, :3])
-        cos = -_sum3(p_view * normal_view)
-        multiplier = torch.where(cos > 0, 1.0, -1.0)
-        normal_view = normal_view * multiplier[:, None]
-
-        # 3σ AABB and low-pass center; near-degenerate d is culled relative to
-        # the magnitude of Tw and the center clamped into a finite range
-        t_vec = torch.tensor([CUTOFF * CUTOFF, CUTOFF * CUTOFF, -1.0],
-                             dtype=f32, device=dev)
-        Tw = T[:, 2, :]
-        d_scale = _sum3(torch.abs(t_vec) * Tw * Tw)
-        d_ok, center_x, center_y, h0x, h0y = _conic_box(t_vec, T, d_scale)
-        ext_x = torch.sqrt(torch.clamp(h0x, 1e-4, 1e14))
-        ext_y = torch.sqrt(torch.clamp(h0y, 1e-4, 1e14))
-        finite = (torch.isfinite(center_x) & torch.isfinite(center_y)
-                  & torch.isfinite(ext_x) & torch.isfinite(ext_y))
-        zero = torch.zeros_like(center_x)
-        center_x = torch.where(finite, center_x, zero)
-        center_y = torch.where(finite, center_y, zero)
-        ext_x = torch.where(finite, ext_x, zero)
-        ext_y = torch.where(finite, ext_y, zero)
-        xy = torch.stack([center_x, center_y], dim=-1)
-        radius = torch.ceil(torch.clamp(torch.maximum(ext_x, ext_y),
-                                        min=CUTOFF * FILTER_SIZE))
-
-        # tight per-axis tile rect of the 3σ ellipse
-        rx = torch.ceil(torch.clamp(ext_x, min=CUTOFF * FILTER_SIZE))
-        ry = torch.ceil(torch.clamp(ext_y, min=CUTOFF * FILTER_SIZE))
-        tile = TILE
-        grid_x = (width + tile - 1) // tile
-        grid_y = (height + tile - 1) // tile
-        rmin_x = torch.clamp(torch.floor((xy[:, 0] - rx) / tile), 0, grid_x)
-        rmin_y = torch.clamp(torch.floor((xy[:, 1] - ry) / tile), 0, grid_y)
-        rmax_x = torch.clamp(torch.floor((xy[:, 0] + rx + tile - 1) / tile),
-                             0, grid_x)
-        rmax_y = torch.clamp(torch.floor((xy[:, 1] + ry + tile - 1) / tile),
-                             0, grid_y)
-
-        opa = torch.clamp(torch.reshape(opacity, (-1,)).to(f32), 1e-12, 1.0)
-        thr = torch.clamp(2.0 * torch.log(255.0 * opa), 0.72, CUTOFF * CUTOFF)
-        t_thr = torch.stack([thr, thr, -torch.ones_like(thr)], -1)
-        dt_ok, ctx, cty, h0x_t, h0y_t = _conic_box(t_thr, T, d_scale)
-        ext_tx = torch.sqrt(torch.clamp(h0x_t, 1e-4, 1e14))
-        ext_ty = torch.sqrt(torch.clamp(h0y_t, 1e-4, 1e14))
-        ok_t = (dt_ok & torch.isfinite(ctx) & torch.isfinite(cty)
-                & torch.isfinite(ext_tx) & torch.isfinite(ext_ty)
-                & (thr < 8.99))
-        r2d = torch.sqrt(thr / FILTER_INV_SQUARE)
-        # 0.5-px guard for f32 rounding; the tile-floor conversion of the
-        # fractional upper bound is a true ceil (floor(hi / tile) + 1)
-        pad = 0.5
-        lo_x = torch.minimum(ctx - ext_tx, xy[:, 0] - r2d) - pad
-        hi_x = torch.maximum(ctx + ext_tx, xy[:, 0] + r2d) + pad
-        lo_y = torch.minimum(cty - ext_ty, xy[:, 1] - r2d) - pad
-        hi_y = torch.maximum(cty + ext_ty, xy[:, 1] + r2d) + pad
-        cmin_x = torch.maximum(rmin_x, torch.clamp(torch.floor(lo_x / tile),
-                                                   0, grid_x))
-        cmin_y = torch.maximum(rmin_y, torch.clamp(torch.floor(lo_y / tile),
-                                                   0, grid_y))
-        cmax_x = torch.minimum(rmax_x, torch.clamp(
-            torch.floor(hi_x / tile) + 1, 0, grid_x))
-        cmax_y = torch.minimum(rmax_y, torch.clamp(
-            torch.floor(hi_y / tile) + 1, 0, grid_y))
-        b_rmin_x = torch.where(ok_t, cmin_x, rmin_x)
-        b_rmin_y = torch.where(ok_t, cmin_y, rmin_y)
-        b_rmax_x = torch.where(ok_t, torch.maximum(cmax_x, cmin_x), rmax_x)
-        b_rmax_y = torch.where(ok_t, torch.maximum(cmax_y, cmin_y), rmax_y)
-
-        rect_min = torch.stack([b_rmin_x, b_rmin_y], dim=-1).to(torch.int32)
-        rect_max = torch.stack([b_rmax_x, b_rmax_y], dim=-1).to(torch.int32)
-        tiles = ((rect_max[:, 0] - rect_min[:, 0])
-                 * (rect_max[:, 1] - rect_min[:, 1]))
-        # visibility keeps the opacity-blind 3σ box's tile count
-        tiles9 = (rmax_x - rmin_x) * (rmax_y - rmin_y)
-
-        valid = in_frustum & d_ok & finite & (tiles9 > 0)
-        if alive is not None:
-            valid = valid & alive
-        tiles_touched = torch.where(valid, tiles, 0).to(torch.int32)
-        radius = torch.where(valid, radius, 0.0)
-
-        cull_lo = cull_hi = None
+        if not _on_card(xyz):
+            pre = preprocess_plain(*args)
+        elif torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad
+                for t in (xyz, scaling, rotation, opacity, shs, color, w2v,
+                          full_proj, campos)):
+            pre = preprocess_plain(*args)
+            bv.LAUNCHES["preprocess_eager"] += 1
+        else:
+            pre = preprocess_kernel(*args)
         if conic_cull:
             cull_lo, cull_hi, tiles_touched = conic_cull_masks(
-                T, xy, opacity, rect_min, rect_max, tiles_touched)
+                pre.T, pre.xy, opacity, pre.rect_min, pre.rect_max,
+                pre.tiles_touched)
+            pre = pre._replace(tiles_touched=tiles_touched, cull_lo=cull_lo,
+                               cull_hi=cull_hi)
+        return pre
 
-        if color is None:
-            color = sh_to_color(sh_degree, shs.to(f32), xyz, campos.to(f32))
-        else:
-            color = color.to(f32)
 
-        return PreprocessOut(T=T, normal_view=normal_view, depth=p_view[:, 2],
-                             xy=xy, radius=radius, rect_min=rect_min,
-                             rect_max=rect_max, tiles_touched=tiles_touched,
-                             valid=valid, color=color, cull_lo=cull_lo,
-                             cull_hi=cull_hi)
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
+def preprocess_plain(xyz, scaling, rotation, w2v, full_proj, campos, width,
+                     height, opacity, color=None, shs=None, sh_degree=0,
+                     alive=None, y_offset=None,
+                     full_height=None) -> PreprocessOut:
+    """preprocess_gaussians without conic culling, in eager torch ops:
+    differentiable, any device; the kernel's plain version."""
+    f32 = torch.float32
+    dev = xyz.device
+    xyz = xyz.to(f32)
+    w2v = w2v.to(f32)
+
+    p_view = _rows(xyz, w2v[:3, :3]) + w2v[:3, 3]
+    in_frustum = p_view[:, 2] > 0.2
+
+    R = quat_to_rotmat(rotation.to(f32))
+    su = scaling[:, 0:1].to(f32)
+    sv = scaling[:, 1:2].to(f32)
+    axis_u = R[:, :, 0] * su
+    axis_v = R[:, :, 1] * sv
+    normal_world = R[:, :, 2]
+
+    n2p = ndc2pix_rows(width, full_height or height, dev, y_offset)
+    fp = full_proj.to(f32)
+    n2p_full = n2p[:, 0:1] * fp[0:1]                          # [3,4]
+    for k in range(1, 4):
+        n2p_full = fma(n2p[:, k:k + 1], fp[k:k + 1], n2p_full)
+    Tu_col = _rows(axis_u, n2p_full[:, :3])
+    Tv_col = _rows(axis_v, n2p_full[:, :3])
+    Tc_col = _rows(xyz, n2p_full[:, :3]) + n2p_full[:, 3]
+    T = torch.stack([Tu_col, Tv_col, Tc_col], dim=-1)          # [N,3,3]
+
+    normal_view = _rows(normal_world, w2v[:3, :3])
+    cos = -_sum3(p_view * normal_view)
+    multiplier = torch.where(cos > 0, 1.0, -1.0)
+    normal_view = normal_view * multiplier[:, None]
+
+    # 3σ AABB and low-pass center; near-degenerate d is culled relative to
+    # the magnitude of Tw and the center clamped into a finite range
+    t_vec = torch.tensor([CUTOFF * CUTOFF, CUTOFF * CUTOFF, -1.0],
+                         dtype=f32, device=dev)
+    Tw = T[:, 2, :]
+    d_scale = _sum3(torch.abs(t_vec) * Tw * Tw)
+    d_ok, center_x, center_y, h0x, h0y = _conic_box(t_vec, T, d_scale)
+    ext_x = torch.sqrt(torch.clamp(h0x, 1e-4, 1e14))
+    ext_y = torch.sqrt(torch.clamp(h0y, 1e-4, 1e14))
+    finite = (torch.isfinite(center_x) & torch.isfinite(center_y)
+              & torch.isfinite(ext_x) & torch.isfinite(ext_y))
+    zero = torch.zeros_like(center_x)
+    center_x = torch.where(finite, center_x, zero)
+    center_y = torch.where(finite, center_y, zero)
+    ext_x = torch.where(finite, ext_x, zero)
+    ext_y = torch.where(finite, ext_y, zero)
+    xy = torch.stack([center_x, center_y], dim=-1)
+    radius = torch.ceil(torch.clamp(torch.maximum(ext_x, ext_y),
+                                    min=CUTOFF * FILTER_SIZE))
+
+    # tight per-axis tile rect of the 3σ ellipse
+    rx = torch.ceil(torch.clamp(ext_x, min=CUTOFF * FILTER_SIZE))
+    ry = torch.ceil(torch.clamp(ext_y, min=CUTOFF * FILTER_SIZE))
+    tile = TILE
+    grid_x = (width + tile - 1) // tile
+    grid_y = (height + tile - 1) // tile
+    rmin_x = torch.clamp(torch.floor((xy[:, 0] - rx) / tile), 0, grid_x)
+    rmin_y = torch.clamp(torch.floor((xy[:, 1] - ry) / tile), 0, grid_y)
+    rmax_x = torch.clamp(torch.floor((xy[:, 0] + rx + tile - 1) / tile),
+                         0, grid_x)
+    rmax_y = torch.clamp(torch.floor((xy[:, 1] + ry + tile - 1) / tile),
+                         0, grid_y)
+
+    opa = torch.clamp(torch.reshape(opacity, (-1,)).to(f32), 1e-12, 1.0)
+    thr = torch.clamp(2.0 * torch.log(255.0 * opa), 0.72, CUTOFF * CUTOFF)
+    t_thr = torch.stack([thr, thr, -torch.ones_like(thr)], -1)
+    dt_ok, ctx, cty, h0x_t, h0y_t = _conic_box(t_thr, T, d_scale)
+    ext_tx = torch.sqrt(torch.clamp(h0x_t, 1e-4, 1e14))
+    ext_ty = torch.sqrt(torch.clamp(h0y_t, 1e-4, 1e14))
+    ok_t = (dt_ok & torch.isfinite(ctx) & torch.isfinite(cty)
+            & torch.isfinite(ext_tx) & torch.isfinite(ext_ty)
+            & (thr < 8.99))
+    r2d = torch.sqrt(thr / FILTER_INV_SQUARE)
+    # 0.5-px guard for f32 rounding; the tile-floor conversion of the
+    # fractional upper bound is a true ceil (floor(hi / tile) + 1)
+    pad = 0.5
+    lo_x = torch.minimum(ctx - ext_tx, xy[:, 0] - r2d) - pad
+    hi_x = torch.maximum(ctx + ext_tx, xy[:, 0] + r2d) + pad
+    lo_y = torch.minimum(cty - ext_ty, xy[:, 1] - r2d) - pad
+    hi_y = torch.maximum(cty + ext_ty, xy[:, 1] + r2d) + pad
+    cmin_x = torch.maximum(rmin_x, torch.clamp(torch.floor(lo_x / tile),
+                                               0, grid_x))
+    cmin_y = torch.maximum(rmin_y, torch.clamp(torch.floor(lo_y / tile),
+                                               0, grid_y))
+    cmax_x = torch.minimum(rmax_x, torch.clamp(
+        torch.floor(hi_x / tile) + 1, 0, grid_x))
+    cmax_y = torch.minimum(rmax_y, torch.clamp(
+        torch.floor(hi_y / tile) + 1, 0, grid_y))
+    b_rmin_x = torch.where(ok_t, cmin_x, rmin_x)
+    b_rmin_y = torch.where(ok_t, cmin_y, rmin_y)
+    b_rmax_x = torch.where(ok_t, torch.maximum(cmax_x, cmin_x), rmax_x)
+    b_rmax_y = torch.where(ok_t, torch.maximum(cmax_y, cmin_y), rmax_y)
+
+    rect_min = torch.stack([b_rmin_x, b_rmin_y], dim=-1).to(torch.int32)
+    rect_max = torch.stack([b_rmax_x, b_rmax_y], dim=-1).to(torch.int32)
+    tiles = ((rect_max[:, 0] - rect_min[:, 0])
+             * (rect_max[:, 1] - rect_min[:, 1]))
+    # visibility keeps the opacity-blind 3σ box's tile count
+    tiles9 = (rmax_x - rmin_x) * (rmax_y - rmin_y)
+
+    valid = in_frustum & d_ok & finite & (tiles9 > 0)
+    if alive is not None:
+        valid = valid & alive
+    tiles_touched = torch.where(valid, tiles, 0).to(torch.int32)
+    radius = torch.where(valid, radius, 0.0)
+
+    if color is None:
+        color = sh_to_color(sh_degree, shs.to(f32), xyz, campos.to(f32))
+    else:
+        color = color.to(f32)
+
+    return PreprocessOut(T=T, normal_view=normal_view, depth=p_view[:, 2],
+                         xy=xy, radius=radius, rect_min=rect_min,
+                         rect_max=rect_max, tiles_touched=tiles_touched,
+                         valid=valid, color=color)
+
+
+def preprocess_kernel(xyz, scaling, rotation, w2v, full_proj, campos, width,
+                      height, opacity, color=None, shs=None, sh_degree=0,
+                      alive=None, y_offset=None,
+                      full_height=None) -> PreprocessOut:
+    """preprocess_plain's outputs from one launch of csrc/preprocess.cu,
+    bit for bit, without an autograd graph. CUDA tensors only; raises on
+    what the kernel does not take. A given color is returned as
+    preprocess_plain returns it (color.to(float32)) and the kernel writes
+    none; otherwise it evaluates SH of sh_degree from shs. The camera stays
+    on the device; y_offset (a number) is folded into the NDC→pixel rows
+    on the host, in float32 as ndc2pix_rows does. Each launch counts one
+    in LAUNCHES["preprocess"]; with no gaussians nothing is launched or
+    counted."""
+    from .blend_visits import LAUNCHES, _lib_fn, _ptr, _stream
+    f32 = torch.float32
+    dev = xyz.device
+    n = xyz.shape[0]
+
+    def operand(name, t, shape, dtype=f32):
+        t = t.to(dtype).contiguous()
+        if t.device != dev or tuple(t.shape) != shape:
+            raise ValueError(f"preprocess_kernel: {name} must be {shape} on "
+                             f"{dev}, got {tuple(t.shape)} on {t.device}")
+        return t
+
+    xyz = operand("xyz", xyz, (n, 3))
+    scaling = operand("scaling", scaling, (n, 2))
+    rotation = operand("rotation", rotation, (n, 4))
+    opacity = operand("opacity", torch.reshape(opacity, (-1,)), (n,))
+    w2v = operand("w2v", w2v, (4, 4))
+    full_proj = operand("full_proj", full_proj, (4, 4))
+    campos = operand("campos", campos, (3,))
+    if alive is not None:
+        alive = operand("alive", alive, (n,), torch.bool)
+    if color is not None:
+        color = operand("color", color, (n, 3))
+        degree, k, shs = -1, 0, None
+    elif shs is None:
+        raise ValueError("preprocess_kernel: give color or shs")
+    else:
+        if not 0 <= sh_degree <= 3:
+            raise ValueError(f"preprocess_kernel: SH degree {sh_degree} is "
+                             f"not in 0-3")
+        k = shs.shape[1] if shs.dim() == 3 else 0
+        shs = operand("shs", shs, (n, k, 3))
+        if k < num_sh_coeffs(sh_degree):
+            raise ValueError(f"preprocess_kernel: SH degree {sh_degree} "
+                             f"needs {num_sh_coeffs(sh_degree)} "
+                             f"coefficients, shs has {k}")
+        degree = sh_degree
+
+    # ndc2pix_rows' entries, rounded to float32 as it rounds them
+    full_h = full_height or height
+    oy = np.float32((full_h - 1) / 2.0)
+    if y_offset is not None:
+        oy = oy - np.float32(y_offset)
+    n2p = [float(np.float32(v)) for v in (width / 2.0, (width - 1) / 2.0,
+                                          full_h / 2.0, oy)]
+    out = PreprocessOut(
+        T=torch.empty((n, 3, 3), dtype=f32, device=dev),
+        normal_view=torch.empty((n, 3), dtype=f32, device=dev),
+        depth=torch.empty((n,), dtype=f32, device=dev),
+        xy=torch.empty((n, 2), dtype=f32, device=dev),
+        radius=torch.empty((n,), dtype=f32, device=dev),
+        rect_min=torch.empty((n, 2), dtype=torch.int32, device=dev),
+        rect_max=torch.empty((n, 2), dtype=torch.int32, device=dev),
+        tiles_touched=torch.empty((n,), dtype=torch.int32, device=dev),
+        valid=torch.empty((n,), dtype=torch.bool, device=dev),
+        color=(color if color is not None
+               else torch.empty((n, 3), dtype=f32, device=dev)))
+    if n == 0:
+        return out      # no gaussians: nothing to launch
+    _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = _lib_fn("preprocess.cu", "preprocess_launch",
+                 [_P] * 9 + [_I] * 5 + [_F] * 4 + [_P] * 11)
+    with torch.cuda.device(dev):
+        err = fn(xyz.data_ptr(), scaling.data_ptr(), rotation.data_ptr(),
+                 opacity.data_ptr(), _ptr(alive), _ptr(shs),
+                 w2v.data_ptr(), full_proj.data_ptr(), campos.data_ptr(), n,
+                 degree, k, (width + TILE - 1) // TILE,
+                 (height + TILE - 1) // TILE, *n2p,
+                 *[t.data_ptr() for t in out[:9]],
+                 None if color is not None else out.color.data_ptr(),
+                 _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"preprocess kernel launch failed: cudaError "
+                           f"{err}")
+    LAUNCHES["preprocess"] += 1
+    return out
 
 
 CULL_WINDOW = 64   # row-major tile offsets representable in the cull bitmask

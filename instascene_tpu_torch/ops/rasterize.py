@@ -19,11 +19,15 @@ JAX package builds a select_tiles_bundle mini bundle
 (rasterize.py:277-282, blend_pallas.py:987-1085).
 
 Differentiable: torch autograd runs through preprocess, SH and pack, and
-the blend's gradient comes from K2 (ops/blend_visits.BlendFunction).
+the blend's gradient comes from K2 (ops/blend_visits.BlendFunction). A
+call that needs no gradient through the geometry (detached inputs, no
+grad mode, the viewer and tracker modes) takes preprocess's one-launch
+kernel on the card (ops/preprocess.py).
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -174,11 +178,15 @@ def rasterize(means3d, scales, rotations, opacities, cam: CameraMats, bg,
     width, height = cfg.width, cfg.height
     n = means3d.shape[0]
     opac = torch.reshape(opacities, (n,))
-    pre = preprocess_gaussians(
-        means3d, scales, rotations, cam.w2v, cam.full_proj, cam.campos,
-        width, height, opac, color=colors, shs=shs, sh_degree=sh_degree,
-        alive=alive, conic_cull=cfg.conic_cull and cached_binning is None,
-        y_offset=y_offset, full_height=full_height)
+    # the viewer's and the tracker's blends take flat detached: no graph
+    # through preprocess, so its forward-only kernel serves them
+    forward_only = cfg.fwd_viewer or cfg.track_contrib
+    with torch.no_grad() if forward_only else contextlib.nullcontext():
+        pre = preprocess_gaussians(
+            means3d, scales, rotations, cam.w2v, cam.full_proj, cam.campos,
+            width, height, opac, color=colors, shs=shs, sh_degree=sh_degree,
+            alive=alive, conic_cull=cfg.conic_cull and cached_binning is None,
+            y_offset=y_offset, full_height=full_height)
     binning = (cached_binning if cached_binning is not None
                else bin_gaussians(pre, width, height))
     with span("raster"):

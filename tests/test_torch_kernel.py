@@ -181,7 +181,9 @@ def test_cuda_rasterize_matches_goldens(cuda):
     e = g["inputs_extra"].shape[1]
     extras = np.zeros((n, 16), np.float32)
     extras[:, :e] = g["inputs_extra"]
-    want = {**LAUNCHES, "K1 full": LAUNCHES["K1 full"] + 1}
+    # no input requires grad: preprocess takes its kernel too
+    want = {**LAUNCHES, "K1 full": LAUNCHES["K1 full"] + 1,
+            "preprocess": LAUNCHES["preprocess"] + 1}
     out = rasterize(f(g["inputs_xyz"]), f(g["inputs_scales"]),
                     f(g["inputs_rots"]), f(g["inputs_opac"]),
                     CameraMats(f(cam.w2v), f(cam.full_proj),
