@@ -17,7 +17,9 @@ What differs from the JAX package:
     crop) as the crop mask of its already compacted copy, which raises an
     IndexError whenever the hull leaves out an alive gaussian (ROADMAP C);
   * `timings` holds the host seconds of the last selection's stages
-    (score, DBSCAN, the hull crop, write).
+    (score, DBSCAN, the hull crop, write) and of the last rendered
+    frame's copies to the host ("copy", in the span of that name), and
+    `d2h_bytes` counts every byte render_view has copied to the host.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from ..cameras import MiniCam, get_projection_matrix
 from ..models import gaussians as gmod
 from ..semantic.cluster import dbscan
 from ..semantic.export import pca_proj_matrix
+from ..utils.profiling import span
 
 
 class OrbitCamera:
@@ -110,6 +113,8 @@ class SegmentationEngine:
         self._initial_params = self.params
         self._color_rng = np.random.default_rng(0)
         self.timings = {}
+        # bytes render_view has copied to the host; a cached frame adds 0
+        self.d2h_bytes = 0
 
     def reload(self) -> None:
         """Restore the model loaded at startup."""
@@ -136,7 +141,8 @@ class SegmentationEngine:
         """rgb + feature maps for `cam` (numpy), plus depth/normal/alpha
         maps when `need_aux` (full blend instead of the viewer fast path).
         Re-renders only when the pose, the gaussian set or the aux
-        requirement changed."""
+        requirement changed; a re-render's copies to the host go to
+        timings["copy"] and d2h_bytes, a cached frame's to neither."""
         key = (np.asarray(cam.w2v, np.float32).tobytes(),
                self._params_version, bool(need_aux))
         if self._frame_key == key:
@@ -148,13 +154,20 @@ class SegmentationEngine:
         feat = feat / (torch.linalg.norm(feat, dim=-1, keepdim=True) + 1e-6)
         proj = torch.as_tensor(self.proj_mat, device=feat.device)
         feat_rgb = torch.clamp(feat @ proj * 0.5 + 0.5, 0, 1)
-        frame = {"rgb": pkg["render"].cpu().numpy(),
-                 "feat": feat.cpu().numpy(),
-                 "feat_rgb": feat_rgb.cpu().numpy()}
-        if need_aux:
-            frame["depth"] = pkg["surf_depth"][..., 0].cpu().numpy()
-            frame["normal"] = pkg["rend_normal"].cpu().numpy()
-            frame["alpha"] = pkg["rend_alpha"][..., 0].cpu().numpy()
+        # the frame's kernels finish first, so "copy" holds the copies alone
+        if feat.is_cuda:
+            torch.cuda.synchronize(feat.device)
+        with span("copy"):
+            t0 = time.perf_counter()
+            frame = {"rgb": pkg["render"].cpu().numpy(),
+                     "feat": feat.cpu().numpy(),
+                     "feat_rgb": feat_rgb.cpu().numpy()}
+            if need_aux:
+                frame["depth"] = pkg["surf_depth"][..., 0].cpu().numpy()
+                frame["normal"] = pkg["rend_normal"].cpu().numpy()
+                frame["alpha"] = pkg["rend_alpha"][..., 0].cpu().numpy()
+            self.timings["copy"] = time.perf_counter() - t0
+        self.d2h_bytes += sum(a.nbytes for a in frame.values())
         self._frame_key, self._frame = key, frame
         return frame
 

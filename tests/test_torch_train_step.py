@@ -1,8 +1,9 @@
 """The port's differentiable rasterizer and geometry train step against the
 JAX package on the same seeded numpy inputs: rasterize gradients through K2's
 plain version against jax.grad through JAX's rasterize (its CPU blend), and
-one train_step in both recipes (the reference defaults, where the kernels run
-no_dist, and the 2DGS bounded-scene recipe with a mono-normal prior)."""
+one train_step in three recipes (the reference defaults, where the kernels
+run no_dist, the 2DGS bounded-scene recipe with a mono-normal prior, and
+2DGS's Tanks and Temples recipe, distortion on with median-depth normals)."""
 
 import numpy as np
 import pytest
@@ -124,6 +125,9 @@ RECIPES = {
     # 2DGS bounded scenes (--lambda_dist 100 --depth_ratio 0), with a
     # mono-normal prior
     "dist_prior": dict(lambda_dist=100.0, depth_ratio=0.0, prior=True),
+    # 2DGS's Tanks and Temples recipe (--lambda_dist 100 --depth_ratio 1):
+    # the kernels run full, the normals come from the median depth
+    "dist": dict(lambda_dist=100.0, depth_ratio=1.0, prior=False),
 }
 
 
@@ -189,7 +193,9 @@ def test_train_step_matches_jax(recipe):
     tp = from_numpy(st, "cpu")
     t = lambda d: {f: torch.as_tensor(a) for f, a in d.items()}
     stages = []
-    cfg = RasterizeConfig(W, H, no_depth_dist=recipe == "no_dist")
+    # the trainer's rule: no distortion loss and median depth alone
+    cfg = RasterizeConfig(W, H, no_depth_dist=(
+        rc["lambda_dist"] == 0.0 and rc["depth_ratio"] == 1.0))
     tp2, topt2, tst2, tm = ttrain.train_step(
         tp, AdamState(m=t(m), v=t(v), count=count),
         dens.DensifyStats(*map(torch.as_tensor, stats0)), tct,

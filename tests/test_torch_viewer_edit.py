@@ -252,7 +252,7 @@ def test_segment_convexhull_matches_jax(plys, tmp_path, mode):
     _assert_same_model(je.params, te.params)
     assert te.params.n_alive() == (ma.sum() if mode == "save"
                                    else len(ma) - ma.sum())
-    assert set(te.timings) == {"score", "dbscan", "hull", "write"}
+    assert set(te.timings) == {"copy", "score", "dbscan", "hull", "write"}
     np.testing.assert_allclose(te.render_view(cam)["rgb"],
                                je.render_view(cam)["rgb"], atol=3e-4)
 
