@@ -24,8 +24,10 @@ lines; any failure exits non-zero and prints no result:
    preprocess_phase) at waldo's size (300k, 976x728 and 1920x1080) and
    garden's (2.96M, 1297x840): its time against its bound from the bytes
    it reads and writes and the eager chain's time on the same inputs,
-   every output bit for bit the eager chain's, and its launches on a
-   viewer frame and the tracker's view (one each, no eager call);
+   every output bit for bit the eager chain's; its backward kernel's time
+   against its bound and autograd's backward through the eager chain,
+   each gradient within 1e-5 of autograd's; and its launches on a viewer
+   frame and the tracker's view (one each, no eager call);
 3. the serving path at full width: the 300k-gaussian, SH-3, 16-channel
    `trained` benchmark scene is written to a PLY and served by the port's
    headless click-to-segment CLI (semantic_gui.main) at 1920x1080 — a depth
@@ -48,7 +50,8 @@ lines; any failure exits non-zero and prints no result:
    read just after: train_step on that scene (3 warm-up steps, then 20
    timed steps with the reference defaults, K1/K2 no_dist, and 10 with the
    2DGS bounded-scene recipe, lambda_dist 100 and depth_ratio 0), with the
-   stage split of each step; then the training CLI (train.main) on a COLMAP
+   stage split of each step, each step one preprocess and one preprocess
+   backward launch and no eager call; then the training CLI (train.main) on a COLMAP
    scene written with the port's writers (8 orbit cameras with PNG images
    rendered by the port, the 300k centres as points3D.bin) for 30
    iterations with densification at 20 and 30 (at the thresholds of
@@ -655,6 +658,70 @@ PRE_SIZES = (("waldo", 300_000, ((976, 728), (1920, 1080))),
 # scaling 8, rotation 16, opacity 4, alive 1, shs 192; writes T 36, the
 # normal 12, depth 4, xy 8, radius 4, rects 16, tiles 4, valid 1, color 12
 PRE_BYTES = 233 + 97
+# the backward's: reads xyz 12, scaling 8, rotation 16, shs 192 and the
+# gradients of T 36, the normal 12, xy 8 and the colour 12; writes those of
+# xyz 12, scaling 8, rotation 16 and shs 192
+PRE_BWD_BYTES = 228 + 68 + 228
+
+
+def traced_ms(fn, part, reps=20):
+    """The median device ms of the traced kernels named with `part` over
+    reps calls of fn(), each call one launch. The profiler records the
+    second of two rounds, after a warm-up round (torch.profiler's
+    schedule): a trace started with the first launch once held 19 of its
+    20 events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_pre_"),
+                        "trace.json")
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: p.export_chrome_trace(path)) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    durs = [d for k, v in trace_kernels(path).items() if part in k
+            for d in v]
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    check(len(durs) == reps, f"the trace holds {len(durs)} {part} events "
+          f"of {reps} launches")
+    return float(np.median(durs)) / 1e3
+
+
+def preprocess_backward(args, kw, grads):
+    """The backward kernel against autograd's backward through the eager
+    chain on the same inputs and incoming gradients (T, normal, depth, xy,
+    colour): each leaf's relative L2 gap, both timed (CUDA events), the
+    kernel's device time from a trace."""
+    import torch
+    from instascene_tpu_torch.ops.preprocess import (preprocess_bwd_kernel,
+                                                     preprocess_plain)
+    with torch.enable_grad():
+        leaves = [a.detach().requires_grad_(True) for a in args[:3]]
+        shs = kw["shs"].detach().requires_grad_(True)
+        out = preprocess_plain(*leaves, *args[3:], **{**kw, "shs": shs})
+        outs = [out.T, out.normal_view, out.depth, out.xy, out.color]
+        eager = lambda: torch.autograd.grad(outs, leaves + [shs], grads,
+                                            retain_graph=True)
+        want = eager()
+        bargs = (*args, None, kw["shs"], kw["sh_degree"], kw["alive"],
+                 None, None)
+        kernel = lambda: preprocess_bwd_kernel(bargs, grads)
+        got = kernel()
+        torch.cuda.synchronize()
+        gaps = {name: float((g.double() - w.double()).norm()
+                            / w.double().norm())
+                for name, g, w in zip(("xyz", "scaling", "rotation", "shs"),
+                                      got, want)}
+        check(max(gaps.values()) <= 1e-5, f"preprocess backward: relative "
+              f"gaps to autograd through the eager chain {gaps}")
+        r = {"bwd_ms": time_ms(kernel, 20),
+             "bwd_trace_ms": traced_ms(kernel, "preprocess_bwd_kernel"),
+             "bwd_eager_ms": time_ms(eager, 5), "bwd_gaps": gaps}
+        del out, outs
+    return r
 
 
 def preprocess_phase(p_full, cam, dev):
@@ -662,10 +729,12 @@ def preprocess_phase(p_full, cam, dev):
     (ops/preprocess.preprocess_plain, on the card) at the benchmark's
     sizes: every output bit for bit, both timed (CUDA events around the
     call, the wrapper's host work included), the kernel's device time
-    alone from a profiler trace, its bound from PRE_BYTES; then, as a
-    check beside the main paths' counts, its launches (LAUNCHES
-    "preprocess" and "preprocess_eager") on one viewer frame of p_full and
-    one tracker view from camera cam."""
+    alone from a profiler trace, its bound from PRE_BYTES; the same for
+    the backward kernel against autograd's backward through the eager
+    chain (preprocess_backward, one seeded set of incoming gradients),
+    its bound from PRE_BWD_BYTES; then, as a check beside the main paths'
+    counts, its launches (LAUNCHES "preprocess" and "preprocess_eager") on
+    one viewer frame of p_full and one tracker view from camera cam."""
     import torch
     from instascene_tpu_torch.config import PipelineParams
     from instascene_tpu_torch.data.synthetic import make_bench_scene
@@ -674,7 +743,6 @@ def preprocess_phase(p_full, cam, dev):
                                                      preprocess_kernel,
                                                      preprocess_plain)
     from instascene_tpu_torch.ops.rasterize import RasterizeConfig
-    from torch.profiler import ProfilerActivity, profile
     from instascene_tpu_torch.pipelines.train_semantic import render_features
     from instascene_tpu_torch.render import camera_mats, render
     fields = ("T", "xy", "normal_view", "depth", "radius", "rect_min",
@@ -700,32 +768,37 @@ def preprocess_phase(p_full, cam, dev):
                       if a.dtype == torch.float32 else torch.equal(a, b),
                       f"preprocess kernel: {f} differs from the eager chain "
                       f"({name}, {width}x{height})")
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(20):
-                    preprocess_kernel(*args, **kw)
-                torch.cuda.synchronize()
-            path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_pre_"),
-                                "trace.json")
-            prof.export_chrome_trace(path)
-            durs = [d for k, v in trace_kernels(path).items()
-                    if "preprocess_kernel" in k for d in v]
-            shutil.rmtree(os.path.dirname(path), ignore_errors=True)
-            check(len(durs) == 20, f"the preprocess trace holds {len(durs)} "
-                  f"kernel events of 20 launches")
             r = {"scene": name, "n": n, "size": f"{width}x{height}",
                  "ms": time_ms(lambda: preprocess_gaussians(*args, **kw),
                                20),
-                 "trace_ms": float(np.median(durs)) / 1e3,
+                 "trace_ms": traced_ms(lambda: preprocess_kernel(*args,
+                                                                 **kw),
+                                       "preprocess_kernel"),
                  "eager_ms": time_ms(lambda: preprocess_plain(*args, **kw),
                                      5),
                  "bound_ms": n * PRE_BYTES / HBM_BPS * 1e3}
-            rows.append(r)
             print(f"[preprocess] {name} {n} gaussians {width}x{height}: "
                   f"kernel {r['ms']:.4f} ms a call (CUDA events), "
                   f"{r['trace_ms']:.4f} ms on the device (trace median), "
                   f"bound {r['bound_ms']:.4f} ms (bytes: {n * PRE_BYTES}), "
                   f"eager chain {r['eager_ms']:.4f} ms; every output bit "
                   f"for bit the eager chain's", flush=True)
+            g = torch.Generator(device=dev).manual_seed(n + width)
+            grads = [torch.randn(t.shape, generator=g, device=dev)
+                     for t in (got.T, got.normal_view, got.depth, got.xy,
+                               got.color)]
+            r.update(preprocess_backward(args, kw, grads),
+                     bwd_bound_ms=n * PRE_BWD_BYTES / HBM_BPS * 1e3)
+            del grads
+            rows.append(r)
+            print(f"[preprocess] backward, {name} {n} gaussians {width}x"
+                  f"{height}: kernel {r['bwd_ms']:.4f} ms a call (CUDA "
+                  f"events), {r['bwd_trace_ms']:.4f} ms on the device "
+                  f"(trace median), bound {r['bwd_bound_ms']:.4f} ms "
+                  f"(bytes: {n * PRE_BWD_BYTES}), autograd through the "
+                  f"eager chain {r['bwd_eager_ms']:.4f} ms; relative gaps "
+                  f"to it " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                        r["bwd_gaps"].items()), flush=True)
         del p, got, want
     launches = {}
     for path, call in (
@@ -974,16 +1047,17 @@ def recorded():
 def preprocess_launches(tag, c, rec, training=False):
     """A counted path's preprocess (launch counts c, spans rec): each of
     its calls one kernel launch and no eager call; on a path that trains
-    the geometry (training), each call one or the other, and some eager.
-    Returns the kernel's launches."""
+    the geometry (training), some backward launches too, at most one a
+    call. Returns the kernel's launches."""
     calls = rec.counts.get("preprocess", 0)
-    pre, eager = c["preprocess"], c["preprocess_eager"]
-    print(f"[{tag}] preprocess: {pre} kernel launches and {eager} eager "
-          f"calls for {calls} calls", flush=True)
-    check(calls > 0 and pre + eager == calls
-          and (eager > 0 if training else eager == 0),
-          f"{tag}: preprocess took {pre} kernel launches and {eager} eager "
-          f"calls for {calls} calls")
+    pre, bwd, eager = (c["preprocess"], c["preprocess_bwd"],
+                       c["preprocess_eager"])
+    print(f"[{tag}] preprocess: {pre} kernel launches, {bwd} backward "
+          f"launches and {eager} eager calls for {calls} calls", flush=True)
+    check(calls > 0 and pre == calls and eager == 0
+          and (0 < bwd <= pre if training else bwd == 0),
+          f"{tag}: preprocess took {pre} kernel launches, {bwd} backward "
+          f"launches and {eager} eager calls for {calls} calls")
     return pre
 
 
@@ -3309,6 +3383,8 @@ def launch_key(name):
     from instascene_tpu_torch.ops import blend_visits as bv
     if "segment_sum_kernel" in name:
         return "segment_sum"
+    if "preprocess_bwd_kernel" in name:
+        return "preprocess_bwd"
     if "preprocess_kernel" in name:
         return "preprocess"
     m = _KERNEL_NAME.search(name)
@@ -3413,9 +3489,9 @@ def blender_phase(p, tmp, dev):
 def eval_scene_phase(colmap_root, sem_root, clusters, tmp):
     """scripts/eval_scene: the geometry half on the training CLI's COLMAP
     scene, the semantic half on the semantic CLI's scene with the true
-    clusters as ground truth; each with its own launch counts (the
-    semantic half's preprocess calls each one kernel launch, the geometry
-    half's training steps eager)."""
+    clusters as ground truth; each with its own launch counts (every
+    preprocess call one kernel launch, the geometry half's training steps
+    a backward launch too)."""
     import torch
     from instascene_tpu_torch.config import (ModelParams, OptimizationParams,
                                              PipelineParams)
@@ -4363,6 +4439,13 @@ def main() -> int:
     reset_counts()
     steps = train_phase(p_train, make_cam, dev)
     step_counts = counts()
+    n_train = 2 * TRAIN["warm"] + TRAIN["steps"] + TRAIN["dist_steps"]
+    check({k: step_counts[k] for k in ("preprocess", "preprocess_bwd",
+                                       "preprocess_eager")}
+          == {"preprocess": n_train, "preprocess_bwd": n_train,
+              "preprocess_eager": 0},
+          f"the {n_train} train steps did not each launch one preprocess "
+          f"and one backward: {step_counts}")
     del p_train
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -4746,7 +4829,7 @@ def main() -> int:
         launches_by_path={"bench_4k": bench_paths["render_4k"]["launches"][
             "K1 full"]}))
     # preprocess on the main paths' counted runs, each call there checked
-    # one kernel launch (the eval's geometry half: its training eager)
+    # one kernel launch, and the backward's on the geometry training paths
     pre_paths = {
         "serving": serve["preprocess"],
         "semantic_steps": sem["counts"]["preprocess"],
@@ -4754,17 +4837,29 @@ def main() -> int:
         "eval_scene_semantic": ev["semantic"]["launches"]["preprocess"],
         "eval_scene_geometry": ev["geometry"]["launches"]["preprocess"],
         "bench_frames": sum(bench_paths[k]["launches"]["preprocess"]
-                            for k in ("render_1080p", "render_4k"))}
+                            for k in ("render_1080p", "render_4k")),
+        "train_steps": step_counts["preprocess"],
+        "training_cli": (train_counts["preprocess"]
+                         - step_counts["preprocess"])}
+    bwd_paths = {
+        "train_steps": step_counts["preprocess_bwd"],
+        "training_cli": (train_counts["preprocess_bwd"]
+                         - step_counts["preprocess_bwd"]),
+        "eval_scene_geometry": ev["geometry"]["launches"]["preprocess_bwd"]}
     kernels += [{
         "name": "preprocess", "route": "cuda",
         "source": "instascene_tpu_torch/csrc/preprocess.cu",
         "replaces": "none (preprocess and SH are XLA in the JAX package)",
         "mode": f"SH 3, {r['scene']} ({r['n']} gaussians) at {r['size']}",
         "launches": sum(pre_paths.values()), "launches_by_path": pre_paths,
-        "eager_calls_by_path": {"eval_scene_geometry": ev["geometry"][
-            "launches"]["preprocess_eager"]},
         "ms": r["ms"], "trace_ms": r["trace_ms"], "plain_ms": r["eager_ms"],
-        "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None}
+        "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "backward": {
+            "launches": sum(bwd_paths.values()),
+            "launches_by_path": bwd_paths, "ms": r["bwd_ms"],
+            "trace_ms": r["bwd_trace_ms"], "plain_ms": r["bwd_eager_ms"],
+            "bound_ms": r["bwd_bound_ms"], "bound_by": "bytes",
+            "relative_gaps": r["bwd_gaps"]}}
         for r in pre_k["rows"]]
     variants = {k: {"window_step_median_ms": sem[k]["mv"]["median_ms"],
                     "plain_step_median_ms": (sem[k]["plain"]["median_ms"]

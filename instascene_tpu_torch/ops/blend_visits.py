@@ -67,9 +67,9 @@ def _launch_keys():
     multi-view mode; K5/K6 the sparse-pixel kernels (ops/blend_sparse.py),
     K7/K8 the padded-layout kernels (ops/blend_padded.py), the segment sum,
     "sparse_fallback", the semantic steps that took the dense path on
-    a slot overflow, "preprocess", the launches of csrc/preprocess.cu, and
-    "preprocess_eager", the CUDA preprocess calls that took the eager
-    chain for autograd (ops/preprocess.py)."""
+    a slot overflow, "preprocess" and "preprocess_bwd", the launches of
+    csrc/preprocess.cu's forward and backward, and "preprocess_eager", the
+    CUDA preprocess calls that took the eager chain (ops/preprocess.py)."""
     fwd = MODES[:4]
     keys = [f"K1 {m}" for m in MODES] + [f"K2 {m}" for m in BWD_MODES]
     keys += [f"K3 {m}" for m in fwd] + [f"K4 {m}" for m in BWD_MODES]
@@ -77,7 +77,7 @@ def _launch_keys():
     keys += [f"{k} {m} clip_rect" for k in ("K2", "K4") for m in BWD_MODES]
     return keys + ["K1 tiles_per_view", "K2 tiles_per_view", "K5", "K6",
                    "K7", "K8", "segment_sum", "sparse_fallback",
-                   "preprocess", "preprocess_eager"]
+                   "preprocess", "preprocess_bwd", "preprocess_eager"]
 
 
 # kernel launches, by kernel and mode (the plain versions launch nothing)

@@ -8,15 +8,18 @@ rect shrink and the opt-in exact conic culling), :283-455
 (`mark_visible`), with the slab origin (`y_offset`, `full_height`) that
 the tile-slab sharded render folds into the homography.
 
-Two paths, chosen by what the call needs: where autograd records a graph
-through preprocess (CUDA inputs that require grad, under grad mode: the
-geometry training steps), the eager, differentiable chain
-`preprocess_plain` runs, ~456 launches a view; every other CUDA call
-(viewer frames, the tracker, the semantic step's frozen geometry, binning
-caches, mesh export) launches csrc/preprocess.cu, the same outputs bit for
-bit in one launch, forward only. CPU tensors run `preprocess_plain`.
-`ops/blend_visits.LAUNCHES` counts the kernel's launches ("preprocess")
-and the CUDA calls that took the eager chain ("preprocess_eager").
+Three paths, chosen by what the call needs. CPU tensors run
+`preprocess_plain`, the eager chain in torch ops (~456 launches a view),
+differentiable. A CUDA call that needs no graph (viewer frames, the
+tracker, the semantic step's frozen geometry, binning caches, mesh export)
+launches csrc/preprocess.cu (`preprocess_kernel`): the same outputs bit for
+bit in one launch. A CUDA call under autograd whose geometry or SH require
+grad (the geometry training steps) takes the same launch inside
+`PreprocessFunction`, whose backward is csrc/preprocess.cu's second kernel
+(`preprocess_bwd_kernel`); only a call whose camera requires grad keeps the
+eager chain. `ops/blend_visits.LAUNCHES` counts the kernels' launches
+("preprocess", "preprocess_bwd") and the CUDA calls that took the eager
+chain ("preprocess_eager").
 
 Convention: T[n] is a 3x3 matrix whose rows (Tu, Tv, Tw) map splat-tangent
 homogeneous coords (u, v, 1) to (x_pix·w, y_pix·w, w):
@@ -168,21 +171,29 @@ def preprocess_gaussians(
     mapping uses the full image, the rect and tile clamps the slab. None
     leaves every other path as it was, bit for bit.
 
-    CPU tensors run preprocess_plain; CUDA tensors run it too where
-    autograd needs its graph (grad mode on and an input requiring grad),
-    and launch csrc/preprocess.cu (preprocess_kernel) otherwise."""
+    CPU tensors run preprocess_plain. CUDA tensors launch
+    csrc/preprocess.cu (preprocess_kernel) where autograd needs no graph;
+    under grad mode, where xyz, scaling, rotation, opacity or shs (shs
+    only without a given color) require grad, the same launch inside
+    PreprocessFunction, differentiable by its backward kernel; where
+    w2v, full_proj or campos require grad, the eager chain, counted in
+    LAUNCHES["preprocess_eager"]. A given color is returned as
+    preprocess_plain returns it, color.to(float32), on every path."""
     from . import blend_visits as bv
     args = (xyz, scaling, rotation, w2v, full_proj, campos, width, height,
             opacity, color, shs, sh_degree, alive, y_offset, full_height)
     with span("preprocess"):
         if not _on_card(xyz):
             pre = preprocess_plain(*args)
-        elif torch.is_grad_enabled() and any(
-                t is not None and t.requires_grad
-                for t in (xyz, scaling, rotation, opacity, shs, color, w2v,
-                          full_proj, campos)):
+        elif not torch.is_grad_enabled():
+            pre = preprocess_kernel(*args)
+        elif any(_needs_grad(t) for t in (w2v, full_proj, campos)):
             pre = preprocess_plain(*args)
             bv.LAUNCHES["preprocess_eager"] += 1
+        elif any(_needs_grad(t) for t in (
+                xyz, scaling, rotation, opacity,
+                shs if color is None else None)):
+            pre = preprocess_graph(*args)
         else:
             pre = preprocess_kernel(*args)
         if conic_cull:
@@ -196,6 +207,10 @@ def preprocess_gaussians(
 
 def _on_card(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
+
+
+def _needs_grad(t) -> bool:
+    return isinstance(t, torch.Tensor) and t.requires_grad
 
 
 def preprocess_plain(xyz, scaling, rotation, w2v, full_proj, campos, width,
@@ -321,6 +336,47 @@ def preprocess_plain(xyz, scaling, rotation, w2v, full_proj, campos, width,
                          valid=valid, color=color)
 
 
+def _operand(name, t, shape, dev, dtype=torch.float32):
+    """t as the kernels take it (dtype, contiguous); raises unless it has
+    `shape` and lies on dev."""
+    t = t.to(dtype).contiguous()
+    if t.device != dev or tuple(t.shape) != shape:
+        raise ValueError(f"preprocess kernel: {name} must be {shape} on "
+                         f"{dev}, got {tuple(t.shape)} on {t.device}")
+    return t
+
+
+def _sh_operand(shs, sh_degree, n, dev):
+    """(shs [n, K, 3] as the kernels take it, K); raises unless the degree
+    is 0-3 and shs holds its coefficients."""
+    if not 0 <= sh_degree <= 3:
+        raise ValueError(f"preprocess kernel: SH degree {sh_degree} is not "
+                         f"in 0-3")
+    k = shs.shape[1] if shs.dim() == 3 else 0
+    shs = _operand("shs", shs, (n, k, 3), dev)
+    if k < num_sh_coeffs(sh_degree):
+        raise ValueError(f"preprocess kernel: SH degree {sh_degree} needs "
+                         f"{num_sh_coeffs(sh_degree)} coefficients, shs has "
+                         f"{k}")
+    return shs, k
+
+
+def _camera(w2v, full_proj, campos, width, height, y_offset, full_height,
+            dev):
+    """The camera as the kernels take it: w2v, full_proj and campos on the
+    device, and ndc2pix_rows' four nonzero entries, rounded to float32 as
+    it rounds them (y_offset, a number, folded into the y origin)."""
+    full_h = full_height or height
+    oy = np.float32((full_h - 1) / 2.0)
+    if y_offset is not None:
+        oy = oy - np.float32(y_offset)
+    n2p = [float(np.float32(v)) for v in (width / 2.0, (width - 1) / 2.0,
+                                          full_h / 2.0, oy)]
+    return (_operand("w2v", w2v, (4, 4), dev),
+            _operand("full_proj", full_proj, (4, 4), dev),
+            _operand("campos", campos, (3,), dev), n2p)
+
+
 def preprocess_kernel(xyz, scaling, rotation, w2v, full_proj, campos, width,
                       height, opacity, color=None, shs=None, sh_degree=0,
                       alive=None, y_offset=None,
@@ -330,55 +386,29 @@ def preprocess_kernel(xyz, scaling, rotation, w2v, full_proj, campos, width,
     what the kernel does not take. A given color is returned as
     preprocess_plain returns it (color.to(float32)) and the kernel writes
     none; otherwise it evaluates SH of sh_degree from shs. The camera stays
-    on the device; y_offset (a number) is folded into the NDC→pixel rows
-    on the host, in float32 as ndc2pix_rows does. Each launch counts one
-    in LAUNCHES["preprocess"]; with no gaussians nothing is launched or
-    counted."""
+    on the device. Each launch counts one in LAUNCHES["preprocess"]; with
+    no gaussians nothing is launched or counted."""
     from .blend_visits import LAUNCHES, _lib_fn, _ptr, _stream
     f32 = torch.float32
     dev = xyz.device
     n = xyz.shape[0]
-
-    def operand(name, t, shape, dtype=f32):
-        t = t.to(dtype).contiguous()
-        if t.device != dev or tuple(t.shape) != shape:
-            raise ValueError(f"preprocess_kernel: {name} must be {shape} on "
-                             f"{dev}, got {tuple(t.shape)} on {t.device}")
-        return t
-
-    xyz = operand("xyz", xyz, (n, 3))
-    scaling = operand("scaling", scaling, (n, 2))
-    rotation = operand("rotation", rotation, (n, 4))
-    opacity = operand("opacity", torch.reshape(opacity, (-1,)), (n,))
-    w2v = operand("w2v", w2v, (4, 4))
-    full_proj = operand("full_proj", full_proj, (4, 4))
-    campos = operand("campos", campos, (3,))
+    xyz = _operand("xyz", xyz, (n, 3), dev)
+    scaling = _operand("scaling", scaling, (n, 2), dev)
+    rotation = _operand("rotation", rotation, (n, 4), dev)
+    opacity = _operand("opacity", torch.reshape(opacity, (-1,)), (n,), dev)
+    cam = _camera(w2v, full_proj, campos, width, height, y_offset,
+                  full_height, dev)
     if alive is not None:
-        alive = operand("alive", alive, (n,), torch.bool)
+        alive = _operand("alive", alive, (n,), dev, torch.bool)
     if color is not None:
-        color = operand("color", color, (n, 3))
+        color = _operand("color", color, (n, 3), dev)
         degree, k, shs = -1, 0, None
     elif shs is None:
         raise ValueError("preprocess_kernel: give color or shs")
     else:
-        if not 0 <= sh_degree <= 3:
-            raise ValueError(f"preprocess_kernel: SH degree {sh_degree} is "
-                             f"not in 0-3")
-        k = shs.shape[1] if shs.dim() == 3 else 0
-        shs = operand("shs", shs, (n, k, 3))
-        if k < num_sh_coeffs(sh_degree):
-            raise ValueError(f"preprocess_kernel: SH degree {sh_degree} "
-                             f"needs {num_sh_coeffs(sh_degree)} "
-                             f"coefficients, shs has {k}")
+        shs, k = _sh_operand(shs, sh_degree, n, dev)
         degree = sh_degree
 
-    # ndc2pix_rows' entries, rounded to float32 as it rounds them
-    full_h = full_height or height
-    oy = np.float32((full_h - 1) / 2.0)
-    if y_offset is not None:
-        oy = oy - np.float32(y_offset)
-    n2p = [float(np.float32(v)) for v in (width / 2.0, (width - 1) / 2.0,
-                                          full_h / 2.0, oy)]
     out = PreprocessOut(
         T=torch.empty((n, 3, 3), dtype=f32, device=dev),
         normal_view=torch.empty((n, 3), dtype=f32, device=dev),
@@ -399,10 +429,9 @@ def preprocess_kernel(xyz, scaling, rotation, w2v, full_proj, campos, width,
     with torch.cuda.device(dev):
         err = fn(xyz.data_ptr(), scaling.data_ptr(), rotation.data_ptr(),
                  opacity.data_ptr(), _ptr(alive), _ptr(shs),
-                 w2v.data_ptr(), full_proj.data_ptr(), campos.data_ptr(), n,
-                 degree, k, (width + TILE - 1) // TILE,
-                 (height + TILE - 1) // TILE, *n2p,
-                 *[t.data_ptr() for t in out[:9]],
+                 *[t.data_ptr() for t in cam[:3]], n, degree, k,
+                 (width + TILE - 1) // TILE, (height + TILE - 1) // TILE,
+                 *cam[3], *[t.data_ptr() for t in out[:9]],
                  None if color is not None else out.color.data_ptr(),
                  _stream(dev))
     if err != 0:
@@ -410,6 +439,117 @@ def preprocess_kernel(xyz, scaling, rotation, w2v, full_proj, campos, width,
                            f"{err}")
     LAUNCHES["preprocess"] += 1
     return out
+
+
+def preprocess_bwd_kernel(args, grads):
+    """The backward of preprocess_kernel in one launch of
+    csrc/preprocess.cu's second kernel: args are preprocess_plain's
+    arguments as the forward took them (color None), grads the gradients
+    of T, normal_view, depth, xy and color (each None where that output
+    took none; without shs the colour's is not read). Returns the
+    gradients of xyz, scaling, rotation and shs (None without shs),
+    float32 on the device; autograd's of
+    preprocess_plain but for float rounding. Raises on what the kernel
+    does not take. Each launch counts one in LAUNCHES["preprocess_bwd"];
+    with no gaussians nothing is launched or counted."""
+    from .blend_visits import LAUNCHES, _lib_fn, _ptr, _stream
+    (xyz, scaling, rotation, w2v, full_proj, campos, width, height, _, _,
+     shs, sh_degree, _, y_offset, full_height) = args
+    f32 = torch.float32
+    dev = xyz.device
+    n = xyz.shape[0]
+    xyz = _operand("xyz", xyz, (n, 3), dev)
+    scaling = _operand("scaling", scaling, (n, 2), dev)
+    rotation = _operand("rotation", rotation, (n, 4), dev)
+    cam = _camera(w2v, full_proj, campos, width, height, y_offset,
+                  full_height, dev)
+    if shs is not None:
+        shs, k = _sh_operand(shs, sh_degree, n, dev)
+        degree = sh_degree
+    else:
+        degree, k = -1, 0
+    dT, dnormal, ddepth, dxy, dcolor = [
+        None if g is None else _operand(name, g, shape, dev)
+        for name, g, shape in zip(
+            ("dT", "dnormal", "ddepth", "dxy", "dcolor"), grads,
+            ((n, 3, 3), (n, 3), (n,), (n, 2), (n, 3)))]
+    out = (torch.empty((n, 3), dtype=f32, device=dev),
+           torch.empty((n, 2), dtype=f32, device=dev),
+           torch.empty((n, 4), dtype=f32, device=dev),
+           None if shs is None else torch.empty((n, k, 3), dtype=f32,
+                                                device=dev))
+    if n == 0:
+        return out      # no gaussians: nothing to launch
+    _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = _lib_fn("preprocess.cu", "preprocess_bwd_launch",
+                 [_P] * 7 + [_I] * 3 + [_F] * 4 + [_P] * 10)
+    with torch.cuda.device(dev):
+        err = fn(xyz.data_ptr(), scaling.data_ptr(), rotation.data_ptr(),
+                 _ptr(shs), *[t.data_ptr() for t in cam[:3]], n, degree, k,
+                 *cam[3], _ptr(dT), _ptr(dnormal), _ptr(ddepth), _ptr(dxy),
+                 _ptr(dcolor), *[_ptr(t) for t in out], _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"preprocess backward kernel launch failed: "
+                           f"cudaError {err}")
+    LAUNCHES["preprocess_bwd"] += 1
+    return out
+
+
+class PreprocessFunction(torch.autograd.Function):
+    """preprocess_kernel with a graph: its forward launch, and a backward
+    that launches preprocess_bwd_kernel. Differentiable in xyz, scaling,
+    rotation and shs; opacity reaches the outputs only through the integer
+    rects, so it gets None, as autograd gives it on the eager chain. The
+    camera and the other arguments pass in `rest`, where autograd does not
+    look: the call is made only where none of them requires grad. Returns
+    the first nine fields of PreprocessOut, then the colour with shs."""
+
+    @staticmethod
+    def forward(ctx, xyz, scaling, rotation, opacity, shs, rest):
+        (w2v, full_proj, campos, width, height, color, sh_degree, alive,
+         y_offset, full_height) = rest
+        out = preprocess_kernel(xyz, scaling, rotation, w2v, full_proj,
+                                campos, width, height, opacity, color, shs,
+                                sh_degree, alive, y_offset, full_height)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(xyz, scaling, rotation, opacity, shs, w2v,
+                              full_proj, campos)
+        ctx.meta = (width, height, sh_degree, y_offset, full_height)
+        ctx.mark_non_differentiable(out.radius, out.rect_min, out.rect_max,
+                                    out.tiles_touched, out.valid)
+        return tuple(out[:9]) + ((out.color,) if shs is not None else ())
+
+    @staticmethod
+    def backward(ctx, dT, dnormal, ddepth, dxy, *rest):
+        xyz, scaling, rotation, opacity, shs, w2v, full_proj, campos = \
+            ctx.saved_tensors
+        width, height, sh_degree, y_offset, full_height = ctx.meta
+        dcolor = rest[5] if shs is not None else None
+        args = (xyz, scaling, rotation, w2v, full_proj, campos, width,
+                height, opacity, None, shs, sh_degree, None, y_offset,
+                full_height)
+        dxyz, dscaling, drotation, dshs = preprocess_bwd_kernel(
+            args, (dT, dnormal, ddepth, dxy, dcolor))
+        return dxyz, dscaling, drotation, None, dshs, None
+
+
+def preprocess_graph(xyz, scaling, rotation, w2v, full_proj, campos, width,
+                     height, opacity, color=None, shs=None, sh_degree=0,
+                     alive=None, y_offset=None,
+                     full_height=None) -> PreprocessOut:
+    """preprocess_kernel's outputs with autograd's graph through the
+    geometry and SH (PreprocessFunction); a given color bypasses the
+    Function as color.to(float32), so autograd carries its gradient as on
+    the eager chain."""
+    if color is not None:
+        shs = None
+    outs = PreprocessFunction.apply(
+        xyz, scaling, rotation, opacity, shs,
+        (w2v, full_proj, campos, width, height,
+         None if color is None else color.detach(), sh_degree, alive,
+         y_offset, full_height))
+    return PreprocessOut(*outs[:9], color=(
+        outs[9] if color is None else color.to(torch.float32)))
 
 
 CULL_WINDOW = 64   # row-major tile offsets representable in the cull bitmask
