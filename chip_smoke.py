@@ -733,8 +733,8 @@ def preprocess_phase(p_full, cam, dev):
     the backward kernel against autograd's backward through the eager
     chain (preprocess_backward, one seeded set of incoming gradients),
     its bound from PRE_BWD_BYTES; then, as a check beside the main paths'
-    counts, its launches (LAUNCHES "preprocess" and "preprocess_eager") on
-    one viewer frame of p_full and one tracker view from camera cam."""
+    counts, its launches (LAUNCHES "preprocess") on one viewer frame of
+    p_full and one tracker view from camera cam."""
     import torch
     from instascene_tpu_torch.config import PipelineParams
     from instascene_tpu_torch.data.synthetic import make_bench_scene
@@ -812,8 +812,8 @@ def preprocess_phase(p_full, cam, dev):
         call()
         torch.cuda.synchronize()
         c = counts()
-        launches[path] = {k: c[k] for k in ("preprocess", "preprocess_eager")}
-        check(launches[path] == {"preprocess": 1, "preprocess_eager": 0},
+        launches[path] = {"preprocess": c["preprocess"]}
+        check(launches[path] == {"preprocess": 1},
               f"preprocess on the {path}: {launches[path]}")
     print(f"[preprocess] launches: {launches}", flush=True)
     return {"rows": rows, "launches": launches}
@@ -1026,15 +1026,15 @@ def edit_phase(engine, tmp):
 
 def reset_counts():
     """Every kernel's launch count, by mode, to 0."""
-    from instascene_tpu_torch.ops import blend_visits as bv
-    for k in bv.LAUNCHES:
-        bv.LAUNCHES[k] = 0
+    from instascene_tpu_torch.cuda_build import LAUNCHES
+    LAUNCHES.clear()
 
 
 def counts():
-    """A copy of the kernels' launch counts, by kernel and mode."""
-    from instascene_tpu_torch.ops import blend_visits as bv
-    return dict(bv.LAUNCHES)
+    """A copy of the kernels' launch counts, by kernel and mode (a
+    Counter: a kernel never launched reads 0)."""
+    from instascene_tpu_torch.cuda_build import LAUNCHES
+    return LAUNCHES.copy()
 
 
 def recorded():
@@ -1046,18 +1046,17 @@ def recorded():
 
 def preprocess_launches(tag, c, rec, training=False):
     """A counted path's preprocess (launch counts c, spans rec): each of
-    its calls one kernel launch and no eager call; on a path that trains
-    the geometry (training), some backward launches too, at most one a
-    call. Returns the kernel's launches."""
+    its calls one kernel launch; on a path that trains the geometry
+    (training), some backward launches too, at most one a call. Returns
+    the kernel's launches."""
     calls = rec.counts.get("preprocess", 0)
-    pre, bwd, eager = (c["preprocess"], c["preprocess_bwd"],
-                       c["preprocess_eager"])
-    print(f"[{tag}] preprocess: {pre} kernel launches, {bwd} backward "
-          f"launches and {eager} eager calls for {calls} calls", flush=True)
-    check(calls > 0 and pre == calls and eager == 0
+    pre, bwd = c["preprocess"], c["preprocess_bwd"]
+    print(f"[{tag}] preprocess: {pre} kernel launches and {bwd} backward "
+          f"launches for {calls} calls", flush=True)
+    check(calls > 0 and pre == calls
           and (0 < bwd <= pre if training else bwd == 0),
-          f"{tag}: preprocess took {pre} kernel launches, {bwd} backward "
-          f"launches and {eager} eager calls for {calls} calls")
+          f"{tag}: preprocess took {pre} kernel launches and {bwd} backward "
+          f"launches for {calls} calls")
     return pre
 
 
@@ -2197,10 +2196,9 @@ def semantic_phase(st, make_cam, dev):
     # every rendered view (the step's own, the window's 5) one kernel launch
     views = (SEM["warm"] + SEM["steps"]
              + (SEM["warm"] + SEM["mv_steps"]) * (1 + SEM["n_mv"]))
-    print(f"[semantic] preprocess: {c['preprocess']} kernel launches and "
-          f"{c['preprocess_eager']} eager calls for {views} rendered views",
-          flush=True)
-    check(c["preprocess"] == views and c["preprocess_eager"] == 0,
+    print(f"[semantic] preprocess: {c['preprocess']} kernel launches for "
+          f"{views} rendered views", flush=True)
+    check(c["preprocess"] == views,
           "the semantic steps' views did not each take the preprocess "
           "kernel")
     t_plain = results["plain"]["median_ms"]["step"]
@@ -3373,7 +3371,7 @@ def trace_kernels(path):
 
 
 # launch counter keys that count calls, not kernel launches
-NOT_LAUNCHES = ("sparse_fallback", "preprocess_eager")
+NOT_LAUNCHES = ("sparse_fallback",)
 
 
 def launch_key(name):
@@ -4283,8 +4281,7 @@ def bench_phase(dev):
           f"the 4K frames launched {r4['launches']}, not one K1 full and "
           f"one preprocess each")
     r1 = line["paths"]["render_1080p"]["launches"]
-    check(r1.get("preprocess") == line["paths"]["render_1080p"]["samples"]
-          and "preprocess_eager" not in r1,
+    check(r1.get("preprocess") == line["paths"]["render_1080p"]["samples"],
           f"the 1080p frames launched {r1}, not one preprocess each")
     print("[bench] " + ", ".join(f"{k} {v:.4g}" for k, v in values.items())
           + f"; pairs 1080p {line['pairs']['render_1080p']}, 4K "
@@ -4440,10 +4437,8 @@ def main() -> int:
     steps = train_phase(p_train, make_cam, dev)
     step_counts = counts()
     n_train = 2 * TRAIN["warm"] + TRAIN["steps"] + TRAIN["dist_steps"]
-    check({k: step_counts[k] for k in ("preprocess", "preprocess_bwd",
-                                       "preprocess_eager")}
-          == {"preprocess": n_train, "preprocess_bwd": n_train,
-              "preprocess_eager": 0},
+    check({k: step_counts[k] for k in ("preprocess", "preprocess_bwd")}
+          == {"preprocess": n_train, "preprocess_bwd": n_train},
           f"the {n_train} train steps did not each launch one preprocess "
           f"and one backward: {step_counts}")
     del p_train

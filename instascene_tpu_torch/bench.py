@@ -26,7 +26,7 @@ The headline and the keys under "extra" are bench.py's, with its meanings.
 Beside them the line carries the device (the card's name, count and
 power limit from nvidia-smi, or "cpu"), each path's samples, median and
 min/max per-iteration ms, window wall and kernel launches (ops/
-blend_visits.LAUNCHES over the timed window), the pair counts per frame,
+cuda_build.LAUNCHES over the timed window), the pair counts per frame,
 and the peak device memory.
 
 Timing: each path runs --warmup untimed iterations, then its timed window,
@@ -90,7 +90,7 @@ def time_path(step, samples: int, warmup: int, dev: torch.device) -> dict:
     a synchronize) and the warm-up's, the kernel launches of the timed
     window by kernel and mode, the peak device memory over warm-up and
     window, and step()'s last result."""
-    from .ops import blend_visits as bv
+    from .cuda_build import LAUNCHES
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -98,8 +98,7 @@ def time_path(step, samples: int, warmup: int, dev: torch.device) -> dict:
         step()
     _sync(dev)
     warm_s = time.perf_counter() - t0
-    for k in bv.LAUNCHES:
-        bv.LAUNCHES[k] = 0
+    LAUNCHES.clear()
     t0 = time.perf_counter()
     if dev.type == "cuda":
         ev = [torch.cuda.Event(enable_timing=True)
@@ -120,7 +119,7 @@ def time_path(step, samples: int, warmup: int, dev: torch.device) -> dict:
     return {"samples": samples, "median_ms": float(np.median(ms)),
             "min_ms": float(min(ms)), "max_ms": float(max(ms)),
             "window_wall_s": wall_s, "warmup_wall_s": warm_s,
-            "launches": {k: v for k, v in bv.LAUNCHES.items() if v},
+            "launches": {k: v for k, v in LAUNCHES.items() if v},
             "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
                                   if dev.type == "cuda" else None),
             "last": last}
@@ -306,8 +305,7 @@ def frame(p, cam, cfg, extras=None):
     """One bench.py frame: rasterize with fresh binning, SH 3, black
     background."""
     from .ops.rasterize import rasterize
-    return rasterize(p.xyz, p.scaling_activated(), p.rotation_normalized(),
-                     p.opacity_activated()[:, 0], cam,
+    return rasterize(*p.raster_inputs(), cam,
                      torch.zeros(3, device=p.device), cfg, shs=p.features(),
                      sh_degree=3, extras=extras)
 

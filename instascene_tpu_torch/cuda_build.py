@@ -11,10 +11,14 @@ Target: Hopper, `sm_90a`. `--fmad=false` keeps every multiply and add
 separately rounded, as the plain PyTorch versions round them, so a kernel
 and its plain version agree to the last bit where they sum in the same
 order.
+
+It is also the kernel modules' launch plumbing (`lib_fn`, `stream`, `ptr`)
+and their launch counter (`LAUNCHES`, each module's own keys).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -23,6 +27,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 PKG = Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
@@ -30,7 +36,13 @@ NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC"]
 
 _LIBS: dict = {}
+_FNS: dict = {}           # (source, symbol) -> its bound ctypes function
 BUILD_LOG: dict = {}      # source name -> nvcc/ptxas output of its build
+# launches by kernel and mode (a key never counted reads 0), and the
+# semantic steps' "sparse_fallback"
+LAUNCHES: collections.Counter = collections.Counter()
+# argtypes of the C entries: a device pointer (or NULL), an int, a float
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def _nvcc() -> str:
@@ -92,3 +104,26 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_target(name)))
         _LIBS[name] = lib
     return lib
+
+
+def lib_fn(source: str, symbol: str, argtypes):
+    """C entry `symbol` of csrc/<source>, built at first use; returns a
+    cudaError."""
+    key = (source, symbol)
+    fn = _FNS.get(key)
+    if fn is None:
+        fn = getattr(load(source), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[key] = fn
+    return fn
+
+
+def stream(dev) -> int:
+    """The handle of dev's current CUDA stream, where the C entries launch."""
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def ptr(a):
+    """The device address of tensor a; None (NULL) for an absent operand."""
+    return a.data_ptr() if a is not None else None

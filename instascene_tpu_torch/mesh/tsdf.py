@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops.preprocess import _rows, fma
+from ..ops.preprocess import fma, fma_rows
 from .marching import marching_tetrahedra
 
 
@@ -57,7 +57,7 @@ def integrate_slab(voxels, w2c, intr, depths, rgbs, depth_trunc: float,
     weight = torch.zeros(n, device=dev)
     color = torch.zeros((n, 3), device=dev)
     for i in range(w2c.shape[0]):
-        pv = _rows(voxels, w2c[i, :3, :3]) + w2c[i, :3, 3]
+        pv = fma_rows(voxels, w2c[i, :3, :3]) + w2c[i, :3, 3]
         z = pv[:, 2]
         zc = torch.clamp(z, min=1e-8)
         u = fma(pv[:, 0] / zc, intr[i, 0].expand(n), intr[i, 2].expand(n))

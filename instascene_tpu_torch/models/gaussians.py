@@ -13,7 +13,8 @@ the JAX package: densification writes new gaussians into dead slots
 Parameterization: scaling stored as log (exp activation, two surfel axes),
 opacity as logit (sigmoid), rotation as an unnormalized (w,x,y,z)
 quaternion, SH features split dc [N,1,3] / rest [N,R,3], optional
-seg_feature [N,E].
+seg_feature [N,E]. Renders activate through `GaussianModel.raster_inputs`
+and normalise features through `normalize_features`.
 
 PLY attribute contract: x,y,z,nx,ny,nz,f_dc_0..2,f_rest_0..(3R-1),opacity,
 scale_0..1,rot_0..3[,segfeat_0..E-1], all f4 — byte-compatible with the JAX
@@ -25,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import os
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -34,6 +35,20 @@ from .. import resolve_device
 
 FIELDS = ("xyz", "features_dc", "features_rest", "scaling", "rotation",
           "opacity", "alive", "seg_feature")
+
+
+class RasterInputs(NamedTuple):
+    """The first four arguments of ops/rasterize's entries, in order."""
+    xyz: torch.Tensor         # [C,3]
+    scales: torch.Tensor      # [C,2] exp(scaling), 0 in dead slots
+    rotations: torch.Tensor   # [C,4] unit quaternions
+    opacities: torch.Tensor   # [C] sigmoid(opacity), 0 in dead slots
+
+
+def normalize_features(feat: torch.Tensor) -> torch.Tensor:
+    """feat [..., E] over its L2 norm along E (+ 1e-6): the features the
+    rasterizer splats and the contrastive losses compare."""
+    return feat / (torch.linalg.norm(feat, dim=-1, keepdim=True) + 1e-6)
 
 
 @dataclass
@@ -60,14 +75,21 @@ class GaussianModel:
             torch.sum(self.rotation * self.rotation, dim=-1, keepdim=True)
             + 1e-24)
 
+    def raster_inputs(self, detach: bool = False) -> RasterInputs:
+        """The activated geometry every render takes (RasterInputs);
+        detach: cut from autograd, for renders of frozen geometry."""
+        g = RasterInputs(self.xyz, self.scaling_activated(),
+                         self.rotation_normalized(),
+                         self.opacity_activated()[:, 0])
+        return RasterInputs(*(t.detach() for t in g)) if detach else g
+
     def features(self):
         return torch.cat([self.features_dc, self.features_rest], dim=1)
 
     def seg_feature_normed(self):
         if self.seg_feature is None:
             return None
-        return self.seg_feature / (torch.linalg.norm(
-            self.seg_feature, dim=1, keepdim=True) + 1e-6)
+        return normalize_features(self.seg_feature)
 
     @property
     def device(self) -> torch.device:

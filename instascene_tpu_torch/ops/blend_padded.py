@@ -19,7 +19,7 @@ packed, d(packed) [T, D, K], zero from each tile's last contribution on.
 
 `blend_fwd_padded` and `blend_bwd_padded` launch their kernels for CUDA
 tensors (or raise) and run the plain versions for CPU tensors; each adds
-one to LAUNCHES["K7"/"K8"] (ops/blend_visits.LAUNCHES) where it launches.
+one to LAUNCHES["K7"/"K8"] (cuda_build.LAUNCHES) where it launches.
 `blend_padded_diff` is the differentiable entry (`BlendPaddedFunction`).
 The gather from the per-gaussian table into packed (`pack_inputs`) is
 plain torch, as the JAX package's is XLA, and so is its backward.
@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from . import blend_visits as bv
+from ..cuda_build import LAUNCHES, I, P, lib_fn, stream
 from .binning import PAD_ALIGN
 
 
@@ -125,16 +126,16 @@ def blend_fwd_padded(packed, tile_count, grid_x: int, n_extra: int):
                       device=dev)
     iout = torch.empty((T, 2, bv.P2), dtype=torch.int32, device=dev)
     order = bv.walk_order(tile_count)
-    fn = bv._lib_fn("blend_padded.cu", "blend_fwd_padded_launch",
-                    [bv._P] * 2 + [bv._I] * 4 + [bv._P] * 4)
+    fn = lib_fn("blend_padded.cu", "blend_fwd_padded_launch",
+                [P] * 2 + [I] * 4 + [P] * 4)
     with torch.cuda.device(dev):
         err = fn(packed.data_ptr(), tile_count.data_ptr(), T, K, grid_x,
                  n_extra, order.data_ptr(), out.data_ptr(), iout.data_ptr(),
-                 bv._stream(dev))
+                 stream(dev))
     if err != 0:
         raise RuntimeError(f"blend_fwd_padded kernel launch failed: "
                            f"cudaError {err}")
-    bv.LAUNCHES["K7"] += 1
+    LAUNCHES["K7"] += 1
     return out, iout
 
 
@@ -160,16 +161,16 @@ def blend_bwd_padded(packed, tile_count, grid_x: int, n_extra: int, gout,
     bv._check_tiles("saved", saved, torch.float32, (T, 3, bv.P2), dev)
     bv._check_tiles("iout", iout, torch.int32, (T, 2, bv.P2), dev)
     d_packed = torch.empty((T, D, K), dtype=torch.float32, device=dev)
-    fn = bv._lib_fn("blend_padded.cu", "blend_bwd_padded_launch",
-                    [bv._P] * 2 + [bv._I] * 4 + [bv._P] * 5)
+    fn = lib_fn("blend_padded.cu", "blend_bwd_padded_launch",
+                [P] * 2 + [I] * 4 + [P] * 5)
     with torch.cuda.device(dev):
         err = fn(packed.data_ptr(), tile_count.data_ptr(), T, K, grid_x,
                  n_extra, gout.data_ptr(), saved.data_ptr(), iout.data_ptr(),
-                 d_packed.data_ptr(), bv._stream(dev))
+                 d_packed.data_ptr(), stream(dev))
     if err != 0:
         raise RuntimeError(f"blend_bwd_padded kernel launch failed: "
                            f"cudaError {err}")
-    bv.LAUNCHES["K8"] += 1
+    LAUNCHES["K8"] += 1
     return d_packed
 
 

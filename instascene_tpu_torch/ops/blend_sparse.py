@@ -19,7 +19,7 @@ gone.
 
 `blend_sparse_fwd` and `blend_sparse_bwd` launch their kernels for CUDA
 tensors (or raise) and run the plain versions for CPU tensors; each adds
-one to LAUNCHES["K5"/"K6"] (ops/blend_visits.LAUNCHES) where it launches.
+one to LAUNCHES["K5"/"K6"] (cuda_build.LAUNCHES) where it launches.
 `blend_sparse` is the differentiable entry (`BlendSparseFunction`).
 """
 
@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from . import blend_visits as bv
+from ..cuda_build import LAUNCHES, I, P, lib_fn, stream
 
 S_MAX = 128          # slots per tile the kernels take (as the JAX kernels)
 
@@ -155,18 +156,17 @@ def blend_sparse_fwd(flat, sorted_gid, tile_start, tile_end, spix,
     feat = torch.empty((nt, S, n_extra), dtype=torch.float32, device=dev)
     aux = torch.empty((nt, S, 2), dtype=torch.float32, device=dev)
     order = bv.walk_order(bv.range_lengths(tile_start, tile_end))
-    fn = bv._lib_fn("blend_sparse.cu", "sparse_fwd_launch",
-                    [bv._P] * 5 + [bv._I] * 3 + [bv._P, bv._I]
-                    + [bv._P] * 3)
+    fn = lib_fn("blend_sparse.cu", "sparse_fwd_launch",
+                [P] * 5 + [I] * 3 + [P, I] + [P] * 3)
     with torch.cuda.device(dev):
         err = fn(flat.data_ptr(), sorted_gid.data_ptr(),
                  tile_start.data_ptr(), tile_end.data_ptr(),
                  order.data_ptr(), nt, grid_x, n_extra, spix.data_ptr(), S,
-                 feat.data_ptr(), aux.data_ptr(), bv._stream(dev))
+                 feat.data_ptr(), aux.data_ptr(), stream(dev))
     if err != 0:
         raise RuntimeError(f"sparse_fwd kernel launch failed: cudaError "
                            f"{err}")
-    bv.LAUNCHES["K5"] += 1
+    LAUNCHES["K5"] += 1
     return feat, aux
 
 
@@ -194,19 +194,18 @@ def blend_sparse_bwd(flat, sorted_gid, tile_start, tile_end, spix,
     d_sorted = torch.empty((sorted_gid.shape[0], n_extra),
                            dtype=torch.float32, device=dev)
     order = bv.walk_order(bv.range_lengths(tile_start, tile_end))
-    fn = bv._lib_fn("blend_sparse.cu", "sparse_bwd_launch",
-                    [bv._P] * 5 + [bv._I] * 3 + [bv._P, bv._I]
-                    + [bv._P] * 4)
+    fn = lib_fn("blend_sparse.cu", "sparse_bwd_launch",
+                [P] * 5 + [I] * 3 + [P, I] + [P] * 4)
     with torch.cuda.device(dev):
         err = fn(flat.data_ptr(), sorted_gid.data_ptr(),
                  tile_start.data_ptr(), tile_end.data_ptr(),
                  order.data_ptr(), nt, grid_x, n_extra, spix.data_ptr(), S,
                  gout.data_ptr(), aux.data_ptr(), d_sorted.data_ptr(),
-                 bv._stream(dev))
+                 stream(dev))
     if err != 0:
         raise RuntimeError(f"sparse_bwd kernel launch failed: cudaError "
                            f"{err}")
-    bv.LAUNCHES["K6"] += 1
+    LAUNCHES["K6"] += 1
     return d_sorted
 
 

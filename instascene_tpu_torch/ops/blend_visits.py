@@ -32,18 +32,17 @@ out [num_tiles, 12+E, 256] f32 and iout [num_tiles, 2, 256] i32
 
 `blend_fwd`, `blend_bwd` and `reduce_per_gaussian` launch their kernels for
 CUDA tensors (or raise) and run the plain versions for CPU tensors; each
-adds one to its entry of `LAUNCHES` (by kernel and mode) where it launches.
-`blend` is the differentiable entry (`BlendFunction`).
+adds one to its `cuda_build.LAUNCHES` key (`_tile_key`) where it launches.
+`blend` is the differentiable entry (`BlendFunction`). The blend kernels'
+rules live here (`_mode`, `_tile_key`, `width_limits` for K1-K8).
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
-from .. import cuda_build
+from ..cuda_build import LAUNCHES, I, P, build_all, lib_fn, ptr, stream
 from .preprocess import FAR_N, FILTER_INV_SQUARE, NEAR_N, TILE, cross, fma
 from ..utils.profiling import span
 
@@ -59,29 +58,6 @@ MODES = ("full", "viewer", "no_dist", "extras_only", "track")
 BWD_MODES = ("full", "no_dist", "extras_only")
 TRACK_K = 10        # contributor slots per pixel (track mode)
 TRACK_W = 0.1       # a contribution is tracked when its weight exceeds this
-
-
-def _launch_keys():
-    """K1/K2 by mode; K3/K4 (K1/K2 over a tile list) in every mode but
-    track; a " clip_rect" twin of each mode that takes it; the merged
-    multi-view mode; K5/K6 the sparse-pixel kernels (ops/blend_sparse.py),
-    K7/K8 the padded-layout kernels (ops/blend_padded.py), the segment sum,
-    "sparse_fallback", the semantic steps that took the dense path on
-    a slot overflow, "preprocess" and "preprocess_bwd", the launches of
-    csrc/preprocess.cu's forward and backward, and "preprocess_eager", the
-    CUDA preprocess calls that took the eager chain (ops/preprocess.py)."""
-    fwd = MODES[:4]
-    keys = [f"K1 {m}" for m in MODES] + [f"K2 {m}" for m in BWD_MODES]
-    keys += [f"K3 {m}" for m in fwd] + [f"K4 {m}" for m in BWD_MODES]
-    keys += [f"{k} {m} clip_rect" for k in ("K1", "K3") for m in fwd]
-    keys += [f"{k} {m} clip_rect" for k in ("K2", "K4") for m in BWD_MODES]
-    return keys + ["K1 tiles_per_view", "K2 tiles_per_view", "K5", "K6",
-                   "K7", "K8", "segment_sum", "sparse_fallback",
-                   "preprocess", "preprocess_bwd", "preprocess_eager"]
-
-
-# kernel launches, by kernel and mode (the plain versions launch nothing)
-LAUNCHES = dict.fromkeys(_launch_keys(), 0)
 
 
 def pack_flat_cols(T_used, xy, normal_view, opacities, color, extras=None,
@@ -490,9 +466,9 @@ def width_limits(dev) -> dict:
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     lims = width_limits.cache.get(idx)
     if lims is None:
-        cuda_build.build_all([src for src, _ in _WIDTH_FNS])  # in parallel
+        build_all([src for src, _ in _WIDTH_FNS])  # in parallel
         with torch.cuda.device(idx):
-            lims = {sym: _lib_fn(src, sym, [])() for src, sym in _WIDTH_FNS}
+            lims = {sym: lib_fn(src, sym, [])() for src, sym in _WIDTH_FNS}
         if min(lims.values()) < 1:
             raise RuntimeError(f"width_limits: the shared memory of "
                                f"cuda:{idx} could not be queried")
@@ -543,30 +519,6 @@ def _check_tiles(name, a, dtype, shape, dev):
             or tuple(a.shape) != shape:
         raise ValueError(f"{name} must be contiguous {dtype} {shape} on {dev}, "
                          f"got {a.dtype} {tuple(a.shape)} on {a.device}")
-
-
-def _lib_fn(source: str, symbol: str, argtypes):
-    """The ctypes function `symbol` of csrc/<source>, built at first use."""
-    key = (source, symbol)
-    fn = _lib_fn.cache.get(key)
-    if fn is None:
-        fn = getattr(cuda_build.load(source), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _lib_fn.cache[key] = fn
-    return fn
-
-
-_lib_fn.cache = {}
-_P, _I = ctypes.c_void_p, ctypes.c_int
-
-
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-def _ptr(a):
-    return a.data_ptr() if a is not None else None
 
 
 def _check_tile_ids(tile_ids, nt: int, dev) -> int:
@@ -676,15 +628,15 @@ def blend_fwd(flat, sorted_gid, tile_start, tile_end, grid_x: int,
         ids = torch.empty((rows, TRACK_K, P2), dtype=torch.int32, device=dev)
         tw = torch.empty((rows, TRACK_K, P2), dtype=torch.float32, device=dev)
     order = walk_order(range_lengths(tile_start, tile_end, tile_ids))
-    fn = _lib_fn("blend_fwd.cu", "blend_fwd_launch",
-                 [_P] * 4 + [_I] * 5 + [_P, _I] + [_P] * 7)
+    fn = lib_fn("blend_fwd.cu", "blend_fwd_launch",
+                [P] * 4 + [I] * 5 + [P, I] + [P] * 7)
     with torch.cuda.device(dev):
         err = fn(flat.data_ptr(), sorted_gid.data_ptr(),
                  tile_start.data_ptr(), tile_end.data_ptr(), rows, grid_x,
-                 n_extra, MODES.index(mode), int(clip_rect), _ptr(tile_ids),
-                 tiles_per_view, order.data_ptr(), _ptr(done0),
-                 out.data_ptr(), iout.data_ptr(), _ptr(ids), _ptr(tw),
-                 _stream(dev))
+                 n_extra, MODES.index(mode), int(clip_rect), ptr(tile_ids),
+                 tiles_per_view, order.data_ptr(), ptr(done0),
+                 out.data_ptr(), iout.data_ptr(), ptr(ids), ptr(tw),
+                 stream(dev))
     if err != 0:
         raise RuntimeError(f"blend_fwd kernel launch failed: cudaError {err}")
     LAUNCHES[key] += 1
@@ -731,15 +683,15 @@ def blend_bwd(flat, sorted_gid, tile_start, tile_end, grid_x: int,
     d_sorted = (torch.empty if tile_ids is None else torch.zeros)(
         (sorted_gid.shape[0], n_extra if extras_only else flat.shape[1]),
         dtype=torch.float32, device=dev)
-    fn = _lib_fn("blend_bwd.cu", "blend_bwd_launch",
-                 [_P] * 4 + [_I] * 5 + [_P, _I] + [_P] * 5)
+    fn = lib_fn("blend_bwd.cu", "blend_bwd_launch",
+                [P] * 4 + [I] * 5 + [P, I] + [P] * 5)
     with torch.cuda.device(dev):
         err = fn(flat.data_ptr(), sorted_gid.data_ptr(),
                  tile_start.data_ptr(), tile_end.data_ptr(), rows, grid_x,
                  n_extra, BWD_MODES.index(mode), int(clip_rect),
-                 _ptr(tile_ids), tiles_per_view, gout.data_ptr(),
+                 ptr(tile_ids), tiles_per_view, gout.data_ptr(),
                  saved.data_ptr(), iout.data_ptr(), d_sorted.data_ptr(),
-                 _stream(dev))
+                 stream(dev))
     if err != 0:
         raise RuntimeError(f"blend_bwd kernel launch failed: cudaError {err}")
     LAUNCHES[key] += 1
@@ -778,12 +730,12 @@ def reduce_per_gaussian(d_sorted, sorted_gid, n: int, runs):
                  dev)
     _check_tiles("run_start", run_start, torch.int32, (n + 1,), dev)
     d_flat = torch.empty((n, D), dtype=torch.float32, device=dev)
-    fn = _lib_fn("blend_bwd.cu", "segment_sum_launch",
-                 [_P] * 3 + [_I] * 2 + [_P] * 2)
+    fn = lib_fn("blend_bwd.cu", "segment_sum_launch",
+                [P] * 3 + [I] * 2 + [P] * 2)
     with torch.cuda.device(dev):
         err = fn(d_sorted.data_ptr(), gid_order.data_ptr(),
                  run_start.data_ptr(), n, D, d_flat.data_ptr(),
-                 _stream(dev))
+                 stream(dev))
     if err != 0:
         raise RuntimeError(f"segment_sum kernel launch failed: cudaError "
                            f"{err}")

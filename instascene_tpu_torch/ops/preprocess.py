@@ -8,18 +8,19 @@ rect shrink and the opt-in exact conic culling), :283-455
 (`mark_visible`), with the slab origin (`y_offset`, `full_height`) that
 the tile-slab sharded render folds into the homography.
 
-Three paths, chosen by what the call needs. CPU tensors run
-`preprocess_plain`, the eager chain in torch ops (~456 launches a view),
-differentiable. A CUDA call that needs no graph (viewer frames, the
-tracker, the semantic step's frozen geometry, binning caches, mesh export)
-launches csrc/preprocess.cu (`preprocess_kernel`): the same outputs bit for
-bit in one launch. A CUDA call under autograd whose geometry or SH require
-grad (the geometry training steps) takes the same launch inside
-`PreprocessFunction`, whose backward is csrc/preprocess.cu's second kernel
-(`preprocess_bwd_kernel`); only a call whose camera requires grad keeps the
-eager chain. `ops/blend_visits.LAUNCHES` counts the kernels' launches
-("preprocess", "preprocess_bwd") and the CUDA calls that took the eager
-chain ("preprocess_eager").
+Two paths, chosen by the device. CPU tensors run `preprocess_plain`, the
+eager chain in torch ops (~456 launches a view), differentiable in every
+input, the camera included: the kernels' plain version. A CUDA call that
+needs no graph (viewer frames, the tracker, the semantic step's frozen
+geometry, binning caches, mesh export) launches csrc/preprocess.cu
+(`preprocess_kernel`): the same outputs bit for bit in one launch. A CUDA
+call under autograd whose geometry or SH require grad (the geometry
+training steps) takes the same launch inside `PreprocessFunction`, whose
+backward is csrc/preprocess.cu's second kernel (`preprocess_bwd_kernel`);
+a CUDA call whose camera requires grad is refused (no path takes camera
+gradients on the card). `cuda_build.LAUNCHES` counts "preprocess" and
+"preprocess_bwd". `fma`, `fma_rows` and `cross` are the rounding below,
+shared with the blend's plain versions and mesh/tsdf.py.
 
 Convention: T[n] is a 3x3 matrix whose rows (Tu, Tv, Tw) map splat-tangent
 homogeneous coords (u, v, 1) to (x_pix·w, y_pix·w, w):
@@ -36,12 +37,12 @@ taken.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..cuda_build import LAUNCHES, F, I, P, lib_fn, ptr, stream
 from .sh import num_sh_coeffs, sh_to_color
 from ..utils.profiling import span
 
@@ -90,7 +91,7 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                         fma(a[:, 0], b[:, 1], -(a[:, 1] * b[:, 0]))], dim=1)
 
 
-def _rows(x: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+def fma_rows(x: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
     """einsum('nk,jk->nj', x, M), k = 3, as an fma chain."""
     acc = x[:, 0:1] * M[None, :, 0]
     acc = fma(x[:, 1:2], M[None, :, 1], acc)
@@ -176,10 +177,9 @@ def preprocess_gaussians(
     under grad mode, where xyz, scaling, rotation, opacity or shs (shs
     only without a given color) require grad, the same launch inside
     PreprocessFunction, differentiable by its backward kernel; where
-    w2v, full_proj or campos require grad, the eager chain, counted in
-    LAUNCHES["preprocess_eager"]. A given color is returned as
-    preprocess_plain returns it, color.to(float32), on every path."""
-    from . import blend_visits as bv
+    w2v, full_proj or campos require grad, a ValueError: camera gradients
+    are taken on the CPU. A given color is returned as preprocess_plain
+    returns it, color.to(float32), on every path."""
     args = (xyz, scaling, rotation, w2v, full_proj, campos, width, height,
             opacity, color, shs, sh_degree, alive, y_offset, full_height)
     with span("preprocess"):
@@ -188,8 +188,10 @@ def preprocess_gaussians(
         elif not torch.is_grad_enabled():
             pre = preprocess_kernel(*args)
         elif any(_needs_grad(t) for t in (w2v, full_proj, campos)):
-            pre = preprocess_plain(*args)
-            bv.LAUNCHES["preprocess_eager"] += 1
+            raise ValueError("preprocess_gaussians: camera gradients are "
+                             "taken on the CPU path (preprocess_plain); "
+                             "on CUDA w2v, full_proj and campos must not "
+                             "require grad")
         elif any(_needs_grad(t) for t in (
                 xyz, scaling, rotation, opacity,
                 shs if color is None else None)):
@@ -224,7 +226,7 @@ def preprocess_plain(xyz, scaling, rotation, w2v, full_proj, campos, width,
     xyz = xyz.to(f32)
     w2v = w2v.to(f32)
 
-    p_view = _rows(xyz, w2v[:3, :3]) + w2v[:3, 3]
+    p_view = fma_rows(xyz, w2v[:3, :3]) + w2v[:3, 3]
     in_frustum = p_view[:, 2] > 0.2
 
     R = quat_to_rotmat(rotation.to(f32))
@@ -239,12 +241,12 @@ def preprocess_plain(xyz, scaling, rotation, w2v, full_proj, campos, width,
     n2p_full = n2p[:, 0:1] * fp[0:1]                          # [3,4]
     for k in range(1, 4):
         n2p_full = fma(n2p[:, k:k + 1], fp[k:k + 1], n2p_full)
-    Tu_col = _rows(axis_u, n2p_full[:, :3])
-    Tv_col = _rows(axis_v, n2p_full[:, :3])
-    Tc_col = _rows(xyz, n2p_full[:, :3]) + n2p_full[:, 3]
+    Tu_col = fma_rows(axis_u, n2p_full[:, :3])
+    Tv_col = fma_rows(axis_v, n2p_full[:, :3])
+    Tc_col = fma_rows(xyz, n2p_full[:, :3]) + n2p_full[:, 3]
     T = torch.stack([Tu_col, Tv_col, Tc_col], dim=-1)          # [N,3,3]
 
-    normal_view = _rows(normal_world, w2v[:3, :3])
+    normal_view = fma_rows(normal_world, w2v[:3, :3])
     cos = -_sum3(p_view * normal_view)
     multiplier = torch.where(cos > 0, 1.0, -1.0)
     normal_view = normal_view * multiplier[:, None]
@@ -388,7 +390,6 @@ def preprocess_kernel(xyz, scaling, rotation, w2v, full_proj, campos, width,
     none; otherwise it evaluates SH of sh_degree from shs. The camera stays
     on the device. Each launch counts one in LAUNCHES["preprocess"]; with
     no gaussians nothing is launched or counted."""
-    from .blend_visits import LAUNCHES, _lib_fn, _ptr, _stream
     f32 = torch.float32
     dev = xyz.device
     n = xyz.shape[0]
@@ -423,17 +424,16 @@ def preprocess_kernel(xyz, scaling, rotation, w2v, full_proj, campos, width,
                else torch.empty((n, 3), dtype=f32, device=dev)))
     if n == 0:
         return out      # no gaussians: nothing to launch
-    _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = _lib_fn("preprocess.cu", "preprocess_launch",
-                 [_P] * 9 + [_I] * 5 + [_F] * 4 + [_P] * 11)
+    fn = lib_fn("preprocess.cu", "preprocess_launch",
+                [P] * 9 + [I] * 5 + [F] * 4 + [P] * 11)
     with torch.cuda.device(dev):
         err = fn(xyz.data_ptr(), scaling.data_ptr(), rotation.data_ptr(),
-                 opacity.data_ptr(), _ptr(alive), _ptr(shs),
+                 opacity.data_ptr(), ptr(alive), ptr(shs),
                  *[t.data_ptr() for t in cam[:3]], n, degree, k,
                  (width + TILE - 1) // TILE, (height + TILE - 1) // TILE,
                  *cam[3], *[t.data_ptr() for t in out[:9]],
                  None if color is not None else out.color.data_ptr(),
-                 _stream(dev))
+                 stream(dev))
     if err != 0:
         raise RuntimeError(f"preprocess kernel launch failed: cudaError "
                            f"{err}")
@@ -452,7 +452,6 @@ def preprocess_bwd_kernel(args, grads):
     preprocess_plain but for float rounding. Raises on what the kernel
     does not take. Each launch counts one in LAUNCHES["preprocess_bwd"];
     with no gaussians nothing is launched or counted."""
-    from .blend_visits import LAUNCHES, _lib_fn, _ptr, _stream
     (xyz, scaling, rotation, w2v, full_proj, campos, width, height, _, _,
      shs, sh_degree, _, y_offset, full_height) = args
     f32 = torch.float32
@@ -480,14 +479,13 @@ def preprocess_bwd_kernel(args, grads):
                                                 device=dev))
     if n == 0:
         return out      # no gaussians: nothing to launch
-    _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = _lib_fn("preprocess.cu", "preprocess_bwd_launch",
-                 [_P] * 7 + [_I] * 3 + [_F] * 4 + [_P] * 10)
+    fn = lib_fn("preprocess.cu", "preprocess_bwd_launch",
+                [P] * 7 + [I] * 3 + [F] * 4 + [P] * 10)
     with torch.cuda.device(dev):
         err = fn(xyz.data_ptr(), scaling.data_ptr(), rotation.data_ptr(),
-                 _ptr(shs), *[t.data_ptr() for t in cam[:3]], n, degree, k,
-                 *cam[3], _ptr(dT), _ptr(dnormal), _ptr(ddepth), _ptr(dxy),
-                 _ptr(dcolor), *[_ptr(t) for t in out], _stream(dev))
+                 ptr(shs), *[t.data_ptr() for t in cam[:3]], n, degree, k,
+                 *cam[3], ptr(dT), ptr(dnormal), ptr(ddepth), ptr(dxy),
+                 ptr(dcolor), *[ptr(t) for t in out], stream(dev))
     if err != 0:
         raise RuntimeError(f"preprocess backward kernel launch failed: "
                            f"cudaError {err}")
@@ -743,5 +741,5 @@ def conic_cull_masks(T: torch.Tensor, xy: torch.Tensor,
 
 def mark_visible(xyz: torch.Tensor, w2v: torch.Tensor) -> torch.Tensor:
     """Frustum visibility test: view z > 0.2."""
-    p_view = _rows(xyz, w2v[:3, :3]) + w2v[:3, 3]
+    p_view = fma_rows(xyz, w2v[:3, :3]) + w2v[:3, 3]
     return p_view[:, 2] > 0.2

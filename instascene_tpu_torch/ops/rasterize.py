@@ -269,12 +269,11 @@ def compute_binning_cache(params, cam: CameraMats, width: int,
     tile the conic cannot reach (off when dilating, as in the JAX
     package)."""
     with torch.no_grad():
+        g = params.raster_inputs()
         pre = preprocess_gaussians(
-            params.xyz, params.scaling_activated(),
-            params.rotation_normalized(), cam.w2v, cam.full_proj,
-            cam.campos, width, height, params.opacity_activated()[:, 0],
-            color=torch.zeros_like(params.xyz), alive=params.alive,
-            conic_cull=conic_cull and not dilate_tiles)
+            g.xyz, g.scales, g.rotations, cam.w2v, cam.full_proj, cam.campos,
+            width, height, g.opacities, color=torch.zeros_like(g.xyz),
+            alive=params.alive, conic_cull=conic_cull and not dilate_tiles)
         return bin_gaussians(pre, width, height, dilate_tiles=dilate_tiles)
 
 

@@ -1,7 +1,8 @@
 """Geometry training: the 2DGS train step and the trainer that drives it.
 
-Port of instascene_tpu/pipelines/train.py:36-151 (`rays_from_cam`,
-`render_for_training`, `geometry_loss_fn`, `train_step`, `eval_step`),
+Port of instascene_tpu/pipelines/train.py:36-151 (the pixel rays, now
+ops/depth_utils.pixel_rays, `render_for_training`, `geometry_loss_fn`,
+`train_step`, `eval_step`),
 :207-262 and :287-304 (`CameraTensors`, `camera_tensors`,
 `GeometryTrainer` and its `_cfg` rule) and :433-636 (the camera stack,
 `step` with the SH, λ and densification schedules, `evaluate`,
@@ -12,7 +13,9 @@ and profile window, train.py:87-136).
 One step: render → photometric (L1 + SSIM) + distortion + normal
 consistency (+ the optional mono-normal prior) → gradients by torch
 autograd, whose blend backward is K2, and of the zero t_offset tap →
-densification stats + Adam. The TPU scheduling around the JAX step (pair
+densification stats + Adam. Its activations and maps are render()'s
+(GaussianModel.raster_inputs, ops/depth_utils.surface_maps). The TPU
+scheduling around the JAX step (pair
 caps and their autotune, the slow-roll watchdog, device scalars) has no
 counterpart: buffers follow each frame's pair total. With `dp`, the
 trainer is one rank of a camera-batch data-parallel group (JAX :276-285,
@@ -41,27 +44,12 @@ from ..models import densify as dens
 from ..models.gaussians import GaussianModel, create_from_pcd, save_ply
 from ..models.optimizer import (TRAINABLE_FIELDS, adam_step, geometry_lrs,
                                 init_adam_state)
-from ..ops.depth_utils import depth_to_normal
+from ..ops.depth_utils import pixel_rays, surface_maps
 from ..ops.knn import mean_dist2_knn3
 from ..ops.rasterize import (CameraMats, RasterizeConfig,
                              densify_screen_grad, rasterize)
 from ..utils.general import get_expon_lr_func
 from ..utils.profiling import span, stage
-
-
-def rays_from_cam(width: int, height: int, tanfovx: float, tanfovy: float,
-                  c2w_rot: torch.Tensor) -> torch.Tensor:
-    """Per-pixel world ray directions [H,W,3] through integer pixel
-    coordinates, image centre W/2."""
-    dev = c2w_rot.device
-    fx = width / (2 * tanfovx)
-    fy = height / (2 * tanfovy)
-    x = (torch.arange(width, dtype=torch.float32, device=dev) - width / 2) / fx
-    y = (torch.arange(height, dtype=torch.float32, device=dev)
-         - height / 2) / fy
-    yy, xx = torch.meshgrid(y, x, indexing="ij")
-    return (xx[..., None] * c2w_rot[:, 0] + yy[..., None] * c2w_rot[:, 1]
-            + c2w_rot[:, 2])
 
 
 def render_for_training(params: GaussianModel, cam: CameraMats, bg,
@@ -70,28 +58,17 @@ def render_for_training(params: GaussianModel, cam: CameraMats, bg,
     """Render + the derived maps the losses read (channels-last):
     (RasterizeOut, rend_normal, surf_normal, alpha, surf_depth)."""
     with span("model"):
-        scales = params.scaling_activated()
-        rotations = params.rotation_normalized()
-        opacities = params.opacity_activated()[:, 0]
+        g = params.raster_inputs()
         shs = params.features()
         extras = params.seg_feature_normed()
-    out = rasterize(params.xyz, scales, rotations, opacities, cam, bg, cfg,
-                    shs=shs, sh_degree=params.active_sh_degree,
-                    extras=extras, t_offset=t_offset, alive=params.alive)
-    b = out.blend
-    R = cam.w2v[:3, :3]
-    rend_normal = (b.normal[..., 0:1] * R[0] + b.normal[..., 1:2] * R[1]
-                   + b.normal[..., 2:3] * R[2])
-    alpha = b.alpha[..., None]
-    alpha_ok = alpha > 0
-    depth_exp = torch.where(
-        alpha_ok, b.depth[..., None] / torch.where(alpha_ok, alpha, 1.0), 0.0)
-    depth_med = torch.nan_to_num(b.median_depth[..., None], 0.0)
-    surf_depth = depth_exp * (1 - depth_ratio) + depth_ratio * depth_med
-    rays = rays_from_cam(cfg.width, cfg.height, tanfovx, tanfovy, c2w_rot)
-    surf_normal = depth_to_normal(surf_depth[..., 0], rays, cam.campos)
-    surf_normal = surf_normal * alpha.detach()
-    return out, rend_normal, surf_normal, alpha, surf_depth
+    out = rasterize(*g, cam, bg, cfg, shs=shs,
+                    sh_degree=params.active_sh_degree, extras=extras,
+                    t_offset=t_offset, alive=params.alive)
+    rays = pixel_rays(cfg.width, cfg.height, tanfovx, tanfovy, c2w_rot)
+    rend_normal, _, _, surf_depth, surf_normal = surface_maps(
+        out.blend, cam.w2v, cam.campos, rays, depth_ratio)
+    return (out, rend_normal, surf_normal, out.blend.alpha[..., None],
+            surf_depth)
 
 
 @dataclass

@@ -26,7 +26,7 @@ masks; then the HDBSCAN instance export. Three opt-in variants:
     launch over their concatenated tables (tiles_per_view);
   * --sparse_px 1: only the drawn pixels blend (K5/K6); when a tile draws
     more than the S slots, the step takes the dense path instead (counted
-    in blend_visits.LAUNCHES["sparse_fallback"]).
+    in cuda_build.LAUNCHES["sparse_fallback"]).
 
 What differs from the JAX package:
   * the binning cache is each camera's BinningOut, computed once (no probe
@@ -36,8 +36,8 @@ What differs from the JAX package:
     step's draws are made before it renders, since they depend only on the
     segmaps, the samplers and the frozen visibility;
   * autograd reaches the features alone: the packed table is built from
-    detached geometry, as JAX differentiates with respect to seg_feature
-    only;
+    detached geometry (GaussianModel.raster_inputs(detach=True)), as JAX
+    differentiates with respect to seg_feature only;
   * the tile subset has no pair cap: K3/K4 walk each selected tile's
     whole range, so nothing is truncated (JAX's mv_trunc is always 0 here);
   * the merged window is one launch each way (JAX groups the views to fit
@@ -66,7 +66,9 @@ import torch
 import torch.distributed as dist
 
 from .. import resolve_device
+from ..cuda_build import LAUNCHES
 from ..models import gaussians as gmod
+from ..models.gaussians import normalize_features
 from ..models.optimizer import (GEOMETRY_FIELDS, adam_step, init_adam_state,
                                 semantic_lrs)
 from ..ops import blend_visits as bv
@@ -92,15 +94,13 @@ def render_features(params: gmod.GaussianModel, cam: CameraMats, bg,
     with span("model"):
         feat = seg_feature if seg_feature is not None else params.seg_feature
         if feat is not None:
-            feat = _normed(feat)
-        scales = params.scaling_activated().detach()
-        rotations = params.rotation_normalized().detach()
-        opacities = params.opacity_activated()[:, 0].detach()
+            feat = normalize_features(feat)
+        g = params.raster_inputs(detach=True)
         shs = params.features().detach()
-    return rasterize(params.xyz.detach(), scales, rotations, opacities, cam,
-                     bg, cfg, shs=shs, sh_degree=params.active_sh_degree,
-                     extras=feat, alive=params.alive,
-                     cached_binning=cached_binning, done0=done0)
+    return rasterize(*g, cam, bg, cfg, shs=shs,
+                     sh_degree=params.active_sh_degree, extras=feat,
+                     alive=params.alive, cached_binning=cached_binning,
+                     done0=done0)
 
 
 def _pix_to_tile(idx, width: int, tile: int, grid_x: int):
@@ -272,25 +272,17 @@ def single_view_and_3d_losses(seg_feature, fetch, cam: SemanticCamera,
         total = total + cl * hyp.lam_sv * (1.0 if mask_type == 1 else 0.5)
     if cam.vis3d_nv > 0:
         idx = draws["d3"].to(torch.int64)
-        f3 = seg_feature[idx]
-        f3 = f3 / (torch.linalg.norm(f3, dim=1, keepdim=True) + 1e-6)
+        f3 = normalize_features(seg_feature[idx])
         cl = contrastive_loss(f3, hyp.seg3d_labels[idx], scfg.max_labels,
                               predef_u=cf)
         total = total + cl * hyp.lam_3d
     return total
 
 
-def _normed(feat):
-    return feat / (torch.linalg.norm(feat, dim=1, keepdim=True) + 1e-6)
-
-
 def _pack_features(params, cam: CameraMats, cfg: RasterizeConfig, featn):
     """The packed table [N, 21+E] of one view with the normalised features
     featn as its extras, on detached geometry."""
-    d = lambda a: a.detach()
-    return pack_extras(d(params.xyz), d(params.scaling_activated()),
-                       d(params.rotation_normalized()),
-                       d(params.opacity_activated()[:, 0]), cam, cfg.width,
+    return pack_extras(*params.raster_inputs(detach=True), cam, cfg.width,
                        cfg.height, featn, params.alive)
 
 
@@ -332,7 +324,7 @@ def _mv_full_loss_merged(params, seg_feature, mv: SemanticMVBlock, hyp,
     segment sum take the gradient back. Each view's values are bit for bit
     its own render's."""
     cfg = scfg.raster
-    featn = _normed(seg_feature)
+    featn = normalize_features(seg_feature)
     W, H, grid_x, _ = _grid(mv.cams[0])
     flat, b, T = merge_binnings([
         (_pack_features(params, cam.mats, cfg, featn), cam.binning)
@@ -356,13 +348,11 @@ def _mv_tile_subsample_loss(params, seg_feature, mv: SemanticMVBlock, hyp,
     renders only its selected tiles (K3, K4 for the gradient), and idx
     draws uniformly over their label-valid pixels (_tile_labels)."""
     cfg = scfg.raster
-    featn = _normed(seg_feature)
-    d = lambda a: a.detach()
-    p = params
+    featn = normalize_features(seg_feature)
     feats = [rasterize_extras_tiles(
-        d(p.xyz), d(p.scaling_activated()), d(p.rotation_normalized()),
-        d(p.opacity_activated()[:, 0]), cam.mats, cfg, featn, cam.binning,
-        mv.sel_tiles[v], alive=p.alive).reshape(-1, featn.shape[1])
+        *params.raster_inputs(detach=True), cam.mats, cfg, featn,
+        cam.binning, mv.sel_tiles[v], alive=params.alive).reshape(
+            -1, featn.shape[1])
         for v, cam in enumerate(mv.cams)]
     idx = idx.to(torch.int64)
     return contrastive_loss(torch.cat(feats)[idx], _tile_labels(mv)[idx],
@@ -376,7 +366,7 @@ def _sparse_plan(cam: SemanticCamera, mv: Optional[SemanticMVBlock],
     one list per view ({"mv": ([spix per view], t_of, slot_of)}, t/slot
     merged by the view that owns each draw). None when some tile drew more
     than its S slots: the step then takes the dense path (one host read;
-    counted in LAUNCHES["sparse_fallback"])."""
+    counted in cuda_build.LAUNCHES["sparse_fallback"])."""
     W, H, _, T = _grid(cam)
     idx_all = torch.cat([i.to(torch.int64) for i in draws["sv"]])
     spix, t_of, slot_of, overflow = spix_from_idx(
@@ -397,7 +387,7 @@ def _sparse_plan(cam: SemanticCamera, mv: Optional[SemanticMVBlock],
             sl = s_v if sl is None else torch.where(own, s_v, sl)
         plan["mv"] = (spix_v, tl, sl)
     if bool(overflow):
-        bv.LAUNCHES["sparse_fallback"] += 1
+        LAUNCHES["sparse_fallback"] += 1
         return None
     return plan
 
@@ -417,7 +407,7 @@ def _mv_full_loss_sparse(params, seg_feature, mv: SemanticMVBlock, hyp,
     """The window's loss through per-view sparse renders: only the drawn
     pixels blend, each at the slot _sparse_plan gave it."""
     spix_v, tl, sl = plan_mv
-    featn = _normed(seg_feature)
+    featn = normalize_features(seg_feature)
     idx = idx.to(torch.int64)
     view_of = idx // mv.cams[0].sorted_segmap.numel()
     f_mv = 0.0
@@ -460,8 +450,9 @@ def semantic_loss(params, seg_feature, cam: SemanticCamera,
                 t, p2 = _pix_to_tile(idx, cfg.width, TILE, grid_x)
                 return tiles[t, :, p2]                       # [batch, E]
         else:
-            feat_sv = _sparse_view_feats(params, _normed(seg_feature), cam,
-                                         cfg, plan["sv"][0])
+            feat_sv = _sparse_view_feats(params,
+                                         normalize_features(seg_feature),
+                                         cam, cfg, plan["sv"][0])
             _, t_of, slot_of = plan["sv"]
             b = scfg.batch
 
@@ -694,10 +685,10 @@ class SegSplatting:
                          torch.zeros(hw, dtype=torch.bool, device=self.device))
                 row.append(valid_ids_pack(valid))
             with torch.no_grad():
+                g = p.raster_inputs()
                 pre = preprocess_gaussians(
-                    p.xyz, p.scaling_activated(), p.rotation_normalized(),
-                    ct.w2v, ct.full_proj, ct.campos, int(cam.width),
-                    int(cam.height), p.opacity_activated()[:, 0],
+                    g.xyz, g.scales, g.rotations, ct.w2v, ct.full_proj,
+                    ct.campos, int(cam.width), int(cam.height), g.opacities,
                     color=torch.zeros_like(p.xyz), alive=p.alive)
             row.append(valid_ids_pack(pre.valid & (pre.radius > 0)
                                       & lab3d_ok))
@@ -749,7 +740,7 @@ class SegSplatting:
             self._precompute_binning()
         if not hasattr(self, "sampling_packs"):
             self._precompute_sampling()
-        fallbacks0 = bv.LAUNCHES["sparse_fallback"]
+        fallbacks0 = LAUNCHES["sparse_fallback"]
         cf = None
         if self.class_feat is not None:
             cf = torch.as_tensor(np.pad(self.class_feat, (
@@ -797,7 +788,7 @@ class SegSplatting:
         if opt.sparse_px and first:
             print(f"sparse-pixel steps that took the dense path (a tile "
                   f"drew more than its slots): "
-                  f"{bv.LAUNCHES['sparse_fallback'] - fallbacks0}",
+                  f"{LAUNCHES['sparse_fallback'] - fallbacks0}",
                   flush=True)
         t1 = time.perf_counter()
         if first:

@@ -6,6 +6,10 @@ filling `gau_related_pixels` (render.py:181, :218). The pair-cap bookkeeping
 of the TPU path (high-water caps, deferred overflow checks) is gone: the
 binning sizes its buffers to the frame's pair total, so `n_dropped` is
 always 0.
+
+render() owns the API's options and the host-keyed ray cache; the model's
+activations are `GaussianModel.raster_inputs` and the surface maps
+`ops/depth_utils.surface_maps`, as in the geometry training step.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .ops.depth_utils import camera_rays, depth_to_normal
+from .ops.depth_utils import pixel_rays, surface_maps
 from .ops.rasterize import CameraMats, RasterizeConfig, rasterize
 from .utils.profiling import span
 
@@ -31,8 +35,8 @@ def camera_mats(cam, device) -> CameraMats:
 @lru_cache(maxsize=64)
 def _cached_rays(width, height, tanfovx, tanfovy, c2w_rot_bytes, device):
     c2w_rot = np.frombuffer(c2w_rot_bytes, dtype=np.float32).reshape(3, 3)
-    return torch.as_tensor(camera_rays(width, height, tanfovx, tanfovy,
-                                       c2w_rot), device=device)
+    return pixel_rays(width, height, tanfovx, tanfovy,
+                      torch.as_tensor(c2w_rot.copy(), device=device))
 
 
 def render(viewpoint_camera, gaussians, pipe, bg_color,
@@ -82,14 +86,13 @@ def render(viewpoint_camera, gaussians, pipe, bg_color,
                 sh_degree = int(p.active_sh_degree)
             else:
                 colors = override_color
-            scales = p.scaling_activated() * scaling_modifier
-            rotations = p.rotation_normalized()
-            opacities = p.opacity_activated()[:, 0]
+            g = p.raster_inputs()
+            scales = g.scales * scaling_modifier
 
-        out = rasterize(p.xyz, scales, rotations, opacities, cam, bg_color,
-                        cfg, colors=colors, shs=shs, sh_degree=sh_degree,
-                        extras=seg_feature, t_offset=t_offset,
-                        alive=p.alive)
+        out = rasterize(g.xyz, scales, g.rotations, g.opacities, cam,
+                        bg_color, cfg, colors=colors, shs=shs,
+                        sh_degree=sh_degree, extras=seg_feature,
+                        t_offset=t_offset, alive=p.alive)
         b = out.blend
         rend_alpha = b.alpha[..., None]
         common = {
@@ -115,33 +118,14 @@ def render(viewpoint_camera, gaussians, pipe, bg_color,
                     "surf_depth": z, "surf_normal": z3, "rend_depth": z,
                     "rend_median_depth": z}
 
-        # world-frame normal map: n_world = R_view^T n_view
-        R = cam.w2v[:3, :3]
-        rend_normal = (b.normal[..., 0:1] * R[0] + b.normal[..., 1:2] * R[1]
-                       + b.normal[..., 2:3] * R[2])
-
-        # expected depth = D / alpha with nan/inf → 0
-        alpha_ok = rend_alpha > 0
-        render_depth_expected = torch.where(
-            alpha_ok,
-            b.depth[..., None] / torch.where(alpha_ok, rend_alpha, 1.0), 0.0)
-        render_depth_median = torch.nan_to_num(b.median_depth[..., None], 0.0)
-        depth_ratio = getattr(pipe, "depth_ratio", 1.0)
-        surf_depth = (render_depth_expected * (1 - depth_ratio)
-                      + depth_ratio * render_depth_median)
-
         c2w_rot = np.ascontiguousarray(
             viewpoint_camera.c2w[:3, :3].astype(np.float32))
         rays = _cached_rays(width, height, float(viewpoint_camera.tanfovx),
                             float(viewpoint_camera.tanfovy), c2w_rot.tobytes(),
                             dev)
-        surf_normal = depth_to_normal(surf_depth[..., 0], rays, cam.campos)
-        surf_normal = surf_normal * rend_alpha.detach()
-
-        return {**common,
-                "rend_normal": rend_normal,
+        normal, depth, median, surf_depth, surf_normal = surface_maps(
+            b, cam.w2v, cam.campos, rays, getattr(pipe, "depth_ratio", 1.0))
+        return {**common, "rend_normal": normal,
                 "rend_dist": b.distortion[..., None],
-                "surf_depth": surf_depth,
-                "surf_normal": surf_normal,
-                "rend_depth": render_depth_expected,
-                "rend_median_depth": render_depth_median}
+                "surf_depth": surf_depth, "surf_normal": surf_normal,
+                "rend_depth": depth, "rend_median_depth": median}

@@ -104,7 +104,7 @@ def main() -> int:
     dev = torch.device(DEVICE)
     st, make_cam = make_bench_scene(n=N_GAUSS, seed=0, profile="trained")
     p = from_numpy(st, dev)
-    opac = p.opacity_activated()[:, 0]
+    g = p.raster_inputs()
     ms, sha, runs, walked, argsort_ms = {}, {}, {}, {}, {}
 
     def frame(cam, W, H, E, rects=False):
@@ -112,18 +112,17 @@ def main() -> int:
         fresh rects and the binning dilated by one tile (clip_rect)."""
         cm = camera_mats(make_cam(cam, W, H), dev)
         pre = preprocess_gaussians(
-            p.xyz, p.scaling_activated(), p.rotation_normalized(), cm.w2v,
-            cm.full_proj, cm.campos, W, H, opac, shs=p.features(),
-            sh_degree=3, alive=p.alive)
+            g.xyz, g.scales, g.rotations, cm.w2v, cm.full_proj, cm.campos,
+            W, H, g.opacities, shs=p.features(), sh_degree=3, alive=p.alive)
         extras = p.seg_feature_normed()[:, :E].contiguous() if E else None
         if not rects:
-            return (bv.pack_flat_cols(pre.T, pre.xy, pre.normal_view, opac,
-                                      pre.color, extras),
+            return (bv.pack_flat_cols(pre.T, pre.xy, pre.normal_view,
+                                      g.opacities, pre.color, extras),
                     bin_gaussians(pre, W, H), (W + 15) // 16)
         rmax = torch.where((pre.tiles_touched > 0)[:, None], pre.rect_max,
                            pre.rect_min)
-        return (bv.pack_flat_cols(pre.T, pre.xy, pre.normal_view, opac,
-                                  pre.color, extras,
+        return (bv.pack_flat_cols(pre.T, pre.xy, pre.normal_view,
+                                  g.opacities, pre.color, extras,
                                   rect=(pre.rect_min, rmax)),
                 bin_gaussians(pre, W, H, dilate_tiles=1), (W + 15) // 16)
 

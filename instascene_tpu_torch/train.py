@@ -71,13 +71,13 @@ def main(argv=None):
 def _dp_rank(rank: int, world: int, device, args) -> dict:
     """One rank of --dp: train, then rank 0's summary with every rank's
     state digest (equal digests: the replicas stayed bit for bit equal)
-    and kernel launches (ops/blend_visits.LAUNCHES of its process)."""
-    from .ops.blend_visits import LAUNCHES
+    and kernel launches (cuda_build.LAUNCHES of its process)."""
+    from .cuda_build import LAUNCHES
     from .parallel.data_parallel import gather_notes, state_digest
     args.device = str(device)
     tr = _train(args, dp=world)
     notes = gather_notes({"rank": rank, "digest": state_digest(
-        tr.params, tr.opt_state, tr.stats), "launches": dict(LAUNCHES)})
+        tr.params, tr.opt_state, tr.stats), "launches": LAUNCHES.copy()})
     return {"model_path": tr.scene.model_path, "n_alive": tr.params.n_alive(),
             "capacity": tr.params.capacity, "adam_count": tr.opt_state.count,
             "reports": tr.reports, "ranks": notes}

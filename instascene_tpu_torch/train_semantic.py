@@ -60,13 +60,13 @@ def _dp_rank(rank: int, world: int, device, args) -> dict:
     """One rank of --dp: train, then rank 0's summary with every rank's
     state digest, kernel launches and whether it computed or loaded the
     priors."""
-    from .ops.blend_visits import LAUNCHES
+    from .cuda_build import LAUNCHES
     from .parallel.data_parallel import gather_notes, state_digest
     args.device = str(device)
     seg = _train(args, dp=world)
     notes = gather_notes({"rank": rank, "priors": seg.priors,
                           "digest": state_digest(seg.params),
-                          "launches": dict(LAUNCHES)})
+                          "launches": LAUNCHES.copy()})
     return {"model_path": seg.model_path,
             "instances": int(seg.seg3d_masks.shape[1]),
             "last_loss": seg.last_loss, "timings": seg.timings,

@@ -36,13 +36,29 @@ import torch
 SPAN_TRACK = 0x5350414E
 
 
+# seconds of tiny kernels a trace's warm-up step runs on the card
+WARMUP_S = 0.05
+
+
 def _start():
-    from torch.profiler import ProfilerActivity, profile
+    """A torch.profiler recording from here on, past a warm-up step (its
+    events dropped) of tiny kernels for WARMUP_S: CUPTI can record no device
+    activity for ms after it starts (on an H100 late in a long process:
+    3.5 ms; one warm-up launch did not help, 20 ms of them did)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
-    prof = profile(activities=acts, record_shapes=False, with_stack=False)
+    prof = profile(activities=acts, record_shapes=False, with_stack=False,
+                   schedule=schedule(wait=0, warmup=1, active=1))
     prof.start()
+    if torch.cuda.is_initialized():
+        x = torch.zeros(1, device="cuda")
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < WARMUP_S:
+            x.add_(1)
+            torch.cuda.synchronize()
+    prof.step()
     return prof
 
 

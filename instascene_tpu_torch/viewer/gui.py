@@ -150,8 +150,7 @@ class SegmentationEngine:
         from ..render import render
         pkg = render(cam, self.params, self.pipe, self.bg_color,
                      viewer=not need_aux)
-        feat = pkg["seg_feature"]
-        feat = feat / (torch.linalg.norm(feat, dim=-1, keepdim=True) + 1e-6)
+        feat = gmod.normalize_features(pkg["seg_feature"])
         proj = torch.as_tensor(self.proj_mat, device=feat.device)
         feat_rgb = torch.clamp(feat @ proj * 0.5 + 0.5, 0, 1)
         # the frame's kernels finish first, so "copy" holds the copies alone

@@ -96,7 +96,8 @@ def test_plain_k1_matches_tpu_kernel(E, viewer):
 def test_empty_tiles_and_cpu_dispatch():
     """Empty tiles give final_T = 1 and zeros; a CPU tensor runs the plain
     version and launches nothing."""
-    from instascene_tpu_torch.ops.blend_visits import (LAUNCHES, blend_fwd,
+    from instascene_tpu_torch.cuda_build import LAUNCHES
+    from instascene_tpu_torch.ops.blend_visits import (blend_fwd,
                                                        blend_fwd_reference)
     _, _, (flat, gid, start, end) = _inputs(16)
     start = start.clone()

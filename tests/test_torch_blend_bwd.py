@@ -141,8 +141,9 @@ def test_reduction_and_counts():
     """reduce_per_gaussian sums each gaussian's slots (the sentinel-free
     index_add_ of JAX's VJP); the plain path launches no kernel; the
     backward's work count matches what n_contrib says."""
+    from instascene_tpu_torch.cuda_build import LAUNCHES
     from instascene_tpu_torch.ops.blend_visits import (
-        LAUNCHES, blend_bwd, blend_bwd_reference, blend_fwd_reference,
+        blend_bwd, blend_bwd_reference, blend_fwd_reference,
         reduce_per_gaussian)
     _, _, (flat, gid, start, end) = _inputs(16)
     out, iout = blend_fwd_reference(flat, gid, start, end, GRID_X, 16)

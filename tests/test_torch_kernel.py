@@ -122,7 +122,8 @@ def test_cuda_kernel_matches_plain(cuda, E, viewer):
     """On the card: csrc/blend_fwd.cu equals its plain version (n_contrib
     and med_slot exactly, every row within 3e-4), and viewer mode leaves
     the rows it does not compute exactly zero."""
-    from instascene_tpu_torch.ops.blend_visits import (LAUNCHES, blend_fwd,
+    from instascene_tpu_torch.cuda_build import LAUNCHES
+    from instascene_tpu_torch.ops.blend_visits import (blend_fwd,
                                                        blend_fwd_reference)
     args = (*_port_inputs(E, cuda), GRID_X, E)
     key = "K1 viewer" if viewer else "K1 full"
@@ -168,7 +169,7 @@ def test_cuda_rasterize_matches_goldens(cuda):
     channels go in zero-padded to the kernel's 16."""
     from instascene_tpu_torch.cameras import Camera
     from instascene_tpu_torch.data.synthetic import look_at
-    from instascene_tpu_torch.ops.blend_visits import LAUNCHES
+    from instascene_tpu_torch.cuda_build import LAUNCHES
     from instascene_tpu_torch.ops.rasterize import (CameraMats,
                                                     RasterizeConfig,
                                                     rasterize)
@@ -228,8 +229,9 @@ def test_cuda_k2_matches_plain(cuda, E, no_dist):
     the same inputs: per-slot rows and d_flat within 1e-4 of each column's
     largest |value| (the sums over a tile's pixels run in another order),
     and d_flat bit for bit equal over two runs."""
+    from instascene_tpu_torch.cuda_build import LAUNCHES
     from instascene_tpu_torch.ops.blend_visits import (
-        LAUNCHES, blend_bwd, blend_bwd_reference, blend_fwd,
+        blend_bwd, blend_bwd_reference, blend_fwd,
         reduce_per_gaussian)
     flat, b = _port_binned(E, cuda, boost=12.0)
     gid, n = b.sorted_gid, flat.shape[0]
@@ -266,8 +268,9 @@ def test_cuda_segment_sum_is_the_plain_version_bit_for_bit(cuda, D):
     of 0-3 slots in a shuffled slot order, one gaussian with a run of 4,096
     — is torch.equal to its plain version (index_add_ in slot order) run on
     the CPU: the kernel adds each gaussian's rows in slot order from 0."""
+    from instascene_tpu_torch.cuda_build import LAUNCHES
     from instascene_tpu_torch.ops.blend_visits import (
-        LAUNCHES, reduce_per_gaussian, reduce_per_gaussian_reference)
+        reduce_per_gaussian, reduce_per_gaussian_reference)
     rng = np.random.default_rng(30 + D)
     n = 20_000
     lens = rng.integers(0, 4, size=n)
@@ -297,7 +300,8 @@ def test_cuda_k1_extras_only_matches_plain(cuda, masked):
     """K1 extras_only on the card: iout equal to its plain version, final T
     and features within 3e-4; with done0 the sampled pixels equal K1
     `full`'s bit for bit and the latched ones are (T = 1, 0, n_contrib 0)."""
-    from instascene_tpu_torch.ops.blend_visits import (LAUNCHES, blend_fwd,
+    from instascene_tpu_torch.cuda_build import LAUNCHES
+    from instascene_tpu_torch.ops.blend_visits import (blend_fwd,
                                                        blend_fwd_reference)
     E = 16
     args = (*_port_inputs(E, cuda, boost=12.0), GRID_X, E)
@@ -348,8 +352,9 @@ def test_cuda_k2_extras_only_matches_plain(cuda, masked):
     """K2 extras_only and the segment sum at D = 16 on the card: per-slot
     rows and d_flat within 1e-4 of each column's largest |value| of the
     plain versions, and bit for bit equal over two runs."""
+    from instascene_tpu_torch.cuda_build import LAUNCHES
     from instascene_tpu_torch.ops.blend_visits import (
-        LAUNCHES, blend_bwd, blend_bwd_reference, blend_fwd,
+        blend_bwd, blend_bwd_reference, blend_fwd,
         reduce_per_gaussian)
     E = 16
     flat, b = _port_binned(E, cuda, boost=12.0)
@@ -439,8 +444,9 @@ def test_cuda_k3_k4_match_plain(cuda):
     K1 extras_only's row of its tile over the whole frame; K4's rows within
     1e-4 of each column's largest |value| of its plain version, zero for
     the slots of unlisted tiles, bit for bit equal over two runs."""
+    from instascene_tpu_torch.cuda_build import LAUNCHES
     from instascene_tpu_torch.ops.blend_visits import (
-        LAUNCHES, blend_bwd_reference, blend_fwd, blend_fwd_reference,
+        blend_bwd_reference, blend_fwd, blend_fwd_reference,
         reduce_per_gaussian)
     E = 16
     flat, b = _port_binned(E, cuda, boost=12.0)
@@ -482,8 +488,9 @@ def test_cuda_tiles_per_view_matches_plain(cuda):
     rows within 1e-4 of each column's largest |value| of its plain
     version, bit for bit equal over two runs."""
     from instascene_tpu_torch.ops.binning import merge_binnings
+    from instascene_tpu_torch.cuda_build import LAUNCHES
     from instascene_tpu_torch.ops.blend_visits import (
-        LAUNCHES, blend_bwd_reference, blend_fwd, blend_fwd_reference)
+        blend_bwd_reference, blend_fwd, blend_fwd_reference)
     E = 16
     views = [_port_binned(E, cuda, boost=12.0, view=v) for v in (1, 2, 3)]
     n = views[0][0].shape[0]
@@ -523,7 +530,8 @@ def test_cuda_k5_k6_match_plain(cuda):
     largest |value| of its plain version, and K6 + the segment sum bit for
     bit equal over two runs."""
     from instascene_tpu_torch.ops import blend_sparse as bs
-    from instascene_tpu_torch.ops.blend_visits import (LAUNCHES, blend_fwd,
+    from instascene_tpu_torch.cuda_build import LAUNCHES
+    from instascene_tpu_torch.ops.blend_visits import (blend_fwd,
                                                        reduce_per_gaussian)
     E = 16
     flat, b = _port_binned(E, cuda, boost=12.0)
@@ -673,6 +681,7 @@ def test_cuda_k7_k8_match_plain(cuda, E):
     plain version, zero past each tile's slots, bit for bit equal over two
     runs and bit for bit K2 `full`'s per-slot rows."""
     from instascene_tpu_torch.ops import blend_visits as bv
+    from instascene_tpu_torch.cuda_build import LAUNCHES
     from instascene_tpu_torch.ops.binning import padded_layout
     from instascene_tpu_torch.ops.blend_padded import (
         blend_bwd_padded, blend_bwd_padded_reference, blend_fwd_padded,
@@ -681,8 +690,8 @@ def test_cuda_k7_k8_match_plain(cuda, E):
     idx, count = padded_layout(b)
     packed = pack_inputs(flat, idx)
     T, D, K = packed.shape
-    want = {**bv.LAUNCHES, "K7": bv.LAUNCHES["K7"] + 1,
-            "K8": bv.LAUNCHES["K8"] + 2}
+    want = {**LAUNCHES, "K7": LAUNCHES["K7"] + 1,
+            "K8": LAUNCHES["K8"] + 2}
     out, iout = blend_fwd_padded(packed, count, GRID_X, E)
     saved = _saved(out, E)
     gen = torch.Generator(device="cpu").manual_seed(10 + E)
@@ -690,7 +699,7 @@ def test_cuda_k7_k8_match_plain(cuda, E):
     d1 = blend_bwd_padded(packed, count, GRID_X, E, gout, saved, iout)
     d2 = blend_bwd_padded(packed, count, GRID_X, E, gout, saved, iout)
     torch.cuda.synchronize()
-    assert bv.LAUNCHES == want and torch.equal(d1, d2)
+    assert LAUNCHES == want and torch.equal(d1, d2)
     ref, iref = blend_fwd_padded_reference(packed, count, GRID_X, E)
     assert torch.equal(iout, iref) and iout[:, 0].any()
     torch.testing.assert_close(out, ref, atol=3e-4, rtol=0)
@@ -724,6 +733,7 @@ def test_cuda_clip_rect_matches_plain_and_fresh(cuda, mode):
     (1e-4 of each column's largest), twice bit for bit, and its d_flat bit
     for bit the fresh binning's (the gated slots' rows are zeros)."""
     from instascene_tpu_torch.ops import blend_visits as bv
+    from instascene_tpu_torch.cuda_build import LAUNCHES
     E = 16
     flat, b = _port_binned(E, cuda, boost=12.0, dilate=1, clip_rect=True)
     fresh, bf = _port_binned(E, cuda, boost=12.0)
@@ -734,10 +744,10 @@ def test_cuda_clip_rect_matches_plain_and_fresh(cuda, mode):
     args = (flat, b.sorted_gid, b.tile_start, b.tile_end, GRID_X, E)
     fargs = (fresh, bf.sorted_gid, bf.tile_start, bf.tile_end, GRID_X, E)
     key = f"K1 {mode} clip_rect"
-    want = {**bv.LAUNCHES, key: bv.LAUNCHES[key] + 1}
+    want = {**LAUNCHES, key: LAUNCHES[key] + 1}
     out, iout = bv.blend_fwd(*args, clip_rect=True, **kw)
     torch.cuda.synchronize()
-    assert bv.LAUNCHES == want
+    assert LAUNCHES == want
     ref, iref = bv.blend_fwd_reference(*args, clip_rect=True, **kw)
     assert torch.equal(iout, iref)
     torch.testing.assert_close(out, ref, atol=3e-4, rtol=0)
@@ -769,16 +779,17 @@ def test_cuda_k3_k4_every_mode(cuda, mode):
     (K4, not viewer) within 1e-4 of each column's largest of its plain
     version, zero for the slots of unlisted tiles, twice bit for bit."""
     from instascene_tpu_torch.ops import blend_visits as bv
+    from instascene_tpu_torch.cuda_build import LAUNCHES
     E = 16
     flat, b = _port_binned(E, cuda, boost=12.0)
     n = flat.shape[0]
     args = (flat, b.sorted_gid, b.tile_start, b.tile_end, GRID_X, E)
     ids = torch.tensor([0, 3, 5, 6, 11], dtype=torch.int32, device=cuda)
     kw = dict(viewer=mode == "viewer", no_dist=mode == "no_dist")
-    want = {**bv.LAUNCHES, f"K3 {mode}": bv.LAUNCHES[f"K3 {mode}"] + 1}
+    want = {**LAUNCHES, f"K3 {mode}": LAUNCHES[f"K3 {mode}"] + 1}
     out, iout = bv.blend_fwd(*args, tile_ids=ids, **kw)
     torch.cuda.synchronize()
-    assert bv.LAUNCHES == want
+    assert LAUNCHES == want
     ref, iref = bv.blend_fwd_reference(*args, tile_ids=ids, **kw)
     assert out.shape == (5, 12 + E, 256) and torch.equal(iout, iref)
     torch.testing.assert_close(out, ref, atol=3e-4, rtol=0)

@@ -138,7 +138,7 @@ def test_semantic_step_variant_matches_jax(variant):
     from instascene_tpu_torch.config import OptimizationParams
     from instascene_tpu_torch.models.optimizer import (init_adam_state,
                                                        semantic_lrs)
-    from instascene_tpu_torch.ops.blend_visits import LAUNCHES
+    from instascene_tpu_torch.cuda_build import LAUNCHES
     from instascene_tpu_torch.pipelines import train_semantic as ts
     sparse, merged, window, anchors = VARIANTS[variant]
     params, mv, tp, bins = scene()
@@ -237,7 +237,7 @@ def test_cli_runs_with_each_flag(e2e, tmp_path, flags):
     fall back to the dense one)."""
     from instascene_tpu_torch import train_semantic
     from instascene_tpu_torch.data.ply import read_ply
-    from instascene_tpu_torch.ops.blend_visits import LAUNCHES
+    from instascene_tpu_torch.cuda_build import LAUNCHES
     src = shutil.copytree(e2e, str(tmp_path / "data" / "parent" / "scene"))
     out = str(tmp_path / "out")
     fallbacks = LAUNCHES["sparse_fallback"]

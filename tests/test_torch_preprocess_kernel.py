@@ -11,6 +11,9 @@ This file imports no JAX, so it also runs on a GPU machine without it:
 
 import functools
 import math
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -97,10 +100,11 @@ def _semantic_view(p, cam):
 
 
 # (call, its leaves require grad, the path it must take on the card:
-# "kernel" the forward alone, "graph" the kernel pair, "eager" the chain)
+# "kernel" the forward alone, "graph" the kernel pair, "refused" a
+# ValueError, as camera gradients are taken on the CPU alone)
 DISPATCH = {
     "grad": (_preprocess, True, "graph"),
-    "camera_grad": (_camera_grad, True, "eager"),
+    "camera_grad": (_camera_grad, True, "refused"),
     "no_grad": (_no_grad, True, "kernel"),
     "detached": (_geometry_detached, True, "kernel"),
     "leaves_without_grad": (_preprocess, False, "kernel"),
@@ -140,19 +144,19 @@ def _recorders(monkeypatch):
     recorders that count their launches as the kernels do: the forward
     returns preprocess_plain's outputs, the backward _plain_backward's
     gradients. Returns the list of the recorders' calls."""
-    from instascene_tpu_torch.ops import blend_visits as bv
+    from instascene_tpu_torch.cuda_build import LAUNCHES
     from instascene_tpu_torch.ops import preprocess as pre
     calls = []
 
     def kernel(*args):
         calls.append("preprocess")
-        bv.LAUNCHES["preprocess"] += 1
+        LAUNCHES["preprocess"] += 1
         with torch.no_grad():
             return pre.preprocess_plain(*args)
 
     def bwd_kernel(args, grads):
         calls.append("preprocess_bwd")
-        bv.LAUNCHES["preprocess_bwd"] += 1
+        LAUNCHES["preprocess_bwd"] += 1
         return _plain_backward(args, grads)
 
     monkeypatch.setattr(pre, "_on_card", lambda t: True)
@@ -173,27 +177,32 @@ def test_dispatch_on_the_card(case, monkeypatch):
     """With the device check answering "cuda" and the kernels replaced by
     recorders: a call under autograd on geometry that requires grad takes
     the kernel pair, one forward launch and, after a backward, one
-    backward launch; a call whose camera requires grad takes the eager
-    chain and counts preprocess_eager; every other call takes the forward
-    kernel alone, the viewer's and the tracker's renders on leaves that
-    require grad included, and the dispatcher counts nothing more."""
-    from instascene_tpu_torch.ops import blend_visits as bv
+    backward launch; a call whose camera requires grad is refused and
+    launches nothing; every other call takes the forward kernel alone, the
+    viewer's and the tracker's renders on leaves that require grad
+    included, and the dispatcher counts nothing more."""
+    from instascene_tpu_torch.cuda_build import LAUNCHES
     calls = _recorders(monkeypatch)
     call, requires_grad, path = DISPATCH[case]
     p, cam = _model(requires_grad)
-    before = dict(bv.LAUNCHES)
-    out = call(p, cam)
-    if path != "kernel":
-        _loss(out).backward()
-    got = {k: bv.LAUNCHES[k] - before[k] for k in bv.LAUNCHES}
+    before = LAUNCHES.copy()
+    if path == "refused":
+        with pytest.raises(ValueError, match="camera gradients are taken "
+                                             "on the CPU"):
+            call(p, cam)
+    else:
+        out = call(p, cam)
+        if path != "kernel":
+            _loss(out).backward()
+    got = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
     want = dict.fromkeys(got, 0)
     want.update({"kernel": {"preprocess": 1},
                  "graph": {"preprocess": 1, "preprocess_bwd": 1},
-                 "eager": {"preprocess_eager": 1}}[path])
+                 "refused": {}}[path])
     assert got == want
     assert calls == {"kernel": ["preprocess"],
                      "graph": ["preprocess", "preprocess_bwd"],
-                     "eager": []}[path]
+                     "refused": []}[path]
 
 
 def _step_inputs(lambda_dist, device="cpu"):
@@ -237,18 +246,18 @@ def test_step_gradients_through_the_kernel_pair(lambda_dist, monkeypatch):
     and for dL/dT from the t_offset tap: the Function routes each incoming
     gradient to its leaf, opacity's through pack alone. The step launches
     one forward and one backward and no eager call."""
-    from instascene_tpu_torch.ops import blend_visits as bv
+    from instascene_tpu_torch.cuda_build import LAUNCHES
     from instascene_tpu_torch.pipelines.train import step_gradients
     params, ct, cfg = _step_inputs(lambda_dist)
     run = lambda: step_gradients(params, ct, torch.zeros(3), 0.2,
                                  lambda_dist, 0.05, 0.0, cfg, 1.0)
     want = run()
     calls = _recorders(monkeypatch)
-    before = dict(bv.LAUNCHES)
+    before = LAUNCHES.copy()
     got = run()
     assert calls == ["preprocess", "preprocess_bwd"]
-    assert {k: bv.LAUNCHES[k] - before[k] for k in bv.LAUNCHES} == {
-        **dict.fromkeys(bv.LAUNCHES, 0), "preprocess": 1,
+    assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES} == {
+        **dict.fromkeys(LAUNCHES, 0), "preprocess": 1,
         "preprocess_bwd": 1}
     assert torch.equal(got.loss, want.loss)
     assert set(got.grads) == set(want.grads)
@@ -289,12 +298,12 @@ def test_cpu_tensors_take_the_plain_path(case):
     """CPU tensors run the plain version whatever autograd needs, and
     count no launch; its outputs keep a graph only where one was asked
     for."""
-    from instascene_tpu_torch.ops import blend_visits as bv
+    from instascene_tpu_torch.cuda_build import LAUNCHES
     call, requires_grad, _ = DISPATCH[case]
     p, cam = _model(requires_grad)
-    before = dict(bv.LAUNCHES)
+    before = LAUNCHES.copy()
     out = call(p, cam)
-    assert bv.LAUNCHES == before
+    assert LAUNCHES == before
     if case == "grad":
         assert out.T.requires_grad and out.color.requires_grad
     elif case == "no_grad":
@@ -303,21 +312,37 @@ def test_cpu_tensors_take_the_plain_path(case):
         assert not out["T"].requires_grad
 
 
+def test_preprocess_stands_below_the_blend():
+    """Importing ops/preprocess.py in a fresh interpreter loads its launch
+    plumbing from cuda_build and not ops/blend_visits.py, which imports
+    preprocess's constants: the two modules do not import each other."""
+    code = ("import sys, instascene_tpu_torch.ops.preprocess; "
+            "print(sorted(m for m in sys.modules if m in ("
+            "'instascene_tpu_torch.cuda_build', "
+            "'instascene_tpu_torch.ops.blend_visits')))")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == \
+        "['instascene_tpu_torch.cuda_build']"
+
+
 def test_no_gaussians_launch_nothing(monkeypatch):
     """The kernel path with no gaussians returns empty outputs and counts
     no launch (the kernel launches none)."""
-    from instascene_tpu_torch.ops import blend_visits as bv
+    from instascene_tpu_torch.cuda_build import LAUNCHES
     from instascene_tpu_torch.ops import preprocess as pre
     from instascene_tpu_torch.render import camera_mats
     p, cam = _model(False)
     cm = camera_mats(cam, "cpu")
     monkeypatch.setattr(pre, "_on_card", lambda t: True)
-    before = dict(bv.LAUNCHES)
+    before = LAUNCHES.copy()
     out = pre.preprocess_gaussians(
         p.xyz[:0], p.scaling_activated()[:0], p.rotation_normalized()[:0],
         cm.w2v, cm.full_proj, cm.campos, W, H, p.opacity_activated()[:0, 0],
         shs=p.features()[:0], sh_degree=3)
-    assert bv.LAUNCHES == before
+    assert LAUNCHES == before
     assert out.T.shape == (0, 3, 3) and out.rect_min.shape == (0, 2)
     assert out.color.shape == (0, 3) and out.valid.dtype == torch.bool
 
@@ -422,7 +447,7 @@ CASES = {
 def test_kernel_matches_eager_bit_for_bit(n, size, case, cuda):
     """Every output of the kernel against the eager chain on the same
     inputs, bit for bit; then binning of each gives the same pair list."""
-    from instascene_tpu_torch.ops import blend_visits as bv
+    from instascene_tpu_torch.cuda_build import LAUNCHES
     from instascene_tpu_torch.ops.binning import bin_gaussians
     from instascene_tpu_torch.ops.preprocess import (preprocess_gaussians,
                                                      preprocess_plain)
@@ -444,10 +469,10 @@ def test_kernel_matches_eager_bit_for_bit(n, size, case, cuda):
     args = (s["xyz"], s["scaling"], s["rotation"], cm.w2v, cm.full_proj,
             cm.campos, width, height, s["opacity"])
     want = preprocess_plain(*args, **kw)
-    before = bv.LAUNCHES["preprocess"]
+    before = LAUNCHES["preprocess"]
     got = preprocess_gaussians(*args, **kw)
     torch.cuda.synchronize()
-    assert bv.LAUNCHES["preprocess"] == before + 1
+    assert LAUNCHES["preprocess"] == before + 1
     bad = [f for f in FIELDS if not _same_bits(getattr(got, f),
                                                getattr(want, f))]
     assert not bad, f"fields differing from the eager chain: {bad}"
@@ -462,16 +487,16 @@ def test_kernel_matches_eager_bit_for_bit(n, size, case, cuda):
 @pytest.mark.cuda
 def test_kernel_counts_its_launch(cuda):
     """preprocess_kernel called directly counts its one launch."""
-    from instascene_tpu_torch.ops import blend_visits as bv
+    from instascene_tpu_torch.cuda_build import LAUNCHES
     from instascene_tpu_torch.ops.preprocess import preprocess_kernel
     s = _scene(300_000)
     cm = _camera(W, H, cuda)
-    before = dict(bv.LAUNCHES)
+    before = LAUNCHES.copy()
     preprocess_kernel(s["xyz"], s["scaling"], s["rotation"], cm.w2v,
                       cm.full_proj, cm.campos, W, H, s["opacity"],
                       shs=s["shs"], sh_degree=3)
     want = dict(before, preprocess=before["preprocess"] + 1)
-    assert bv.LAUNCHES == want
+    assert LAUNCHES == want
 
 
 @pytest.mark.cuda
@@ -608,7 +633,7 @@ def test_backward_matches_autograd(case, deg, cuda, monkeypatch):
     and no further from float64 autograd than twice the float32 chain's
     own gap, plus 1e-7; coefficients above the degree get exact zeros.
     One forward and one backward launch."""
-    from instascene_tpu_torch.ops import blend_visits as bv
+    from instascene_tpu_torch.cuda_build import LAUNCHES
     from instascene_tpu_torch.ops.preprocess import (preprocess_gaussians,
                                                      preprocess_plain)
     name, size = case
@@ -617,15 +642,15 @@ def test_backward_matches_autograd(case, deg, cuda, monkeypatch):
     kargs = list(args)
     for i, leaf in zip((0, 1, 2, 10), leaves):
         kargs[i] = leaf
-    before = dict(bv.LAUNCHES)
+    before = LAUNCHES.copy()
     out = preprocess_gaussians(*kargs[:9], shs=kargs[10], sh_degree=deg,
                                alive=kargs[12])
     got = torch.autograd.grad(
         [out.T, out.normal_view, out.depth, out.xy, out.color], leaves,
         grads)
     torch.cuda.synchronize()
-    assert {k: bv.LAUNCHES[k] - before[k] for k in bv.LAUNCHES} == {
-        **dict.fromkeys(bv.LAUNCHES, 0), "preprocess": 1,
+    assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES} == {
+        **dict.fromkeys(LAUNCHES, 0), "preprocess": 1,
         "preprocess_bwd": 1}
     with torch.no_grad():
         want_fwd = preprocess_plain(*args)
@@ -673,25 +698,24 @@ def test_backward_without_sh_or_some_gradients(cuda):
 @pytest.mark.cuda
 def test_geometry_step_launches_the_pair(cuda):
     """One geometry train_step on the card: one forward launch, one
-    backward launch, no eager preprocess."""
+    backward launch."""
     from instascene_tpu_torch.models import densify as dens
     from instascene_tpu_torch.models.optimizer import init_adam_state
-    from instascene_tpu_torch.ops import blend_visits as bv
+    from instascene_tpu_torch.cuda_build import LAUNCHES
     from instascene_tpu_torch.pipelines.train import train_step
     params, ct, cfg = _step_inputs(0.0, cuda)
     lrs = {"xyz": 1.6e-4, "features_dc": 2.5e-3,
            "features_rest": 2.5e-3 / 20, "opacity": 0.05, "scaling": 5e-3,
            "rotation": 1e-3, "seg_feature": 0.0}
-    before = dict(bv.LAUNCHES)
+    before = LAUNCHES.copy()
     train_step(params, init_adam_state(params),
                dens.init_stats(params.capacity, cuda), ct,
                torch.zeros(3, device=cuda), lrs, 0.2, 0.0, 0.05, 0.0, cfg,
                1.0)
     torch.cuda.synchronize()
-    got = {k: bv.LAUNCHES[k] - before[k] for k in
-           ("preprocess", "preprocess_bwd", "preprocess_eager")}
-    assert got == {"preprocess": 1, "preprocess_bwd": 1,
-                   "preprocess_eager": 0}
+    got = {k: LAUNCHES[k] - before[k] for k in
+           ("preprocess", "preprocess_bwd")}
+    assert got == {"preprocess": 1, "preprocess_bwd": 1}
 
 
 @pytest.mark.cuda

@@ -125,6 +125,39 @@ def test_render_matches_jax(viewer):
         np.testing.assert_allclose(a, b, atol=tol, rtol=1e-5, err_msg=key)
 
 
+def test_render_maps_equal_the_training_render():
+    """render()'s maps, surface maps included, are the geometry training
+    step's (render_for_training) bit for bit for one model and camera on
+    the CPU: one activation, one ray function and one surface-map function
+    serve both."""
+    from instascene_tpu_torch.config import PipelineParams
+    from instascene_tpu_torch.data.synthetic import make_bench_scene
+    from instascene_tpu_torch.models.gaussians import from_numpy
+    from instascene_tpu_torch.ops.rasterize import RasterizeConfig
+    from instascene_tpu_torch.pipelines.train import (camera_tensors,
+                                                      render_for_training)
+    from instascene_tpu_torch.render import render
+    W, H = 64, 48
+    st, mk = make_bench_scene(n=300, seed=4, profile="trained")
+    st["alive"] = np.random.default_rng(4).random(300) > 0.1
+    p = from_numpy(st, device="cpu")
+    cam = mk(3, W, H)
+    bg = np.array([0.2, 0.1, 0.3], np.float32)
+    pipe = PipelineParams()
+    pipe.depth_ratio = 0.5          # both depths enter surf_depth
+    got = render(cam, p, pipe, bg)
+    ct = camera_tensors(cam, "cpu")
+    out, normal, surf_normal, alpha, surf_depth = render_for_training(
+        p, ct.mats, bg, RasterizeConfig(W, H), None, ct.c2w_rot, ct.tanfovx,
+        ct.tanfovy, pipe.depth_ratio)
+    assert float(alpha.max()) > 0 and bool(surf_normal.any())
+    for key, want in (("render", out.blend.color), ("rend_alpha", alpha),
+                      ("seg_feature", out.blend.extra),
+                      ("rend_normal", normal), ("surf_depth", surf_depth),
+                      ("surf_normal", surf_normal)):
+        assert torch.equal(got[key], want), key
+
+
 def test_later_slice_options_raise():
     from instascene_tpu_torch.config import PipelineParams
     from instascene_tpu_torch.data.synthetic import make_bench_scene

@@ -128,8 +128,9 @@ def test_extras_only_cpu_wrappers_and_counts():
     and refuse done0 outside extras_only; K2 extras_only gives [pairs, E]
     rows, counts its work from n_contrib, and a pixel done0 latched takes
     no part in them."""
+    from instascene_tpu_torch.cuda_build import LAUNCHES
     from instascene_tpu_torch.ops.blend_visits import (
-        LAUNCHES, blend_bwd, blend_bwd_reference, blend_fwd)
+        blend_bwd, blend_bwd_reference, blend_fwd)
     _, _, (flat, gid, start, end) = _inputs(E)
     before = dict(LAUNCHES)
     d0 = torch.as_tensor(_done0(np.random.default_rng(3)))
