@@ -50,9 +50,13 @@ lines; any failure exits non-zero and prints no result:
    read just after: train_step on that scene (3 warm-up steps, then 20
    timed steps with the reference defaults, K1/K2 no_dist, and 10 with the
    2DGS bounded-scene recipe, lambda_dist 100 and depth_ratio 0), with the
-   stage split of each step, each step one preprocess and one preprocess
-   backward launch and no eager call; then the training CLI (train.main) on a COLMAP
-   scene written with the port's writers (8 orbit cameras with PNG images
+   stage split of each step, each step one preprocess, one preprocess
+   backward and one Adam launch and no eager call; then the Adam kernel
+   against the eager chain (models/optimizer.adam_plain) on the last
+   step's model and moments and at barn's and garden's gaussian counts,
+   every output bit for bit, timed, with its bound; then the training CLI
+   (train.main) on a COLMAP scene written with the port's writers (8 orbit
+   cameras with PNG images
    rendered by the port, the 300k centres as points3D.bin) for 30
    iterations with densification at 20 and 30 (at the thresholds of
    CLI_DENSIFY; each also prints what the reference's would leave), a test
@@ -1158,7 +1162,8 @@ def wrapped(stages):
 
 def train_phase(p0, make_cam, dev):
     """train_step at the benchmark's size in both recipes, with the stage
-    split of every timed step. Returns {recipe: summary}."""
+    split of every timed step. Returns ({recipe: summary}, the last
+    recipe's (model, Adam state))."""
     import torch
     from instascene_tpu_torch.config import OptimizationParams
     from instascene_tpu_torch.models import densify as dens
@@ -1218,7 +1223,98 @@ def train_phase(p0, make_cam, dev):
             check(all(np.isfinite(losses)), f"{recipe}: non-finite loss")
             results[recipe] = {"median_ms": med, "pairs": pairs,
                                "losses": losses}
-    return results
+    return results, (state[0], state[1])
+
+
+# the Adam kernel's model sizes beside the train scene's: barn's and
+# garden's gaussians (the geometry cells'), SH 3, no features
+ADAM_SIZES = (("barn", 1_660_000), ("garden", 2_960_000))
+ADAM_SHAPES = {"xyz": (3,), "features_dc": (1, 3), "features_rest": (15, 3),
+               "scaling": (2,), "rotation": (4,), "opacity": (1,)}
+# bytes a float moves: reads p, g, m, v and writes p, m, v; and one alive
+# byte a row
+ADAM_BYTES = 28
+
+
+def adam_inputs(p, state, gen):
+    """(fields, state, alive) of models/optimizer's adam_kernel/adam_plain
+    for model p and moments state: every trained field of p with a seeded
+    gradient, NaN on the dead rows' first element."""
+    import torch
+    fields = []
+    for f in ADAM_SHAPES:
+        x = getattr(p, f)
+        g = torch.randn(x.shape, generator=gen, device=x.device) * 1e-2
+        g.view(len(g), -1)[~p.alive, 0] = float("nan")
+        fields.append((f, x, g))
+    return fields, state, p.alive
+
+
+def adam_compare(label, fields, state, alive, lrs):
+    """adam_kernel against adam_plain (the eager chain, on the card) on
+    the same inputs: every output bit for bit (a NaN any NaN), both timed (CUDA events
+    around the call, the wrapper's host work included), the kernel's
+    device time alone from a trace, its bound from ADAM_BYTES."""
+    import torch
+    from instascene_tpu_torch.models.optimizer import adam_kernel, adam_plain
+    call = lambda fn: fn(fields, state, alive, lrs, 0.9, 0.999, 1e-15,
+                         state.count + 1)
+    got, want = call(adam_kernel), call(adam_plain)
+    torch.cuda.synchronize()
+    for f in got:
+        for name, a, b in zip(("p", "m", "v"), got[f], want[f]):
+            same = a.view(torch.int32) == b.view(torch.int32)
+            check(bool((same | (a.isnan() & b.isnan())).all()),
+                  f"adam kernel: {f}.{name} differs from the eager chain "
+                  f"({label}; NaN may be any NaN)")
+    del got, want
+    n = alive.shape[0]
+    floats = sum(x.numel() for _, x, _ in fields)
+    r = {"scene": label, "n": n, "floats": floats, "count": state.count + 1,
+         "ms": time_ms(lambda: call(adam_kernel), 20),
+         "trace_ms": traced_ms(lambda: call(adam_kernel), "adam_kernel"),
+         "eager_ms": time_ms(lambda: call(adam_plain), 5),
+         "bound_ms": (ADAM_BYTES * floats + n) / HBM_BPS * 1e3}
+    print(f"[adam] {label}, {n} gaussians ({floats} floats, {n - int(
+        alive.sum())} dead rows), count {r['count']}: kernel "
+          f"{r['ms']:.4f} ms a call (CUDA events), {r['trace_ms']:.4f} ms "
+          f"on the device (trace median, {100 * r['bound_ms'] / r[
+              'trace_ms']:.1f} % of its bound), bound {r['bound_ms']:.4f} "
+          f"ms, eager chain {r['eager_ms']:.4f} ms; every output bit for "
+          f"bit the eager chain's", flush=True)
+    return r
+
+
+def adam_phase(trained, dev):
+    """The Adam kernel (csrc/adam.cu) against the eager chain over the six
+    geometry fields (adam_compare): on the train steps' last model and
+    moments (trained), then on models of ADAM_SIZES with seeded moments, a
+    tenth of the rows dead. Leaves the launch counts as it found them:
+    its own launches are no path's. Returns the rows."""
+    import torch
+    from instascene_tpu_torch.config import OptimizationParams
+    from instascene_tpu_torch.cuda_build import LAUNCHES
+    from instascene_tpu_torch.models.gaussians import GaussianModel
+    from instascene_tpu_torch.models.optimizer import AdamState, geometry_lrs
+    before = counts()
+    lrs = geometry_lrs(OptimizationParams(), 1.0, 1e-4)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    p, state = trained
+    rows = [adam_compare("train steps", *adam_inputs(p, state, gen), lrs)]
+    for label, n in ADAM_SIZES:
+        r = lambda f: torch.randn((n,) + ADAM_SHAPES[f], generator=gen,
+                                  device=dev)
+        p = GaussianModel(**{f: r(f) for f in ADAM_SHAPES},
+                          alive=torch.rand(n, generator=gen, device=dev) > .1)
+        state = AdamState(m={f: r(f) * 1e-3 for f in ADAM_SHAPES},
+                          v={f: r(f).abs() * 1e-3 for f in ADAM_SHAPES},
+                          count=99)
+        rows.append(adam_compare(label, *adam_inputs(p, state, gen), lrs))
+        del p, state
+        torch.cuda.empty_cache()
+    reset_counts()
+    LAUNCHES.update(before)
+    return rows
 
 
 def write_colmap_scene(st, make_cam, dev, root):
@@ -3377,10 +3473,12 @@ NOT_LAUNCHES = ("sparse_fallback",)
 def launch_key(name):
     """The launch counter's key of a traced kernel name: K1/K2 (with K3/K4,
     the same instantiations over a tile list) by mode, the segment sum,
-    preprocess; None for any other kernel."""
+    preprocess, Adam; None for any other kernel."""
     from instascene_tpu_torch.ops import blend_visits as bv
     if "segment_sum_kernel" in name:
         return "segment_sum"
+    if "adam_kernel" in name:
+        return "adam"
     if "preprocess_bwd_kernel" in name:
         return "preprocess_bwd"
     if "preprocess_kernel" in name:
@@ -4434,14 +4532,17 @@ def main() -> int:
     # ---- 5. the training path at full width
     t_phase = time.perf_counter()
     reset_counts()
-    steps = train_phase(p_train, make_cam, dev)
+    steps, trained = train_phase(p_train, make_cam, dev)
     step_counts = counts()
     n_train = 2 * TRAIN["warm"] + TRAIN["steps"] + TRAIN["dist_steps"]
-    check({k: step_counts[k] for k in ("preprocess", "preprocess_bwd")}
-          == {"preprocess": n_train, "preprocess_bwd": n_train},
-          f"the {n_train} train steps did not each launch one preprocess "
-          f"and one backward: {step_counts}")
-    del p_train
+    check({k: step_counts[k] for k in ("preprocess", "preprocess_bwd",
+                                       "adam")}
+          == {"preprocess": n_train, "preprocess_bwd": n_train,
+              "adam": n_train},
+          f"the {n_train} train steps did not each launch one preprocess, "
+          f"one backward and one Adam: {step_counts}")
+    adam_k = adam_phase(trained, dev)
+    del p_train, trained
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         cli = cli_phase(st, make_cam, tmp)
@@ -4856,6 +4957,29 @@ def main() -> int:
             "bound_ms": r["bwd_bound_ms"], "bound_by": "bytes",
             "relative_gaps": r["bwd_gaps"]}}
         for r in pre_k["rows"]]
+    # Adam on the main paths' counted runs, one launch a step checked on
+    # the train steps
+    adam_paths = {
+        "train_steps": step_counts["adam"],
+        "training_cli": train_counts["adam"] - step_counts["adam"],
+        "semantic_steps": sem["counts"]["adam"],
+        "semantic_cli": sem_counts["adam"],
+        "blender_cli": bl["launches"]["adam"],
+        "eval_scene_geometry": ev["geometry"]["launches"]["adam"],
+        "eval_scene_semantic": ev["semantic"]["launches"]["adam"],
+        "data_parallel": sum(dpn(path, "adam") for path in dpl),
+        "bench": bl_("adam")}
+    kernels += [{
+        "name": "adam", "route": "cuda",
+        "source": "instascene_tpu_torch/csrc/adam.cu",
+        "replaces": "none (the JAX package leaves adam_step to XLA)",
+        "mode": f"six geometry fields, {r['scene']} ({r['n']} gaussians, "
+                f"{r['floats']} floats), count {r['count']}",
+        "launches": sum(adam_paths.values()),
+        "launches_by_path": adam_paths, "ms": r["ms"],
+        "trace_ms": r["trace_ms"], "plain_ms": r["eager_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None}
+        for r in adam_k]
     variants = {k: {"window_step_median_ms": sem[k]["mv"]["median_ms"],
                     "plain_step_median_ms": (sem[k]["plain"]["median_ms"]
                                              if "plain" in sem[k] else None),

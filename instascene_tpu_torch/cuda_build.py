@@ -12,8 +12,8 @@ separately rounded, as the plain PyTorch versions round them, so a kernel
 and its plain version agree to the last bit where they sum in the same
 order.
 
-It is also the kernel modules' launch plumbing (`lib_fn`, `stream`, `ptr`)
-and their launch counter (`LAUNCHES`, each module's own keys).
+It is also the kernel modules' launch plumbing (`lib_fn`, `stream`, `ptr`,
+`operand`) and their launch counter (`LAUNCHES`, each module's own keys).
 """
 
 from __future__ import annotations
@@ -122,6 +122,20 @@ def lib_fn(source: str, symbol: str, argtypes):
 def stream(dev) -> int:
     """The handle of dev's current CUDA stream, where the C entries launch."""
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def operand(name: str, t: torch.Tensor, shape, dev,
+            dtype=torch.float32, cast: bool = False) -> torch.Tensor:
+    """t as a kernel takes it: contiguous, of `dtype` (cast to it where
+    `cast`, else refused if it has another); raises unless it has `shape`
+    and lies on dev."""
+    if cast:
+        t = t.to(dtype)
+    if t.dtype != dtype or t.device != dev or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"kernel operand {name} must be {dtype} "
+                         f"{tuple(shape)} on {dev}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+    return t.contiguous()
 
 
 def ptr(a):

@@ -42,7 +42,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..cuda_build import LAUNCHES, F, I, P, lib_fn, ptr, stream
+from ..cuda_build import LAUNCHES, F, I, P, lib_fn, operand, ptr, stream
 from .sh import num_sh_coeffs, sh_to_color
 from ..utils.profiling import span
 
@@ -338,16 +338,6 @@ def preprocess_plain(xyz, scaling, rotation, w2v, full_proj, campos, width,
                          valid=valid, color=color)
 
 
-def _operand(name, t, shape, dev, dtype=torch.float32):
-    """t as the kernels take it (dtype, contiguous); raises unless it has
-    `shape` and lies on dev."""
-    t = t.to(dtype).contiguous()
-    if t.device != dev or tuple(t.shape) != shape:
-        raise ValueError(f"preprocess kernel: {name} must be {shape} on "
-                         f"{dev}, got {tuple(t.shape)} on {t.device}")
-    return t
-
-
 def _sh_operand(shs, sh_degree, n, dev):
     """(shs [n, K, 3] as the kernels take it, K); raises unless the degree
     is 0-3 and shs holds its coefficients."""
@@ -355,7 +345,7 @@ def _sh_operand(shs, sh_degree, n, dev):
         raise ValueError(f"preprocess kernel: SH degree {sh_degree} is not "
                          f"in 0-3")
     k = shs.shape[1] if shs.dim() == 3 else 0
-    shs = _operand("shs", shs, (n, k, 3), dev)
+    shs = operand("shs", shs, (n, k, 3), dev, cast=True)
     if k < num_sh_coeffs(sh_degree):
         raise ValueError(f"preprocess kernel: SH degree {sh_degree} needs "
                          f"{num_sh_coeffs(sh_degree)} coefficients, shs has "
@@ -374,9 +364,9 @@ def _camera(w2v, full_proj, campos, width, height, y_offset, full_height,
         oy = oy - np.float32(y_offset)
     n2p = [float(np.float32(v)) for v in (width / 2.0, (width - 1) / 2.0,
                                           full_h / 2.0, oy)]
-    return (_operand("w2v", w2v, (4, 4), dev),
-            _operand("full_proj", full_proj, (4, 4), dev),
-            _operand("campos", campos, (3,), dev), n2p)
+    return (operand("w2v", w2v, (4, 4), dev, cast=True),
+            operand("full_proj", full_proj, (4, 4), dev, cast=True),
+            operand("campos", campos, (3,), dev, cast=True), n2p)
 
 
 def preprocess_kernel(xyz, scaling, rotation, w2v, full_proj, campos, width,
@@ -393,16 +383,17 @@ def preprocess_kernel(xyz, scaling, rotation, w2v, full_proj, campos, width,
     f32 = torch.float32
     dev = xyz.device
     n = xyz.shape[0]
-    xyz = _operand("xyz", xyz, (n, 3), dev)
-    scaling = _operand("scaling", scaling, (n, 2), dev)
-    rotation = _operand("rotation", rotation, (n, 4), dev)
-    opacity = _operand("opacity", torch.reshape(opacity, (-1,)), (n,), dev)
+    xyz = operand("xyz", xyz, (n, 3), dev, cast=True)
+    scaling = operand("scaling", scaling, (n, 2), dev, cast=True)
+    rotation = operand("rotation", rotation, (n, 4), dev, cast=True)
+    opacity = operand("opacity", torch.reshape(opacity, (-1,)), (n,), dev,
+                      cast=True)
     cam = _camera(w2v, full_proj, campos, width, height, y_offset,
                   full_height, dev)
     if alive is not None:
-        alive = _operand("alive", alive, (n,), dev, torch.bool)
+        alive = operand("alive", alive, (n,), dev, torch.bool, cast=True)
     if color is not None:
-        color = _operand("color", color, (n, 3), dev)
+        color = operand("color", color, (n, 3), dev, cast=True)
         degree, k, shs = -1, 0, None
     elif shs is None:
         raise ValueError("preprocess_kernel: give color or shs")
@@ -457,9 +448,9 @@ def preprocess_bwd_kernel(args, grads):
     f32 = torch.float32
     dev = xyz.device
     n = xyz.shape[0]
-    xyz = _operand("xyz", xyz, (n, 3), dev)
-    scaling = _operand("scaling", scaling, (n, 2), dev)
-    rotation = _operand("rotation", rotation, (n, 4), dev)
+    xyz = operand("xyz", xyz, (n, 3), dev, cast=True)
+    scaling = operand("scaling", scaling, (n, 2), dev, cast=True)
+    rotation = operand("rotation", rotation, (n, 4), dev, cast=True)
     cam = _camera(w2v, full_proj, campos, width, height, y_offset,
                   full_height, dev)
     if shs is not None:
@@ -468,7 +459,7 @@ def preprocess_bwd_kernel(args, grads):
     else:
         degree, k = -1, 0
     dT, dnormal, ddepth, dxy, dcolor = [
-        None if g is None else _operand(name, g, shape, dev)
+        None if g is None else operand(name, g, shape, dev, cast=True)
         for name, g, shape in zip(
             ("dT", "dnormal", "ddepth", "dxy", "dcolor"), grads,
             ((n, 3, 3), (n, 3), (n,), (n, 2), (n, 3)))]
